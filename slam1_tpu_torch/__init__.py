@@ -2,12 +2,14 @@
 
 A second package beside `slam1_tpu/` (the JAX reference, unchanged),
 mirroring its layout and names: `ops/` (SE(3), camera, FAST/BRIEF
-detection, Hamming matching, RANSAC-PnP, the hand-written CUDA kernels
-in `csrc/`), `models/` (stereo frontend, tracker, VO) and `utils/`
-(synthetic data, ATE/RPE, interop with the JAX package's exports).
+detection, Hamming matching, RANSAC-PnP, k-means, CG, the hand-written
+CUDA kernels in `csrc/`), `models/` (stereo frontend, tracker, VO, map,
+BoW, loop closure, pose graph, the SLAM system) and `utils/` (synthetic
+data, ATE/RPE, interop with the JAX package's exports).
 It imports torch and numpy, never jax.
 
-Ported so far: the stereo visual-odometry main path (`models/vo.py`).
+Ported so far: stereo VO (`models/vo.py`) and the SLAM system without
+bundle adjustment (`models/pipeline.py`).
 """
 
 __version__ = "0.1.0"

@@ -30,6 +30,13 @@
 //  - row top-2 across column splits: each split writes its partial
 //    (d1, d2, idx); a second small kernel merges the splits in column
 //    order, keeping the lower index on ties.
+// Batched entry (slam_hamming_top2_batched): B independent ungated
+// problems of the same (N, M) in one launch, problem z on grid.z, each
+// with its own descriptors, masks, scratch and outputs. It serves the
+// loop-verification slate, the vmapped Pallas call of
+// slam1_tpu/models/loop_closure.py:verify_loop_slate. A problem whose
+// masks are all false (a padded slate entry) gives idx = 0 and
+// d1 = d2 = 2^20 on every row, like an all-sentinel row above.
 // Build with --fmad=false: the gate's float compares must see the
 // same differences as the plain twin.
 
@@ -45,9 +52,9 @@ constexpr int INF = 0x7fffffff;
 constexpr unsigned KEY_DIST_CLAMP = 511u;
 constexpr int KEY_ROW_BITS = 23;
 
-__global__ void col_init_kernel(unsigned* __restrict__ colkey, int M) {
+__global__ void col_init_kernel(unsigned* __restrict__ colkey, int total) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j < M) colkey[j] = 0xffffffffu;
+  if (j < total) colkey[j] = 0xffffffffu;
 }
 
 __global__ void hamming_kernel(
@@ -60,6 +67,15 @@ __global__ void hamming_kernel(
   __shared__ uint8_t smb[COLS];
   __shared__ float sx[COLS];
   __shared__ float sy[COLS];
+
+  // Problem z of a batch: every array advances by its own problem size.
+  const size_t z = blockIdx.z;
+  a += z * N * 8;
+  b += z * M * 8;
+  mask_a += z * N;
+  mask_b += z * M;
+  part += z * 3 * gridDim.y * static_cast<size_t>(N);
+  colkey += z * M;
 
   const int row = blockIdx.x * ROWS + threadIdx.x;
   const bool row_live = row < N;
@@ -143,6 +159,13 @@ __global__ void merge_kernel(const int* __restrict__ part,
                              int* __restrict__ idx_out,
                              int* __restrict__ col_best) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t z = blockIdx.y;
+  part += z * 3 * splits * static_cast<size_t>(N);
+  colkey += z * M;
+  d1_out += z * N;
+  d2_out += z * N;
+  idx_out += z * N;
+  col_best += z * M;
   if (t < N) {
     const size_t plane = static_cast<size_t>(splits) * N;
     int d1 = part[t], d2 = part[plane + t], i1 = part[2 * plane + t];
@@ -167,6 +190,30 @@ __global__ void merge_kernel(const int* __restrict__ part,
   }
 }
 
+int launch(const uint8_t* a, const uint8_t* b, const uint8_t* mask_a,
+           const uint8_t* mask_b, const float* uv_a, const float* uv_b,
+           int B, int N, int M, int gated, float dy_tol, float dx_lo,
+           float dx_hi, int splits, int* part, unsigned* colkey, int* d1,
+           int* d2, int* idx, int* col_best, cudaStream_t st) {
+  col_init_kernel<<<(B * M + 255) / 256, 256, 0, st>>>(colkey, B * M);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  const int tiles = (M + COLS - 1) / COLS;
+  const int cols_per_split = ((tiles + splits - 1) / splits) * COLS;
+  dim3 grid((N + ROWS - 1) / ROWS, splits, B);
+  hamming_kernel<<<grid, ROWS, 0, st>>>(
+      reinterpret_cast<const uint32_t*>(a),
+      reinterpret_cast<const uint32_t*>(b), mask_a, mask_b, uv_a, uv_b, N,
+      M, gated, dy_tol, dx_lo, dx_hi, cols_per_split, part, colkey);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  const int n = N > M ? N : M;
+  dim3 mgrid((n + 255) / 256, B);
+  merge_kernel<<<mgrid, 256, 0, st>>>(part, colkey, N, M, splits, d1, d2,
+                                      idx, col_best);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // a: (N, 32) uint8, b: (M, 32) uint8 packed descriptors (16-byte
@@ -182,21 +229,20 @@ extern "C" int slam_hamming_top2(const uint8_t* a, const uint8_t* b,
                                  int splits, int* part, unsigned* colkey,
                                  int* d1, int* d2, int* idx, int* col_best,
                                  void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  col_init_kernel<<<(M + 255) / 256, 256, 0, st>>>(colkey, M);
-  int err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  const int tiles = (M + COLS - 1) / COLS;
-  const int cols_per_split = ((tiles + splits - 1) / splits) * COLS;
-  dim3 grid((N + ROWS - 1) / ROWS, splits);
-  hamming_kernel<<<grid, ROWS, 0, st>>>(
-      reinterpret_cast<const uint32_t*>(a),
-      reinterpret_cast<const uint32_t*>(b), mask_a, mask_b, uv_a, uv_b, N,
-      M, gated, dy_tol, dx_lo, dx_hi, cols_per_split, part, colkey);
-  err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  const int n = N > M ? N : M;
-  merge_kernel<<<(n + 255) / 256, 256, 0, st>>>(part, colkey, N, M, splits,
-                                                d1, d2, idx, col_best);
-  return static_cast<int>(cudaGetLastError());
+  return launch(a, b, mask_a, mask_b, uv_a, uv_b, 1, N, M, gated, dy_tol,
+                dx_lo, dx_hi, splits, part, colkey, d1, d2, idx, col_best,
+                static_cast<cudaStream_t>(stream));
+}
+
+// The same for B ungated problems: a (B, N, 32), b (B, M, 32), mask_a
+// (B, N), mask_b (B, M); scratch part (B * 3 * splits * N), colkey
+// (B * M); outputs d1, d2, idx (B, N) and col_best (B, M).
+extern "C" int slam_hamming_top2_batched(
+    const uint8_t* a, const uint8_t* b, const uint8_t* mask_a,
+    const uint8_t* mask_b, int B, int N, int M, int splits, int* part,
+    unsigned* colkey, int* d1, int* d2, int* idx, int* col_best,
+    void* stream) {
+  return launch(a, b, mask_a, mask_b, nullptr, nullptr, B, N, M, 0, 0.0f,
+                0.0f, 0.0f, splits, part, colkey, d1, d2, idx, col_best,
+                static_cast<cudaStream_t>(stream));
 }

@@ -1,0 +1,775 @@
+"""Full SLAM driver: VO + mapping + BoW + place recognition + loop
+closure + pose-graph backend (counterpart of
+`slam1_tpu/models/pipeline.py`).
+
+Per frame, `slam_step` runs the frontend, temporal tracking, PnP, pose
+chaining, the keyframe policy, map insertion, landmark culling and the
+BoW histogram + loop-candidate query on the device of its inputs, and
+writes one packed metrics row into a device-side ring. It reads nothing
+back to the host beyond what `vo_step` reads, so the camera loop never
+waits on the device. The host-side `SlamSystem` drains the ring at a
+fixed cadence (one transfer per drain), triggers loop verification on
+the drained rows, and relaxes the pose graph on accepted loops.
+
+Not ported yet (construction raises NotImplementedError and names the
+ROADMAP item): windowed local BA (`ba.local_every > 0`), the
+asynchronous drain (`bow.poll_lag_s > 0`) and checkpoints
+(`runtime.checkpoint_every > 0`).
+
+State tables are updated in place (the reference donates its state);
+the state's `frame` is a host integer. Random draws come from a
+`DrawSource`; the default draws from seeded `torch.Generator`s.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+import warnings
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from slam1_tpu_torch.config import SlamConfig
+from slam1_tpu_torch.models import bow as bow_mod
+from slam1_tpu_torch.models import mapping
+from slam1_tpu_torch.models import posegraph
+from slam1_tpu_torch.models.frontend import stereo_frontend
+from slam1_tpu_torch.models.loop_closure import place_query, \
+    verify_loop_slate
+from slam1_tpu_torch.models.tracker import chain_pose, temporal_track
+from slam1_tpu_torch.ops import se3
+from slam1_tpu_torch.ops.camera import StereoCamera
+from slam1_tpu_torch.ops.pnp import uniform
+from slam1_tpu_torch.types import StereoObservations
+
+MAX_LOOP_EDGES = 128
+KF_FEATURES = 1024          # per-keyframe snapshot (top-K by corner score)
+PGO_BUCKETS = (512, 2048, 8192)
+LOOP_RANSAC_ITERS = 1024    # hypotheses of loop verification
+
+ROW_W = 16                  # packed metrics row width
+ROW_RING = 256              # device-side metrics ring capacity (frames)
+ALT_CAND_BASE = 10          # first runner-up (cand, chi2) pair in a row
+
+
+class StepDraws(NamedTuple):
+    pnp: torch.Tensor    # (K,N) RANSAC draws of temporal tracking
+    bow: torch.Tensor    # (N,) reservoir sample draws
+    bow2: torch.Tensor   # (N,) DB-row sample draws
+
+
+class DrawSource:
+    """Uniform draws in [1e-9, 1) for every random site of the system.
+
+    Each site has its own stream: the per-frame step, the one-off BoW
+    training, and loop verification, whose draws for a (hit, candidate,
+    salt) slate entry come from a generator seeded by that entry (as the
+    reference folds it into its key). `gen_device` is where the
+    generators live (default: `device`); draws are moved to `device`.
+    """
+
+    def __init__(self, seed: int, device, gen_device=None):
+        self.seed = int(seed)
+        self.device = torch.device(device)
+        self.gen_device = torch.device(gen_device or device)
+        self._gen = torch.Generator(self.gen_device)
+        self._gen.manual_seed(self.seed)
+
+    def _uniform(self, shape, gen=None):
+        u = uniform(shape, gen or self._gen, self.gen_device)
+        return u.to(self.device)
+
+    def init(self, n: int):
+        """(N,) reservoir and (N,) DB-row draws of the bootstrap frame."""
+        return self._uniform((n,)), self._uniform((n,))
+
+    def step(self, k: int, n: int) -> StepDraws:
+        return StepDraws(self._uniform((k, n)), self._uniform((n,)),
+                         self._uniform((n,)))
+
+    def train(self, r: int):
+        """(R,) draws of the k-means initialisation."""
+        g = torch.Generator(self.gen_device)
+        g.manual_seed(self.seed * 1000 + 999)
+        return self._uniform((r,), g)
+
+    def slate(self, hit_frames, cand_frames, salt: int, k: int, n: int):
+        """(B,K,N) RANSAC draws, one stream per slate entry."""
+        out = []
+        for hf, c in zip(hit_frames, cand_frames):
+            g = torch.Generator(self.gen_device)
+            g.manual_seed(((self.seed ^ 0x5A5A) << 32)
+                          | ((hf * 7919 + c * 31 + salt) & 0x7FFFFFFF))
+            out.append(self._uniform((k, n), g))
+        return torch.stack(out)
+
+
+class SlamState(NamedTuple):
+    T_w_cam: torch.Tensor
+    prev_obs: StereoObservations
+    xi_vel: torch.Tensor
+    frame: int                    # host integer
+    map: mapping.MapState
+    kf: mapping.KeyframeStore
+    bow: bow_mod.BowState
+    traj: torch.Tensor            # (F,4,4)
+    rel: torch.Tensor             # (F,6) twist of edge (i-1 -> i)
+    rel_mask: torch.Tensor        # (F,)
+    last_kf_frame: torch.Tensor   # () int32
+    last_kf_pos: torch.Tensor     # (3,) translation at the last keyframe
+    prev_lm: torch.Tensor         # (N,) int32 landmark row of each
+                                  # prev_obs slot (-1 unknown)
+    rows: torch.Tensor            # (ROW_RING, ROW_W) metrics ring: frame
+                                  # f's row lives at f % ROW_RING
+
+
+class StepOutput(NamedTuple):
+    loop_hit: bool
+    loop_candidate: int
+    loop_chi2: float
+    is_kf: bool
+    kf_n: int
+    num_stereo: int
+    num_inliers: int
+    mean_reproj_err: float
+    pnp_ok: bool
+    frame: int
+    alt_cands: tuple              # ((frame, chi2), ...) runner-ups
+
+
+def _unpack_row(row) -> StepOutput:
+    """(ROW_W,) float32 packed metrics row -> host StepOutput (layout:
+    _step_core's out_row)."""
+    r = np.asarray(row)
+    alts = tuple((int(r[k]), float(r[k + 1]))
+                 for k in range(ALT_CAND_BASE, ROW_W - 1, 2) if r[k] >= 0)
+    return StepOutput(
+        loop_hit=bool(r[0] > 0.5), loop_candidate=int(r[1]),
+        loop_chi2=float(r[2]), is_kf=bool(r[3] > 0.5), kf_n=int(r[4]),
+        num_stereo=int(r[5]), num_inliers=int(r[6]),
+        mean_reproj_err=float(r[7]), pnp_ok=bool(r[8] > 0.5),
+        frame=int(r[9]), alt_cands=alts)
+
+
+def _init_state(left, right, cam, cfg: SlamConfig,
+                draws: DrawSource) -> SlamState:
+    feats, obs = stereo_frontend(left, right, cam, cfg)
+    mf = cfg.mapping.max_frames
+    dev, dt = left.device, left.dtype
+    state = SlamState(
+        T_w_cam=torch.eye(4, dtype=dt, device=dev),
+        prev_obs=obs,
+        xi_vel=torch.zeros(6, dtype=dt, device=dev),
+        frame=0,
+        map=mapping.init_map(cfg.mapping, device=dev),
+        kf=mapping.init_kf_store(mf, KF_FEATURES, device=dev),
+        bow=bow_mod.init_bow(cfg.bow, mf, device=dev),
+        traj=torch.eye(4, dtype=dt, device=dev).repeat(mf, 1, 1),
+        rel=torch.zeros((mf, 6), dtype=dt, device=dev),
+        rel_mask=torch.zeros(mf, dtype=torch.bool, device=dev),
+        last_kf_frame=torch.zeros((), dtype=torch.int32, device=dev),
+        last_kf_pos=torch.zeros(3, dtype=dt, device=dev),
+        prev_lm=torch.full((obs.mask.shape[0],), -1, dtype=torch.int32,
+                           device=dev),
+        rows=torch.zeros((ROW_RING, ROW_W), dtype=dt, device=dev),
+    )
+    # Frame 0 is always a keyframe.
+    new_map, lm_of = mapping.insert(
+        state.map, obs.xyz, obs.desc, obs.mask, 0, obs.uv_l, cfg.mapping,
+        uv_r_u=obs.uv_r[:, 0], obs_row=0)
+    kf = mapping.kf_insert(state.kf, obs, state.T_w_cam, KF_FEATURES,
+                           frame=0, is_kf=True)
+    u_acc, u_add = draws.init(feats.mask.shape[0])
+    bw = bow_mod.accumulate(state.bow, u_acc, feats.desc, feats.mask,
+                            cfg.bow.sample_desc_per_frame)
+    bw = bow_mod.add_frame(bw, u_add, 0, feats.desc, feats.mask, is_kf=True)
+    return state._replace(map=new_map, prev_lm=lm_of, kf=kf, bow=bw)
+
+
+def _inherit_landmarks(match_idx, inherit, prev_lm):
+    """cur_lm[match_idx[i]] = prev_lm[i] for inheriting lanes i, -1
+    elsewhere; several lanes on one slot resolve as the reference's
+    scatter does (the highest lane wins)."""
+    n = prev_lm.shape[0]
+    lanes = torch.arange(n, device=prev_lm.device)
+    win = torch.full((n + 1,), -1, dtype=torch.int64, device=prev_lm.device)
+    win.scatter_reduce_(0, torch.where(inherit, match_idx.long(), n),
+                        torch.where(inherit, lanes, -1), "amax")
+    win = win[:n]
+    return torch.where(win >= 0, prev_lm[torch.clamp(win, min=0)], -1)
+
+
+def _step_core(state: SlamState, left, right, cam: StereoCamera,
+               cfg: SlamConfig, u: StepDraws):
+    feats, obs = stereo_frontend(left, right, cam, cfg)
+    track = temporal_track(state.prev_obs, feats, cam, cfg,
+                           xi_prior=state.xi_vel, u=u.pnp)
+    T_w, xi_used = chain_pose(state.T_w_cam, track.pnp, state.xi_vel)
+    frame = state.frame + 1
+
+    # Keyframe policy: every Nth frame or enough translation since the
+    # last keyframe.
+    mcfg = cfg.mapping
+    is_kf = (frame - state.last_kf_frame) >= mcfg.keyframe_every
+    if mcfg.keyframe_trans > 0:
+        dist = torch.linalg.norm(T_w[:3, 3] - state.last_kf_pos)
+        is_kf = is_kf | (dist > mcfg.keyframe_trans)
+    kf_row = state.kf.n                        # row this keyframe will take
+
+    # Feature-track landmark identity: the current slot inherits the
+    # landmark of the previous slot the tracker matched to it (inliers).
+    inherit = (track.match_mask & track.pnp.inliers & (state.prev_lm >= 0))
+    cur_lm = _inherit_landmarks(track.match_idx, inherit, state.prev_lm)
+
+    # Map: world points of this frame's stereo observations, recorded
+    # under the keyframe row.
+    xyz_w = se3.transform_points(T_w, obs.xyz)
+    new_map, lm_of = mapping.insert(
+        state.map, xyz_w, obs.desc, obs.mask & is_kf, frame, obs.uv_l,
+        mcfg, uv_r_u=obs.uv_r[:, 0], obs_row=kf_row, known_row=cur_lm)
+    new_prev_lm = torch.where(lm_of >= 0, lm_of, cur_lm)
+
+    # Landmark culling at a fixed cadence.
+    if (mcfg.cull_min_obs > 0 and mcfg.cull_every > 0
+            and frame % mcfg.cull_every == 0):
+        new_map = mapping.cull(new_map, frame, mcfg.cull_min_obs,
+                               mcfg.cull_max_age)
+
+    kf = mapping.kf_insert(state.kf, obs, T_w, KF_FEATURES, frame=frame,
+                           is_kf=is_kf)
+
+    # BoW: reservoir sample, DB row (keyframes only), query.
+    bw = bow_mod.accumulate(state.bow, u.bow, feats.desc, feats.mask,
+                            cfg.bow.sample_desc_per_frame)
+    bw = bow_mod.add_frame(bw, u.bow2, frame, feats.desc, feats.mask,
+                           is_kf=is_kf)
+    cands, chi2s = bow_mod.query_topk(bw, frame, feats.desc, feats.mask,
+                                      cfg.bow, k=4)
+    loop_hit = (cands[0] >= 0) & (chi2s[0] < cfg.bow.chi2_accept)
+
+    if frame < state.traj.shape[0]:     # past the end: dropped, as in JAX
+        state.traj[frame] = T_w
+        state.rel[frame] = xi_used
+        state.rel_mask[frame].fill_(True)
+
+    dt = left.dtype
+    out_row = torch.stack([
+        loop_hit.to(dt), cands[0].to(dt), chi2s[0].to(dt),
+        is_kf.to(dt), kf.n.to(dt),
+        torch.sum(obs.mask).to(dt),
+        track.pnp.num_inliers.to(dt), track.pnp.mean_err.to(dt),
+        track.pnp.ok.to(dt), torch.full((), frame, dtype=dt,
+                                        device=left.device),
+        cands[1].to(dt), chi2s[1].to(dt),
+        cands[2].to(dt), chi2s[2].to(dt),
+        cands[3].to(dt), chi2s[3].to(dt)])
+    state.rows[frame % ROW_RING] = out_row
+    new_state = SlamState(
+        T_w_cam=T_w, prev_obs=obs, xi_vel=xi_used, frame=frame,
+        map=new_map, kf=kf, bow=bw, traj=state.traj, rel=state.rel,
+        rel_mask=state.rel_mask,
+        last_kf_frame=torch.where(is_kf, frame, state.last_kf_frame),
+        last_kf_pos=torch.where(is_kf, T_w[:3, 3], state.last_kf_pos),
+        prev_lm=new_prev_lm, rows=state.rows)
+    return new_state, out_row, feats
+
+
+def slam_step(state: SlamState, left, right, cam: StereoCamera,
+              cfg: SlamConfig, draws: DrawSource):
+    """One frame: (state, left, right) -> (state, packed row, features)."""
+    u = draws.step(cfg.tracking.ransac_iters, state.prev_obs.mask.shape[0])
+    return _step_core(state, left, right, cam, cfg, u)
+
+
+def slam_step_block(state: SlamState, lefts, rights, cam: StereoCamera,
+                    cfg: SlamConfig, draws: DrawSource):
+    """K frames as a loop over slam_step (the reference scans them in
+    one program only to spread a remote TPU's per-program cost).
+    Returns (state, rows (K, ROW_W))."""
+    rows = []
+    for i in range(lefts.shape[0]):
+        state, row, _ = slam_step(state, lefts[i], rights[i], cam, cfg, draws)
+        rows.append(row)
+    return state, torch.stack(rows)
+
+
+def _pgo_step(traj, rel, rel_mask, kf_frames, le_i, le_j, le_z, le_w,
+              frame: int, map_xyz, map_last, map_valid,
+              bucket: int, iters: int, cg_iters: int, n_live: int):
+    """Pose-graph relaxation over the first `bucket` poses, then
+    landmark re-anchoring: each map point rides the pose correction of
+    its last-observation frame. `n_live`: poses [0, n_live) carry the
+    odometry; later rows of the bucket only ride along."""
+    traj_old = traj
+    t = traj[:bucket]
+    ei = torch.arange(bucket - 1, device=traj.device)
+    # rel[f] = log(T_f_{f-1}); the edge measurement is T_{f-1}_f.
+    z_odo = se3.exp_se3(-rel[1:bucket])
+    w_odo = rel_mask[1:bucket].to(torch.float32)
+    graph = posegraph.PoseGraph(
+        poses=t, ei=torch.cat([ei, le_i.long()]),
+        ej=torch.cat([ei + 1, le_j.long()]), z=torch.cat([z_odo, le_z]),
+        w=torch.cat([w_odo, le_w]))
+    opt, cost = posegraph.optimize(graph, iters=iters, cg_iters=cg_iters,
+                                   n_live=n_live)
+    # Never let a non-finite relaxation replace a finite trajectory.
+    opt = torch.where(torch.isfinite(opt).all(), opt, t)
+    traj = traj.clone()
+    traj[:bucket] = opt
+    t_w = traj[min(max(frame, 0), traj.shape[0] - 1)]
+    new_kf_poses = traj[torch.clamp(kf_frames.long(), 0, traj.shape[0] - 1)]
+    f_lm = torch.clamp(map_last.long(), 0, traj.shape[0] - 1)
+    d = traj[f_lm] @ se3.inverse(traj_old[f_lm])            # (CAP,4,4)
+    xyz2 = (d[:, :3, :3] @ map_xyz[..., None])[..., 0] + d[:, :3, 3]
+    xyz2 = torch.where(map_valid[:, None], xyz2, map_xyz)
+    return traj, t_w, new_kf_poses, xyz2, cost
+
+
+def _pack_slate_result(res) -> torch.Tensor:
+    """Batched LoopPairResult -> one (K,19) array [T.flat, anchor,
+    inliers, ok] per row, fetched with one transfer."""
+    dt = res.T_anchor_cand.dtype
+    k = res.ok.shape[0]
+    return torch.cat([
+        res.T_anchor_cand.reshape(k, 16),
+        torch.stack([res.anchor_frame.to(dt), res.num_inliers.to(dt),
+                     res.ok.to(dt)], dim=-1)], dim=-1)
+
+
+@dataclasses.dataclass
+class LoopEvent:
+    frame: int
+    candidate: int
+    chi2: float
+    num_inliers: int
+    accepted: bool
+
+
+class SlamSystem:
+    """Host-side orchestrator (the `slam.run(config)` API).
+
+    Nothing in the per-frame path reads the device: each slam_step
+    writes one packed metrics row into the device ring, and the host
+    drains the ring every `bow.loop_poll_every` frames with one
+    transfer. The backend (BoW-triggered and place-query loop
+    detection, slate verification, PGO) runs on the drained rows.
+    `draws` replaces the default DrawSource (seeded with `seed`).
+    """
+
+    def __init__(self, cam: StereoCamera, cfg: Optional[SlamConfig] = None,
+                 seed: int = 0, bow_train_frame: int = 30,
+                 draws: Optional[DrawSource] = None):
+        self.cam = cam
+        self.cfg = cfg or SlamConfig()
+        if self.cfg.ba.local_every != 0:
+            raise NotImplementedError(
+                "windowed local BA (ba.local_every > 0) is not ported yet: "
+                "ROADMAP.md Queue 1 item 13; set ba.local_every=0")
+        if self.cfg.bow.poll_lag_s > 0:
+            raise NotImplementedError(
+                "the asynchronous drain (bow.poll_lag_s > 0) is not ported "
+                "yet: ROADMAP.md Queue 1 item 14; set bow.poll_lag_s=0")
+        if self.cfg.runtime.checkpoint_every > 0:
+            raise NotImplementedError(
+                "checkpoints (runtime.checkpoint_every > 0) are not ported "
+                "yet: ROADMAP.md Queue 1 item 14")
+        self.seed = seed
+        self.bow_train_frame = bow_train_frame
+        self.draws = draws or DrawSource(seed, cam.fx.device)
+        self.state: Optional[SlamState] = None
+        self.loop_edges: list = []       # (i, j, Z (4,4) np, weight)
+        self.loop_events: list = []
+        self.metrics: list = []          # drained StepOutputs
+        self.frame_count = 0             # host mirror of state.frame
+        self._bow_trained = False
+        self._hit_history = []           # [(frame, [(cand, chi2)])]
+        self._last_drained = 0
+        self._verifying: list = []       # (rows, packed, depth) slates
+        self._last_place_kf = 0
+        self._defer_pgo = False
+        self.n_slates = 0                # slates dispatched
+        self.stage_seconds = {"place_query": [], "pgo": []}  # host s/call
+
+    # ------------------------------------------------------------- core
+    def process(self, left, right):
+        cfg = self.cfg
+        if self.state is None:
+            self.state = _init_state(left, right, self.cam, cfg, self.draws)
+            self.frame_count = 0
+            return None
+        if (self.frame_count - self._last_drained) + 1 > ROW_RING:
+            self._poll()                 # never let the ring wrap
+        self.state, out_row, _ = slam_step(self.state, left, right,
+                                           self.cam, cfg, self.draws)
+        self._after_frames(1)
+        return out_row
+
+    def process_block(self, lefts, rights):
+        """Process a (K,H,W) block of frames (bootstrap frame 0 with
+        process() first). Host cadences land on block boundaries."""
+        assert self.state is not None, "bootstrap with process() first"
+        k = int(lefts.shape[0])
+        assert k <= ROW_RING, (
+            f"block of {k} frames exceeds the {ROW_RING}-row metrics "
+            f"ring; split the block")
+        if (self.frame_count - self._last_drained) + k > ROW_RING:
+            self._poll()
+        self.state, _ = slam_step_block(self.state, lefts, rights, self.cam,
+                                        self.cfg, self.draws)
+        self._after_frames(k)
+
+    def _crossed(self, every: int, k: int) -> bool:
+        return every > 0 and (self.frame_count // every
+                              != (self.frame_count - k) // every)
+
+    def _after_frames(self, k: int):
+        self.frame_count += k
+        if (not self._bow_trained
+                and self.frame_count >= self.bow_train_frame):
+            self._train_bow()
+            self._bow_trained = True
+        if self._crossed(self.cfg.bow.loop_poll_every, k):
+            self._poll()
+
+    def _drain_rows(self):
+        """Undrained metrics rows from the device ring, oldest first, as
+        ONE transfer."""
+        n_new = self.frame_count - self._last_drained
+        if n_new <= 0:
+            return []
+        ring = self.state.rows.cpu().numpy()
+        start = self._last_drained + 1
+        if n_new > ROW_RING:
+            warnings.warn(f"metrics ring overflowed: "
+                          f"{n_new - ROW_RING} rows lost")
+            start = self.frame_count - ROW_RING + 1
+        rows = [ring[f % ROW_RING] for f in
+                range(start, self.frame_count + 1)]
+        self._last_drained = self.frame_count
+        return rows
+
+    def _poll(self):
+        """Consume drained metrics rows and launch backend work."""
+        cfg = self.cfg
+        self._consume_verifications()
+        rows = self._drain_rows()
+        if not rows:
+            return
+        drained = [_unpack_row(r) for r in rows]
+        self.metrics.extend(drained)
+        kf_n = int(drained[-1].kf_n)
+
+        # Brute-force place recognition, once per drain: the newest
+        # keyframe's snapshot against every stored one.
+        if (cfg.bow.place_query and kf_n > self._last_place_kf
+                and kf_n >= 2):
+            self._last_place_kf = kf_n
+            q_row = kf_n - 1
+            q_frame = int(self.state.kf.frame_of_row[q_row])
+            max_frame = q_frame - cfg.bow.query_exclude
+            if max_frame > 0:
+                pairs = self._place_pairs(q_row, q_frame, max_frame, kf_n)
+                if pairs:
+                    self._try_close_loop(pairs)
+
+        # Every drained hit row joins a rolling history; verification is
+        # keyframe-vs-keyframe, so consumption lag cannot invalidate it.
+        gate = cfg.bow.chi2_accept * self.ALT_CHI2_SLACK
+        newest = None
+        for r in drained:
+            if not r.loop_hit:
+                continue
+            hf = r.frame
+            cands = [(int(r.loop_candidate), float(r.loop_chi2))] + [
+                (c, v) for c, v in r.alt_cands if c >= 0 and v <= gate]
+            self._hit_history.append((hf, cands))
+            newest = (hf, cands)
+        del self._hit_history[:-self.HIT_HISTORY]
+        if self._bow_trained and newest:
+            # Progression-consistent confirmation: a genuine revisit's
+            # candidate advances with the camera (+-candidate_tol).
+            hf, cur = newest
+            tol = cfg.bow.candidate_tol
+            need = max(cfg.bow.confirm_polls - 1, 1)
+            confirmed = []
+            for c, v in cur:
+                support = 0
+                for phf, pcands in self._hit_history:
+                    gap = hf - phf
+                    if gap <= 0 or gap > self.HIT_WINDOW:
+                        continue
+                    if any(min(abs(c - p - gap), abs(c - p + gap)) <= tol
+                           for p, _ in pcands):
+                        support += 1
+                if support >= need:
+                    confirmed.append((c, v))
+            strong = cur[0][1] <= cfg.bow.chi2_strong
+            if confirmed or strong:
+                confirmed.sort(key=lambda cv: cv[1])
+                slate = list(confirmed) if confirmed else list(cur)
+                if strong and all(c != cur[0][0] for c, _ in slate):
+                    slate.insert(0, cur[0])
+                pairs = [(hf, c, v) for c, v in slate]
+                # A second, older anchor gives an independent slate.
+                for phf, pcands in reversed(self._hit_history[:-1]):
+                    if hf - phf >= self.SECOND_ANCHOR_GAP:
+                        pairs += [(phf, c, v) for c, v in pcands[:2]]
+                        break
+                self._try_close_loop(pairs)
+
+    def _place_pairs(self, q_row, q_frame, max_frame, kf_n):
+        """place_query of keyframe row q_row -> [(q_frame, cand, score)]."""
+        cfg = self.cfg
+        cap = self.state.kf.desc.shape[0]
+        n_rows = next((b for b in (128, 512, 1024, 2048, 8192)
+                       if b >= kf_n and b <= cap), cap)
+        t0 = time.perf_counter()
+        cands, scores = place_query(
+            self.state.kf, q_row, max_frame, n_rows,
+            k=cfg.bow.place_topk, thresh=cfg.bow.place_thresh,
+            nms_frames=cfg.bow.place_nms_frames)
+        cands, scores = cands.cpu().numpy(), scores.cpu().numpy()
+        self.stage_seconds["place_query"].append(time.perf_counter() - t0)
+        return [(q_frame, int(c), float(s))
+                for c, s in zip(cands, scores) if c >= 0]
+
+    def _train_bow(self):
+        u = self.draws.train(self.state.bow.reservoir.shape[0])
+        bw = bow_mod.train(self.state.bow, u, self.cfg.bow)
+        # Backfill DB rows of keyframes seen before the vocabulary.
+        chunk = 128
+        for s in range(0, self.frame_count + 1, chunk):
+            bw = bow_mod.backfill_chunk(bw, s, chunk)
+        self.state = self.state._replace(bow=bw)
+
+    # ----------------------------------------------------- loop closure
+    ALT_CHI2_SLACK = 1.5
+    MAX_VERIFY_PER_HIT = 6
+    HIT_HISTORY = 24
+    HIT_WINDOW = 32
+    SECOND_ANCHOR_GAP = 16
+    SLATE_K = 8
+    NEAR_MISS_MIN = 7
+
+    def _try_close_loop(self, pairs):
+        """Dispatch one slate of (hit_frame, cand_frame, chi2) pairs,
+        best first: each distinct candidate (beyond candidate_tol of one
+        already taken) not in an already-closed window nor under
+        verification."""
+        tol = self.cfg.bow.candidate_tol
+        inflight = [(phf, pc) for rows, _p, _d in self._verifying
+                    for phf, pc, _v in rows]
+
+        def _suppressed(hf, c):
+            if self._edge_is_dup(c, hf):
+                return True
+            for phf, pc in inflight:
+                gap = hf - phf
+                if gap < 0:
+                    continue
+                if min(abs(c - pc), abs(c - pc - gap),
+                       abs(c - pc + gap)) <= tol:
+                    return True
+            return False
+
+        todo = []
+        for hf, c, v in pairs:
+            if len(todo) >= self.MAX_VERIFY_PER_HIT:
+                break
+            if (c >= 0 and all(abs(c - c2) > tol for _, c2, _v in todo)
+                    and not _suppressed(hf, c)):
+                todo.append((hf, c, v))
+        if todo:
+            self._dispatch_slate(todo, depth=0)
+
+    def _dispatch_slate(self, rows, depth=0, salt=0):
+        """Verify a slate of [(hit_frame, cand_frame, chi2)] as one
+        batch, padded to SLATE_K with cand=-1 (ok=False rows); the
+        packed (K,19) result is consumed at the next poll."""
+        rows = rows[:self.SLATE_K]
+        pad = self.SLATE_K - len(rows)
+        hfs = [hf for hf, _c, _v in rows] + [0] * pad
+        cs = [c for _hf, c, _v in rows] + [-1] * pad
+        dev = self.state.kf.xyz.device
+        u = self.draws.slate(hfs, cs, salt, LOOP_RANSAC_ITERS,
+                             self.state.kf.xyz.shape[1])
+        res = verify_loop_slate(u, self.state.kf,
+                                torch.tensor(cs, device=dev),
+                                torch.tensor(hfs, device=dev),
+                                self.cam, self.cfg)
+        self.n_slates += 1
+        self._verifying.append((rows, _pack_slate_result(res), depth))
+
+    def _retry_rows(self, frame, cand, chi2, a_frame):
+        """Near-miss retry slate: the adjacent candidate keyframes against
+        the same anchor, the candidate against the preceding anchor, and
+        the original pair under fresh draws."""
+        ke = max(self.cfg.mapping.keyframe_every, 1)
+        rows = [(frame, cand, chi2), (frame, cand - ke, chi2),
+                (frame, cand + ke, chi2)]
+        if a_frame > 0:
+            rows.append((a_frame - 1, cand, chi2))
+        return [(hf, c, v) for hf, c, v in rows if c >= 0]
+
+    def _edge_is_dup(self, cand, anchor) -> bool:
+        """An accepted edge suppresses further edges of the same revisit
+        window (both endpoints within bow.rearm_frames)."""
+        wnd = max(self.cfg.bow.rearm_frames, 1)
+        return any(abs(cand - i) <= wnd and abs(anchor - j) <= wnd
+                   for i, j, _Z, _w in self.loop_edges)
+
+    def _apply_slate(self, rows, fetched, depth=0):
+        """Consume one fetched (K,19) slate: record events, accept
+        verified edges of distinct revisit windows, and collect one
+        depth-1 retry slate from near misses."""
+        packed = np.asarray(fetched)
+        retries = []
+        for k, (frame, cand, chi2) in enumerate(rows):
+            row = packed[k]
+            T_ac = row[:16].reshape(4, 4)
+            a_frame = int(row[16])
+            n_inl = int(row[17])
+            ok = bool(row[18] > 0.5)
+            self.loop_events.append(LoopEvent(
+                frame=frame, candidate=cand, chi2=chi2,
+                num_inliers=n_inl, accepted=ok))
+            if not ok:
+                if (depth == 0 and n_inl >= self.NEAR_MISS_MIN
+                        and not self._edge_is_dup(cand, frame)):
+                    retries += self._retry_rows(frame, cand, chi2, a_frame)
+                continue
+            if self._edge_is_dup(cand, a_frame):
+                continue
+            if not np.isfinite(T_ac).all():
+                continue
+            # Edge (cand, anchor): Z = T_cand_anchor = inv(T_anchor_cand)
+            Z = np.asarray(np.linalg.inv(np.asarray(T_ac)))
+            self.loop_edges.append((cand, a_frame, Z,
+                                    float(self.cfg.ba.pg_loop_weight)))
+            if not self._defer_pgo:
+                self._run_pgo()
+        if retries:
+            seen, uniq = [], []
+            for hf, c, v in retries:
+                if all((hf, c) != s for s in seen):
+                    seen.append((hf, c))
+                    uniq.append((hf, c, v))
+            self._dispatch_slate(uniq, depth=1, salt=1)
+
+    def _consume_verifications(self):
+        """Apply every dispatched slate (retries dispatched meanwhile
+        extend the list: drain until empty)."""
+        while self._verifying:
+            pending, self._verifying = self._verifying, []
+            for rows, packed, depth in pending:
+                self._apply_slate(rows, packed.cpu().numpy(), depth=depth)
+
+    def loop_edge_rows(self, cap: int = MAX_LOOP_EDGES):
+        """Fixed-capacity (le_i, le_j, le_z, le_w) loop edges with
+        endpoints as keyframe-row indices."""
+        rof = self.state.kf.row_of_frame.cpu().numpy()
+        le_i = np.zeros(cap, np.int32)
+        le_j = np.zeros(cap, np.int32)
+        le_z = np.tile(np.eye(4, dtype=np.float32), (cap, 1, 1))
+        le_w = np.zeros(cap, np.float32)
+        k = 0
+        for i, j, Z, w in self.loop_edges[-cap:]:
+            ri = int(rof[i]) if 0 <= i < rof.shape[0] else -1
+            rj = int(rof[j]) if 0 <= j < rof.shape[0] else -1
+            if ri < 0 or rj < 0:
+                continue
+            le_i[k], le_j[k], le_z[k], le_w[k] = ri, rj, Z, w
+            k += 1
+        dev = self.state.traj.device
+        return tuple(torch.as_tensor(a, device=dev)
+                     for a in (le_i, le_j, le_z, le_w))
+
+    def detect_loops_offline(self, stride_kf: int = 8,
+                             run_pgo: bool = True) -> int:
+        """Post-hoc loop sweep: every stride_kf-th keyframe is
+        place-queried against the whole store and its candidates
+        verified; one full relaxation at the end. Returns the number of
+        loop edges added."""
+        cfg = self.cfg
+        kf_n = int(self.state.kf.n)
+        if kf_n < 2:
+            return 0
+        fo = self.state.kf.frame_of_row[:kf_n].cpu().numpy()
+        n0 = len(self.loop_edges)
+        self._defer_pgo = True
+        try:
+            for q_row in range(stride_kf, kf_n, stride_kf):
+                q_frame = int(fo[q_row])
+                max_frame = q_frame - cfg.bow.query_exclude
+                if max_frame <= 0:
+                    continue
+                pairs = self._place_pairs(q_row, q_frame, max_frame, kf_n)
+                if pairs:
+                    self._try_close_loop(pairs)
+                self._consume_verifications()
+        finally:
+            self._defer_pgo = False
+        added = len(self.loop_edges) - n0
+        if run_pgo and added:
+            self._run_pgo(iters=self.cfg.ba.pg_iters)
+        return added
+
+    def _run_pgo(self, iters: Optional[int] = None):
+        st = self.state
+        n = self.frame_count + 1
+        f_cap = st.traj.shape[0]
+        bucket = next((b for b in PGO_BUCKETS if b >= n and b <= f_cap),
+                      f_cap)
+        edges = self.loop_edges
+        if len(edges) > MAX_LOOP_EDGES:
+            warnings.warn(
+                f"pose graph holds {len(edges)} loop edges; only the "
+                f"newest {MAX_LOOP_EDGES} are used (MAX_LOOP_EDGES)")
+            edges = edges[-MAX_LOOP_EDGES:]
+        le_i = np.zeros(MAX_LOOP_EDGES, np.int64)
+        le_j = np.zeros(MAX_LOOP_EDGES, np.int64)
+        le_z = np.tile(np.eye(4, dtype=np.float32), (MAX_LOOP_EDGES, 1, 1))
+        le_w = np.zeros(MAX_LOOP_EDGES, np.float32)
+        for k, (i, j, Z, w) in enumerate(edges):
+            le_i[k], le_j[k], le_z[k], le_w[k] = i, j, Z, w
+        dev = st.traj.device
+        t0 = time.perf_counter()
+        traj, t_w, kf_poses, map_xyz, _ = _pgo_step(
+            st.traj, st.rel, st.rel_mask, st.kf.frame_of_row,
+            *[torch.as_tensor(a, device=dev)
+              for a in (le_i, le_j, le_z, le_w)],
+            st.frame, st.map.xyz, st.map.last_frame, st.map.valid,
+            bucket=bucket,
+            iters=(iters or max(self.cfg.ba.pg_iters // 5, 3)),
+            cg_iters=self.cfg.ba.cg_iters, n_live=min(n, bucket))
+        kf_sel = torch.where((st.kf.frame_of_row >= 0)[:, None, None],
+                             kf_poses, st.kf.poses)
+        self.state = st._replace(traj=traj, T_w_cam=t_w,
+                                 kf=st.kf._replace(poses=kf_sel),
+                                 map=st.map._replace(xyz=map_xyz))
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        self.stage_seconds["pgo"].append(time.perf_counter() - t0)
+
+    # ------------------------------------------------------------ final
+    def finalize(self, run_pgo: bool = True):
+        self._poll()                       # catch a trailing loop hit
+        self._consume_verifications()      # ... and its verification
+        if run_pgo and self.loop_edges:
+            self._run_pgo(iters=self.cfg.ba.pg_iters)
+        return self.poses()
+
+    def poses(self) -> np.ndarray:
+        return self.state.traj[:self.frame_count + 1].cpu().numpy()
+
+
+def run(lefts, rights, cam: StereoCamera, cfg: Optional[SlamConfig] = None,
+        seed: int = 0, bow_train_frame: int = 30,
+        draws: Optional[DrawSource] = None):
+    """Batch API over pre-loaded (F,H,W) stacks. Returns (poses, system)."""
+    sys_ = SlamSystem(cam, cfg, seed, bow_train_frame, draws=draws)
+    for i in range(lefts.shape[0]):
+        sys_.process(lefts[i], rights[i])
+    return sys_.finalize(), sys_

@@ -99,3 +99,8 @@ def unpack_bits(desc_packed):
     shifts = torch.arange(8, dtype=torch.uint8, device=desc_packed.device)
     bits = (desc_packed[..., :, None] >> shifts) & 1
     return bits.reshape(desc_packed.shape[:-1] + (-1,))
+
+
+def unpack_bits_pm1(desc_packed):
+    """(..., B/8) uint8 -> (..., B) int8 in {-1,+1} (LSB first)."""
+    return unpack_bits(desc_packed).to(torch.int8) * 2 - 1

@@ -38,3 +38,19 @@ def hamming_top2(desc_a, desc_b, mask_a, mask_b, *, uv_a=None, uv_b=None,
     return fn(desc_a.contiguous(), desc_b.contiguous(), mask_a.contiguous(),
               mask_b.contiguous(), uv_a=uv_a, uv_b=uv_b, dy_tol=dy_tol,
               dx_lo=dx_lo, dx_hi=dx_hi)
+
+
+def hamming_top2_batched(desc_a, desc_b, mask_a, mask_b):
+    """B ungated Hamming top-2 problems -> (d1, d2, idx, col_best)."""
+    fn = (cuda_kernels.hamming_top2_batched_cuda if use_cuda(desc_a)
+          else cuda_kernels.hamming_top2_batched_plain)
+    return fn(desc_a.contiguous(), desc_b.contiguous(), mask_a.contiguous(),
+              mask_b.contiguous())
+
+
+def chain_sweep(jj_inv, ji, winv, v, n_live: int):
+    """The square-root chain preconditioner's two sweeps -> x (F,6)."""
+    fn = (cuda_kernels.chain_sweep_cuda if use_cuda(v)
+          else cuda_kernels.chain_sweep_plain)
+    return fn(jj_inv.contiguous(), ji.contiguous(), winv.contiguous(),
+              v.contiguous(), n_live)

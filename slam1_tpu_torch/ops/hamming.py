@@ -23,8 +23,8 @@ def _finish(d1, d2, best, col_best, mask_a, ratio, max_distance,
     ok = (d1 <= max_distance) & (d1.float() < ratio * d2.float())
     best = best.long()
     if cross_check:
-        rows = torch.arange(best.shape[0], device=best.device)
-        ok = ok & (col_best.long()[best] == rows)
+        rows = torch.arange(best.shape[-1], device=best.device)
+        ok = ok & (torch.gather(col_best.long(), -1, best) == rows)
     if mask_a is not None:
         ok = ok & mask_a
     return Matches(idx=best, distance=d1, mask=ok)
@@ -45,6 +45,16 @@ def match(desc_a, desc_b, mask_a=None, mask_b=None, *, ratio=0.8,
           max_distance=64, cross_check=True) -> Matches:
     """Best match with Lowe ratio test and optional mutual consistency."""
     d1, d2, best, col_best = _top2(desc_a, desc_b, mask_a, mask_b)
+    return _finish(d1, d2, best, col_best, mask_a, ratio, max_distance,
+                   cross_check)
+
+
+def match_batched(desc_a, desc_b, mask_a, mask_b, *, ratio=0.8,
+                  max_distance=64, cross_check=True) -> Matches:
+    """`match` over a leading batch axis: (B,N,32) x (B,M,32) with (B,N),
+    (B,M) masks, one kernel launch for the whole batch on CUDA."""
+    d1, d2, best, col_best = dispatch.hamming_top2_batched(
+        desc_a, desc_b, mask_a, mask_b)
     return _finish(d1, d2, best, col_best, mask_a, ratio, max_distance,
                    cross_check)
 

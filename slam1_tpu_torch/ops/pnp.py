@@ -15,7 +15,8 @@ Convention: solves T_ba minimizing || proj(T_ba @ X_a) - uv_b ||.
 
 RANSAC sampling draws a (K, N) uniform array in [1e-9, 1) — from a
 `torch.Generator`, or passed in as `u` (tests hand both sides the
-reference's exact draws) — and takes a Gumbel top-k over the mask.
+reference's exact draws) — and takes a Gumbel top-k over the mask. A
+leading batch axis runs B problems at once (the reference's `vmap`).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch
 from slam1_tpu_torch.config import TrackingConfig
 from slam1_tpu_torch.ops import se3
 from slam1_tpu_torch.ops.camera import StereoCamera, project
+from slam1_tpu_torch.ops.kmeans import gumbel_top
 from slam1_tpu_torch.ops.lsq import huber_weights, solve_spd6
 
 U_MIN = 1e-9
@@ -140,58 +142,92 @@ def _gn_refine(xi0, X, uv, w_pt, cam, iters: int, extra_weights=None):
     return xi
 
 
+def uniform(shape, generator: torch.Generator, device):
+    """Uniform draws in [1e-9, 1) of `shape` (the reference's
+    `jax.random.uniform(..., minval=1e-9, maxval=1.0)`)."""
+    u = torch.rand(shape, generator=generator, device=device)
+    return u * (1.0 - U_MIN) + U_MIN
+
+
 def draw_uniform(k: int, n: int, generator: torch.Generator, device):
     """(K,N) uniform draws in [1e-9, 1) for the Gumbel sampling."""
-    u = torch.rand((k, n), generator=generator, device=device)
-    return u * (1.0 - U_MIN) + U_MIN
+    return uniform((k, n), generator, device)
+
+
+def _take(a, idx):
+    """a[b, idx[b]] for a (B,K,...) and idx (B,): gather on the device
+    (indexing with a 0-d tensor would read it back to the host)."""
+    shape = (a.shape[0], 1) + a.shape[2:]
+    i = idx.reshape((-1, 1) + (1,) * (a.dim() - 2)).expand(shape)
+    return torch.gather(a, 1, i)[:, 0]
 
 
 def ransac_pnp(X, uv, mask, cam: StereoCamera, cfg: TrackingConfig,
                xi_init=None, point_weights=None, *, generator=None,
                u=None) -> PnPResult:
-    """RANSAC PnP over masked correspondences.
+    """RANSAC PnP over masked correspondences, optionally over a leading
+    batch axis of B independent problems (the reference vmaps it over a
+    loop-verification slate).
 
     Args:
-      X:    (N,3) 3D points in camera frame A.
-      uv:   (N,2) observed pixels in camera B.
-      mask: (N,)  valid correspondences.
-      xi_init: optional (6,) twist prior seeding every hypothesis.
-      point_weights: optional (N,) soft weights for the polish stage.
-      generator / u: source of the (K,N) sampling draws; exactly one.
+      X:    (N,3) or (B,N,3) 3D points in camera frame A.
+      uv:   (N,2) or (B,N,2) observed pixels in camera B.
+      mask: (N,)  or (B,N) valid correspondences.
+      xi_init: optional (6,) / (B,6) twist prior seeding every hypothesis.
+      point_weights: optional (N,) / (B,N) soft weights for the polish.
+      generator / u: source of the (K,N) / (B,K,N) sampling draws;
+        exactly one.
+    Returns a PnPResult with the same leading axes.
     """
-    n = X.shape[0]
+    single = X.dim() == 2
+    if single:
+        X, uv, mask = X[None], uv[None], mask[None]
+        xi_init = None if xi_init is None else xi_init[None]
+        point_weights = (None if point_weights is None
+                         else point_weights[None])
+        u = None if u is None else u[None]
+    res = _ransac_batched(X, uv, mask, cam, cfg, xi_init, point_weights,
+                          generator, u)
+    if single:
+        res = PnPResult(*[v[0] for v in res])
+    return res
+
+
+def _ransac_batched(X, uv, mask, cam, cfg, xi_init, point_weights,
+                    generator, u) -> PnPResult:
+    b, n = mask.shape
     k = cfg.ransac_iters
     s = cfg.ransac_sample
     dev, dt = X.device, X.dtype
     if xi_init is None:
-        xi_init = torch.zeros((6,), dtype=dt, device=dev)
+        xi_init = torch.zeros((b, 6), dtype=dt, device=dev)
     if u is None:
         if generator is None:
             raise ValueError("ransac_pnp needs a generator or draws u")
-        u = draw_uniform(k, n, generator, dev)
-    if u.shape != (k, n):
-        raise ValueError(f"draws u: expected {(k, n)}, got {tuple(u.shape)}")
+        u = uniform((b, k, n), generator, dev)
+    if u.shape != (b, k, n):
+        raise ValueError(f"draws u: expected {(b, k, n)}, "
+                         f"got {tuple(u.shape)}")
 
     # Sample s valid indices per hypothesis (Gumbel top-k over the mask;
     # a stable sort sends ties — masked -inf rows — to the lowest index).
-    gumbel = -torch.log(-torch.log(u.to(device=dev, dtype=dt)))
-    scores = torch.where(mask[None, :], gumbel,
-                         torch.full_like(gumbel, float("-inf")))
-    samples = torch.sort(scores, dim=1, descending=True,
-                         stable=True).indices[:, :s]            # (K,s)
-
-    xi0 = xi_init.expand(k, 6)
-    xis = _gn_refine(xi0, X[samples], uv[samples], mask[samples].to(dt),
-                     cam, cfg.gn_iters_hypo)                    # (K,6)
+    samples = gumbel_top(u.to(device=dev, dtype=dt), mask[:, None, :], s)
+    rows = torch.arange(b, device=dev)[:, None, None]
+    xi0 = xi_init[:, None, :].expand(b, k, 6).reshape(b * k, 6)
+    xis = _gn_refine(xi0, X[rows, samples].reshape(b * k, s, 3),
+                     uv[rows, samples].reshape(b * k, s, 2),
+                     mask[rows, samples].to(dt).reshape(b * k, s),
+                     cam, cfg.gn_iters_hypo).reshape(b, k, 6)
 
     # Score all hypotheses over the full set.
-    e2 = _reproj_err2(xis, X, uv, cam)                          # (K,N)
+    e2 = _reproj_err2(xis, X[:, None], uv[:, None], cam)        # (B,K,N)
     thresh2 = cfg.ransac_px_thresh ** 2
-    inl = (e2 < thresh2) & mask[None, :]
-    counts = torch.sum(inl, dim=1)
-    best = torch.argmax(counts)                 # first occurrence on ties
-    xi_best = xis[best]
-    inl_best = inl[best]
+    inl = (e2 < thresh2) & mask[:, None, :]
+    counts = torch.sum(inl, dim=2)
+    best = torch.argmax(counts, dim=1)          # first occurrence on ties
+    xi_best = _take(xis, best)
+    inl_best = _take(inl, best)
+    cnt_best = _take(counts, best)
 
     pw = (torch.ones_like(mask, dtype=dt) if point_weights is None
           else point_weights)
@@ -201,22 +237,21 @@ def ransac_pnp(X, uv, mask, cam: StereoCamera, cfg: TrackingConfig,
         hw = huber_weights(e2p, cfg.huber_delta)
         return (hw * inl_best * pw).repeat_interleave(2, dim=-1)
 
-    xi_pol = _gn_refine(xi_best[None], X[None], uv[None],
-                        mask.to(dt)[None], cam, cfg.gn_iters_polish,
-                        extra_weights=polish_weights)[0]
+    xi_pol = _gn_refine(xi_best, X, uv, mask.to(dt), cam,
+                        cfg.gn_iters_polish, extra_weights=polish_weights)
 
     e2_pol = _reproj_err2(xi_pol, X, uv, cam)
     inliers = (e2_pol < thresh2) & mask
-    num = torch.sum(inliers)
+    num = torch.sum(inliers, dim=1)
     # Keep the polished pose only if it didn't lose support.
-    use_pol = num >= counts[best]
-    xi_final = torch.where(use_pol, xi_pol, xi_best)
-    inliers = torch.where(use_pol, inliers, inl_best)
-    num = torch.maximum(num, counts[best])
+    use_pol = num >= cnt_best
+    xi_final = torch.where(use_pol[:, None], xi_pol, xi_best)
+    inliers = torch.where(use_pol[:, None], inliers, inl_best)
+    num = torch.maximum(num, cnt_best)
     e2_fin = _reproj_err2(xi_final, X, uv, cam)
     mean_err = torch.sqrt(
-        torch.sum(torch.where(inliers, e2_fin, torch.zeros_like(e2_fin)))
-        / torch.clamp(num, min=1)).to(dt)
+        torch.sum(torch.where(inliers, e2_fin, torch.zeros_like(e2_fin)),
+                  dim=1) / torch.clamp(num, min=1)).to(dt)
     ok = num >= cfg.min_track_points
     return PnPResult(T=se3.exp_se3(xi_final), inliers=inliers,
                      num_inliers=num, mean_err=mean_err, ok=ok)

@@ -114,9 +114,10 @@ def from_Rt(R, t):
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., None]], dim=-1)
-    # Built on the device (no host-to-device copy per call).
-    bottom = torch.zeros(batch + (1, 4), dtype=R.dtype, device=R.device)
-    bottom[..., 0, 3] = 1.0
+    # Built on the device: writing a Python scalar into a CUDA tensor
+    # would copy it from the host and synchronise.
+    bottom = torch.eye(4, dtype=R.dtype, device=R.device)[3:].expand(
+        batch + (1, 4))
     return torch.cat([top, bottom], dim=-2)
 
 

@@ -11,6 +11,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from slam1_tpu_torch.models.bow import BowState
+from slam1_tpu_torch.models.mapping import KeyframeStore, MapState
+from slam1_tpu_torch.models.pipeline import SlamState
 from slam1_tpu_torch.models.vo import VOState
 from slam1_tpu_torch.ops.camera import StereoCamera
 from slam1_tpu_torch.types import Features, StereoObservations
@@ -55,3 +58,32 @@ def vo_state(s_np, device=None, seed: int = 0) -> VOState:
                    prev_obs=observations(s_np.prev_obs, device),
                    xi_vel=tensor(s_np.xi_vel, device), generator=gen,
                    frame=int(np.asarray(s_np.frame)))
+
+
+def map_state(m_np, device=None) -> MapState:
+    return _convert(m_np, MapState, device)
+
+
+def kf_store(k_np, device=None) -> KeyframeStore:
+    return _convert(k_np, KeyframeStore, device)
+
+
+def bow_state(b_np, device=None) -> BowState:
+    return _convert(b_np, BowState, device)
+
+
+def slam_state(s_np, device=None) -> SlamState:
+    """The reference's SlamState without its PRNG key (the port's draws
+    come from a DrawSource); `frame` becomes a host integer."""
+    return SlamState(
+        T_w_cam=tensor(s_np.T_w_cam, device),
+        prev_obs=observations(s_np.prev_obs, device),
+        xi_vel=tensor(s_np.xi_vel, device),
+        frame=int(np.asarray(s_np.frame)),
+        map=map_state(s_np.map, device), kf=kf_store(s_np.kf, device),
+        bow=bow_state(s_np.bow, device),
+        traj=tensor(s_np.traj, device), rel=tensor(s_np.rel, device),
+        rel_mask=tensor(s_np.rel_mask, device),
+        last_kf_frame=tensor(s_np.last_kf_frame, device),
+        last_kf_pos=tensor(s_np.last_kf_pos, device),
+        prev_lm=tensor(s_np.prev_lm, device), rows=tensor(s_np.rows, device))

@@ -1,4 +1,4 @@
-"""The two CUDA kernels against their plain PyTorch twins, on the card.
+"""The CUDA kernels against their plain PyTorch twins, on the card.
 
 Every test here is marked `cuda` and skips where there is no card (the
 kernels have no CPU mode). The file imports torch and the port only,
@@ -7,12 +7,14 @@ so it also runs on a machine without jax:
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from slam1_tpu_torch.config import tiny_config
-from slam1_tpu_torch.models import vo
+from slam1_tpu_torch.models import pipeline, vo
 from slam1_tpu_torch.ops import cuda_kernels
 from slam1_tpu_torch.ops import fast as tfast
 from slam1_tpu_torch.utils import synthetic
@@ -98,6 +100,65 @@ def test_vo_slice_launches_both_kernels(cuda_device):
     cuda_kernels.reset_launch_counts()
     poses, metrics = vo.run_sequence(lefts, rights, world.cam, cfg)
     assert cuda_kernels.launch_counts() == {"fast_score": 5,
-                                            "hamming_top2": 9}
+                                            "hamming_top2": 9,
+                                            "hamming_top2_batched": 0,
+                                            "chain_sweep": 0}
     assert np.isfinite(poses).all()
     assert np.mean([bool(m.pnp_ok) for m in metrics]) > 0.5
+
+
+@pytest.mark.parametrize("b,n,m", [(8, 1024, 1024), (3, 300, 77)])
+def test_hamming_top2_batched_cuda_matches_plain(cuda_device, b, n, m):
+    rng = np.random.default_rng(b * n)
+    da = rng.integers(0, 256, (b, n, 32), dtype=np.uint8)
+    db = rng.integers(0, 256, (b, m, 32), dtype=np.uint8)
+    da[0, 1::2] = da[0, :-1:2]                  # ties
+    db[0, : min(n, m) // 2] = da[0, : min(n, m) // 2]
+    ma = rng.random((b, n)) > 0.2
+    mb = rng.random((b, m)) > 0.2
+    ma[-1] = False                              # a padded problem
+    mb[-1] = False
+    args = [torch.as_tensor(x).to(cuda_device) for x in (da, db, ma, mb)]
+    outk = cuda_kernels.hamming_top2_batched_cuda(*args)
+    outp = cuda_kernels.hamming_top2_batched_plain(*args)
+    for name, a, c in zip(("d1", "d2", "idx", "col_best"), outk, outp):
+        assert torch.equal(a, c), name
+    assert (outk[2][-1] == 0).all() and (outk[0][-1] == 1 << 20).all()
+
+
+@pytest.mark.parametrize("f,n_live", [(64, 64), (64, 20), (2048, 601)])
+def test_chain_sweep_cuda_matches_plain(cuda_device, f, n_live):
+    g = torch.Generator().manual_seed(f + n_live)
+    jj = torch.eye(6) + 1e-2 * torch.randn(f, 6, 6, generator=g)
+    ji = 0.3 * torch.randn(f, 6, 6, generator=g)
+    winv = torch.rand(f, generator=g) + 0.5
+    jj[n_live:] = torch.eye(6)
+    ji[n_live:] = 0.0
+    v = torch.randn(f, 6, generator=g)
+    ops = [x.to(cuda_device) for x in (jj, ji, winv, v)]
+    xk = cuda_kernels.chain_sweep_cuda(*ops, n_live)
+    xp = cuda_kernels.chain_sweep_plain(*ops, n_live)
+    assert torch.isfinite(xk).all()
+    scale = xp.abs().max().item()
+    assert (xk - xp).abs().max().item() <= 1e-4 * scale
+
+
+def test_slam_system_launches_the_kernels(cuda_device):
+    """A short loop clip through SlamSystem on CUDA tensors: every frame's
+    FAST and Hamming launches, and one batched launch per slate."""
+    cfg = tiny_config()
+    cfg = cfg.replace(ba=dataclasses.replace(cfg.ba, local_every=0))
+    h, w = cfg.image.height, cfg.image.width
+    world = synthetic.make_world(3, n_frames=24, n_points=1200,
+                                 trajectory="loop", image_hw=(h, w),
+                                 speed=0.9, device=cuda_device)
+    lefts, rights = synthetic.render_sequence(world, h, w)
+    cuda_kernels.reset_launch_counts()
+    sys_ = pipeline.SlamSystem(world.cam, cfg, bow_train_frame=8)
+    sys_.process(lefts[0], rights[0])
+    sys_.process_block(lefts[1:], rights[1:])
+    poses = sys_.finalize()
+    counts = cuda_kernels.launch_counts()
+    assert counts["fast_score"] == 24 and counts["hamming_top2"] == 47
+    assert counts["hamming_top2_batched"] == sys_.n_slates
+    assert np.isfinite(poses).all()
