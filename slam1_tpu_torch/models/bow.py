@@ -23,6 +23,7 @@ from slam1_tpu_torch.config import BowConfig
 from slam1_tpu_torch.ops.brief import unpack_bits_pm1
 from slam1_tpu_torch.ops.kmeans import assign_words, gumbel_top, kmeans_pm1
 from slam1_tpu_torch.models.mapping import scalar
+from slam1_tpu_torch.runtime import default_device
 
 
 class BowState(NamedTuple):
@@ -39,6 +40,8 @@ class BowState(NamedTuple):
 
 def init_bow(cfg: BowConfig, max_frames: int, desc_bits: int = 256,
              reservoir: int = 8192, device=None) -> BowState:
+    device = default_device(device)
+
     def z(*shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device=device)
 

@@ -29,6 +29,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from slam1_tpu_torch.config import MappingConfig
+from slam1_tpu_torch.runtime import default_device
 from slam1_tpu_torch.types import StereoObservations
 
 # Large primes for the 3D voxel hash.
@@ -52,6 +53,8 @@ class MapState(NamedTuple):
 
 def init_map(cfg: MappingConfig, desc_bytes: int = 32,
              dtype=torch.float32, device=None) -> MapState:
+    device = default_device(device)
+
     def z(*shape, dt=dtype):
         return torch.zeros(shape, dtype=dt, device=device)
 
@@ -282,6 +285,7 @@ class KeyframeStore(NamedTuple):
 
 def init_kf_store(max_frames: int, k: int, desc_bytes: int = 32,
                   dtype=torch.float32, device=None) -> KeyframeStore:
+    device = default_device(device)
     return KeyframeStore(
         xyz=torch.zeros((max_frames, k, 3), dtype=dtype, device=device),
         desc=torch.zeros((max_frames, k, desc_bytes), dtype=torch.uint8,

@@ -764,6 +764,28 @@ class SlamSystem:
     def poses(self) -> np.ndarray:
         return self.state.traj[:self.frame_count + 1].cpu().numpy()
 
+    def pose_graph(self, poses) -> posegraph.PoseGraph:
+        """The run's pose graph (odometry and loop edges, as _run_pgo
+        builds it, without padding) at the (F,4,4) trajectory `poses`,
+        on the CPU."""
+        st = self.state
+        f = poses.shape[0]
+        ei = torch.arange(f - 1)
+        le = self.loop_edges
+        z_loop = np.stack([z for _, _, z, _ in le]) if le else np.zeros(
+            (0, 4, 4), np.float32)
+        return posegraph.PoseGraph(
+            poses=torch.as_tensor(poses, dtype=torch.float32),
+            ei=torch.cat([ei, torch.tensor([i for i, _, _, _ in le],
+                                           dtype=torch.long)]),
+            ej=torch.cat([ei + 1, torch.tensor([j for _, j, _, _ in le],
+                                               dtype=torch.long)]),
+            z=torch.cat([se3.exp_se3(-st.rel[1:f].cpu()),
+                         torch.as_tensor(z_loop, dtype=torch.float32)]),
+            w=torch.cat([st.rel_mask[1:f].cpu().float(),
+                         torch.tensor([w for _, _, _, w in le],
+                                      dtype=torch.float32)]))
+
 
 def run(lefts, rights, cam: StereoCamera, cfg: Optional[SlamConfig] = None,
         seed: int = 0, bow_train_frame: int = 30,

@@ -10,8 +10,9 @@ so the result does not depend on the order of CUDA's atomic adds). CG
 is preconditioned
 with the exact inverse of the odometry chain in square-root form, two
 sequential sweeps that run as one launch of `csrc/chain_sweep.cu` on
-CUDA tensors (`dispatch.chain_sweep`). Edge arrays are fixed capacity
-with weight masks.
+CUDA tensors (`dispatch.chain_sweep`), on 6x6 blocks that one more
+launch fuses once per Gauss-Newton iteration (`dispatch.chain_prepare`).
+Edge arrays are fixed capacity with weight masks.
 """
 
 from __future__ import annotations
@@ -63,17 +64,19 @@ def _inv6(M):
     return torch.cat([top, bot], dim=-2)
 
 
-def _chain_sqrt_solve(JjInv, Ji, winv, v, n_live: Optional[int] = None):
+def _chain_sqrt_solve(JjInv, Ji, winv, v, n_live: Optional[int] = None,
+                      prep=None):
     """M^-1 v for the odometry-chain part M = A^T W A of the normal
     matrix, in factored form: A^-1 W^-1 A^-T v as a backward and a
     forward bidiagonal sweep around an elementwise scale (substitution
     growth is bounded by the chain adjoint, where a block-LDL^T of M
     overflows float32 on a 2000-pose chain). Row i in [1, F) holds chain
     edge (i-1, i); row 0 (gauge) is 0. Rows from `n_live` on must carry
-    no chain edge (default: all F rows are swept)."""
+    no chain edge (default: all F rows are swept). `prep` is
+    dispatch.chain_prepare's value for these JjInv, Ji and n_live."""
     f = v.shape[0]
     return dispatch.chain_sweep(JjInv, Ji, winv, v,
-                                f if n_live is None else n_live)
+                                f if n_live is None else n_live, prep)
 
 
 def _jacobians(T_i, T_j, Z):
@@ -89,6 +92,51 @@ def _jacobians(T_i, T_j, Z):
     Ji, Jj = torch.func.vmap(jac)(zero, zero, T_i[:, None], T_j[:, None],
                                   Z[:, None])
     return r0, Ji[:, 0, :, 0], Jj[:, 0, :, 0]
+
+
+def _linearize(graph: PoseGraph, poses):
+    """Residuals (E,6) and Jacobians (E,6,6) x 2 of every edge at
+    `poses`, zero on disabled edges. Masked before any weighting: a w=0
+    edge to an identity padding row can sit at the log map's
+    singularity, where the residual and Jacobians are NaN and 0 * NaN
+    would poison the solve."""
+    ei, ej = graph.ei.long(), graph.ej.long()
+    r0, Ji, Jj = _jacobians(poses[ei], poses[ej], graph.z)
+    evalid = (graph.w > 0)[:, None]
+    r0 = torch.where(evalid, r0, torch.zeros_like(r0))
+    Ji = torch.where(evalid[..., None], Ji, torch.zeros_like(Ji))
+    Jj = torch.where(evalid[..., None], Jj, torch.zeros_like(Jj))
+    return r0, Ji, Jj
+
+
+def _chain_blocks(graph: PoseGraph, Ji, Jj, damping: float):
+    """The chain preconditioner's operands (JjInv (F,6,6), JiC (F,6,6),
+    winv (F,)): chain edges in pose-indexed rows (row ej holds edge
+    (ej-1, ej)); rows without one keep the identity edge (Ji = 0,
+    Jj = I, w = 0 -> winv = 1/damping)."""
+    f = graph.poses.shape[0]
+    dt, dev = Ji.dtype, Ji.device
+    ei, ej = graph.ei.long(), graph.ej.long()
+    eye = torch.eye(6, dtype=dt, device=dev)
+    is_chain = (ej == ei + 1) & (graph.w > 0)
+    rows = torch.where(is_chain, ej, 0)
+    gate = is_chain[:, None, None]
+    zero66 = torch.zeros_like(Ji)
+    JiC = torch.zeros((f, 6, 6), dtype=dt, device=dev).index_add_(
+        0, rows, torch.where(gate, Ji, zero66))
+    JjC = eye.repeat(f, 1, 1).index_add_(
+        0, rows, torch.where(gate, Jj - eye, zero66))
+    wC = torch.zeros(f, dtype=dt, device=dev).index_add_(
+        0, rows, torch.where(is_chain, graph.w, torch.zeros_like(graph.w)))
+    return _inv6(JjC), JiC, 1.0 / (wC + damping)
+
+
+def chain_operands(graph: PoseGraph, damping: float = 1e-4):
+    """(JjInv, JiC, winv) of the graph linearised at its own poses: what
+    the first Gauss-Newton iteration of `optimize` hands to the chain
+    preconditioner."""
+    _, Ji, Jj = _linearize(graph, graph.poses)
+    return _chain_blocks(graph, Ji, Jj, damping)
 
 
 def optimize(graph: PoseGraph, iters: int = 10, cg_iters: int = 50,
@@ -107,11 +155,7 @@ def optimize(graph: PoseGraph, iters: int = 10, cg_iters: int = 50,
     ei, ej = graph.ei.long(), graph.ej.long()
     poses = graph.poses
     dt, dev = poses.dtype, poses.device
-    eye = torch.eye(6, dtype=dt, device=dev)
     w = graph.w[:, None]
-    evalid = (graph.w > 0)[:, None]
-    is_chain = (ej == ei + 1) & (graph.w > 0)
-    rows = torch.where(is_chain, ej, 0)
 
     def scatter(vals_i, vals_j):
         # Summed in float64, whose sum of a pose's few float32 terms is
@@ -123,14 +167,7 @@ def optimize(graph: PoseGraph, iters: int = 10, cg_iters: int = 50,
         return out.to(dt)
 
     for _ in range(iters):
-        r0, Ji, Jj = _jacobians(poses[ei], poses[ej], graph.z)
-        # Mask disabled edges before weighting: a w=0 edge to an identity
-        # padding row can sit at the log map's singularity, where the
-        # residual and Jacobians are NaN and 0 * NaN would poison the
-        # solve.
-        r0 = torch.where(evalid, r0, torch.zeros_like(r0))
-        Ji = torch.where(evalid[..., None], Ji, torch.zeros_like(Ji))
-        Jj = torch.where(evalid[..., None], Jj, torch.zeros_like(Jj))
+        r0, Ji, Jj = _linearize(graph, poses)
 
         rw = r0 * w
         b = -scatter(torch.einsum("eab,ea->eb", Ji, rw),
@@ -148,23 +185,13 @@ def optimize(graph: PoseGraph, iters: int = 10, cg_iters: int = 50,
 
         precond = None
         if chain_precond:
-            # Chain edges into pose-indexed rows (row ej holds edge
-            # (ej-1, ej)); rows without one keep the identity edge
-            # (Ji = 0, Jj = I, w = 0 -> winv = 1/damping).
-            gate = is_chain[:, None, None]
-            zero66 = torch.zeros_like(Ji)
-            JiC = torch.zeros((f, 6, 6), dtype=dt, device=dev).index_add_(
-                0, rows, torch.where(gate, Ji, zero66))
-            JjC = eye.repeat(f, 1, 1).index_add_(
-                0, rows, torch.where(gate, Jj - eye, zero66))
-            wC = torch.zeros(f, dtype=dt, device=dev).index_add_(
-                0, rows, torch.where(is_chain, graph.w,
-                                     torch.zeros_like(graph.w)))
-            JjInv = _inv6(JjC)
-            winv = 1.0 / (wC + damping)
+            JjInv, JiC, winv = _chain_blocks(graph, Ji, Jj, damping)
+            # Fixed for this iteration's ~cg_iters applications.
+            prep = dispatch.chain_prepare(JjInv, JiC,
+                                          f if n_live is None else n_live)
 
-            def precond(v, JjInv=JjInv, JiC=JiC, winv=winv):
-                x = _chain_sqrt_solve(JjInv, JiC, winv, v, n_live)
+            def precond(v, JjInv=JjInv, JiC=JiC, winv=winv, prep=prep):
+                x = _chain_sqrt_solve(JjInv, JiC, winv, v, n_live, prep)
                 x[0] = v[0]
                 return x
 

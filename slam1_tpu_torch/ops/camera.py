@@ -12,6 +12,8 @@ from typing import NamedTuple
 
 import torch
 
+from slam1_tpu_torch.runtime import default_device
+
 
 class StereoCamera(NamedTuple):
     fx: torch.Tensor
@@ -22,6 +24,7 @@ class StereoCamera(NamedTuple):
 
     @staticmethod
     def create(fx, fy, cx, cy, baseline, dtype=torch.float32, device=None):
+        device = default_device(device)
         return StereoCamera(*[torch.as_tensor(v, dtype=dtype, device=device)
                               for v in (fx, fy, cx, cy, baseline)])
 

@@ -11,13 +11,16 @@ CUDA C++ kernels for sm_90a live in `slam1_tpu_torch/csrc/`:
     `verify_loop_slate`) in one launch.
   - `chain_sweep.cu`  — the two sequential sweeps of the pose graph's
     square-root chain preconditioner (an XLA scan in the reference,
-    `slam1_tpu/models/posegraph.py:_chain_sqrt_solve`).
+    `slam1_tpu/models/posegraph.py:_chain_sqrt_solve`), and the
+    `chain_prepare` launch that fuses the chain's 6x6 blocks once per
+    Gauss-Newton iteration.
 
-They are compiled with nvcc into one shared library with a plain C
-interface at first use (from the repo's sources only, into
-`slam1_tpu_torch/build/`, keyed by a hash of the sources) and called
-through ctypes on PyTorch's current stream. Each launch returns
-`cudaGetLastError()`; the wrapper raises when it is not 0. Wrappers
+Each source is compiled with nvcc into its own shared library with a
+plain C interface at first use (all sources at once, from the repo's
+sources only, into `slam1_tpu_torch/build/`, each keyed by a hash of
+its source) and called through ctypes on PyTorch's current stream.
+Each launch returns `cudaGetLastError()`; the wrapper raises when it is
+not 0. Wrappers
 allocate every output and scratch buffer with `torch.empty`; the
 kernels allocate nothing.
 
@@ -43,6 +46,10 @@ import torch
 from slam1_tpu_torch.ops.brief import unpack_bits
 
 BIG = 1 << 20
+# Levels of the chain sweep's prepared blocks (strides 1, 2, 4, 8): it
+# marches 2^(CHAIN_LEVELS - 1) interleaved chains. csrc/chain_sweep.cu
+# holds the same constant; build() checks that they agree.
+CHAIN_LEVELS = 4
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
@@ -51,7 +58,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
 _lib = None
-build_seconds = None  # wall time of the nvcc build in this process
+build_seconds = None  # wall time of the nvcc builds in this process
 
 
 def _nvcc() -> str:
@@ -66,53 +73,103 @@ def _nvcc() -> str:
                        "kernels cannot be built")
 
 
-def library_path() -> str:
+def library_path(source: str) -> str:
+    """Where the shared library built from csrc/`source` lives."""
     h = hashlib.sha256()
-    for name in SOURCES:
-        with open(os.path.join(CSRC, name), "rb") as f:
-            h.update(f.read())
+    with open(os.path.join(CSRC, source), "rb") as f:
+        h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"libslam1_kernels_{h.hexdigest()[:16]}.so")
+    stem = os.path.splitext(source)[0]
+    return os.path.join(BUILD_DIR, f"libslam1_{stem}_{h.hexdigest()[:16]}.so")
 
 
-def build(verbose: bool = False) -> ctypes.CDLL:
-    """Compile (if needed) and load the kernel library."""
+def tensor_core_sass(source: str):
+    """Tensor-core instructions in the SASS of the library built from
+    csrc/`source`, as {mnemonic: count} (cuobjdump of the CUDA toolkit);
+    None where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(_nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", library_path(source)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    found = {}
+    for line in sass.splitlines():
+        for word in line.replace(";", " ").split():
+            if "MMA" in word and word[0].isalpha():
+                found[word] = found.get(word, 0) + 1
+    return found
+
+
+class _Kernels:
+    """The C entry points of the three libraries, argtypes declared."""
+
+    def __init__(self, libs):
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        self.libs = libs
+        self.slam_fast_score = libs["fast_score.cu"].slam_fast_score
+        self.slam_fast_score.argtypes = [p, p, i, i, i, f, i, p]
+        ham = libs["hamming_top2.cu"]
+        self.slam_hamming_top2 = ham.slam_hamming_top2
+        self.slam_hamming_top2.argtypes = [p, p, p, p, p, p, i, i, i, f, f,
+                                           f, i, p, p, p, p, p, p]
+        self.slam_hamming_top2_batched = ham.slam_hamming_top2_batched
+        self.slam_hamming_top2_batched.argtypes = [p, p, p, p, i, i, i, i,
+                                                   p, p, p, p, p, p]
+        chain = libs["chain_sweep.cu"]
+        self.slam_chain_prepare = chain.slam_chain_prepare
+        self.slam_chain_prepare.argtypes = [p, p, i, i, p, p]
+        self.slam_chain_sweep = chain.slam_chain_sweep
+        self.slam_chain_sweep.argtypes = [p, p, p, p, i, i, p, p]
+        for fn in (self.slam_fast_score, self.slam_hamming_top2,
+                   self.slam_hamming_top2_batched, self.slam_chain_prepare,
+                   self.slam_chain_sweep):
+            fn.restype = i
+        if chain.slam_chain_levels() != CHAIN_LEVELS:
+            raise RuntimeError("csrc/chain_sweep.cu and CHAIN_LEVELS disagree")
+        # Most live rows one chain_sweep launch holds in shared memory.
+        self.chain_max_live = chain.slam_chain_sweep_max_live()
+
+
+def build(verbose: bool = False) -> _Kernels:
+    """Compile (where needed: one nvcc per source, all started together)
+    and load the kernel libraries. `verbose` adds -Xptxas=-v and prints
+    what the compiler says (registers, shared memory, spills)."""
     global _lib, build_seconds
     if _lib is not None:
         return _lib
-    path = library_path()
-    if not os.path.exists(path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = []
+    t0 = time.perf_counter()
+    for src in SOURCES:
+        path = library_path(src)
+        if os.path.exists(path):
+            continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *[os.path.join(CSRC, s) for s in SOURCES]]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, src)]
         if verbose:
             cmd.insert(1, "-Xptxas=-v")
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        build_seconds = time.perf_counter() - t0
+        procs.append((src, path, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for src, path, tmp, proc in procs:
+        out, _ = proc.communicate()
         if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
+            failed.append(f"nvcc failed on {src} ({proc.returncode}):\n{out}")
+            continue
         if verbose:
-            print(proc.stdout + proc.stderr)
+            print(f"nvcc {src}:\n{out}", flush=True)
         os.replace(tmp, path)
-    lib = ctypes.CDLL(path)
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.slam_fast_score.argtypes = [p, p, i, i, i, f, i, p]
-    lib.slam_fast_score.restype = i
-    lib.slam_hamming_top2.argtypes = [p, p, p, p, p, p, i, i, i, f, f, f,
-                                      i, p, p, p, p, p, p, p]
-    lib.slam_hamming_top2.restype = i
-    lib.slam_hamming_top2_batched.argtypes = [p, p, p, p, i, i, i, i, p, p,
-                                              p, p, p, p, p]
-    lib.slam_hamming_top2_batched.restype = i
-    lib.slam_chain_sweep.argtypes = [p, p, p, p, i, i, p, p]
-    lib.slam_chain_sweep.restype = i
-    _lib = lib
-    return lib
+    if procs:
+        build_seconds = time.perf_counter() - t0
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    _lib = _Kernels({src: ctypes.CDLL(library_path(src)) for src in SOURCES})
+    return _lib
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape=None):
@@ -219,19 +276,17 @@ def hamming_top2_cuda(desc_a, desc_b, mask_a, mask_b, *, uv_a=None,
     _check(desc_b, "desc_b", torch.uint8, (m, 32))
     _check(mask_a, "mask_a", torch.bool, (n,))
     _check(mask_b, "mask_b", torch.bool, (m,))
-    if m < 2 or n < 1 or n >= (1 << 23):
+    if m < 2 or n < 1 or n >= (1 << 23) or m >= (1 << 22):
         raise ValueError(f"hamming_top2_cuda: unsupported N={n}, M={m}")
-    for t, name in ((desc_a, "desc_a"), (desc_b, "desc_b")):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: expected 16-byte alignment")
+    _check_aligned(desc_a=desc_a, desc_b=desc_b)
     gated = uv_a is not None
     if gated:
         _check(uv_a, "uv_a", torch.float32, (n, 2))
         _check(uv_b, "uv_b", torch.float32, (m, 2))
+        _check_aligned(8, uv_a=uv_a, uv_b=uv_b)
     dev = desc_a.device
-    splits = _splits(n, m, 1)
-    part = torch.empty((3 * splits * n,), dtype=torch.int32, device=dev)
-    colkey = torch.empty((m,), dtype=torch.int32, device=dev)
+    cols, words = _column_strips(n, m, 1)
+    scratch = torch.empty((words,), dtype=torch.int32, device=dev)
     d1 = torch.empty((n,), dtype=torch.int32, device=dev)
     d2 = torch.empty_like(d1)
     idx = torch.empty_like(d1)
@@ -243,8 +298,8 @@ def hamming_top2_cuda(desc_a, desc_b, mask_a, mask_b, *, uv_a=None,
         mask_b.data_ptr(), uv_a.data_ptr() if gated else None,
         uv_b.data_ptr() if gated else None, n, m, int(gated),
         float(dy_tol) if gated else 0.0, float(dx_lo), float(dx_hi),
-        splits, part.data_ptr(), colkey.data_ptr(), d1.data_ptr(),
-        d2.data_ptr(), idx.data_ptr(), col_best.data_ptr(), stream)
+        cols, scratch.data_ptr(), d1.data_ptr(), d2.data_ptr(),
+        idx.data_ptr(), col_best.data_ptr(), stream)
     _raise_on(err, "hamming_top2 launch")
     hamming_top2_cuda.launches += 1
     return d1, d2, idx, col_best
@@ -253,11 +308,23 @@ def hamming_top2_cuda(desc_a, desc_b, mask_a, mask_b, *, uv_a=None,
 hamming_top2_cuda.launches = 0
 
 
-def _splits(n, m, problems):
-    """Column splits so that ~1.3 blocks per SM are in flight."""
-    tiles = -(-m // 128)
-    row_blocks = -(-n // 128) * problems
-    return max(1, min(tiles, -(-170 // row_blocks)))
+def _check_aligned(align: int = 16, **tensors):
+    for name, t in tensors.items():
+        if t.data_ptr() % align:
+            raise ValueError(f"{name}: expected {align}-byte alignment")
+
+
+def _column_strips(n, m, problems):
+    """How csrc/hamming_top2.cu cuts the columns: (columns per strip,
+    int32 words of scratch). Strips are a multiple of 8 columns (one MMA
+    tile), at most 512 (the kernel's shared memory), and narrow enough
+    that >= 2 blocks of 128 rows sit on each of the 132 SMs."""
+    row_blocks = -(-n // 128)
+    splits = max(-(-264 // (row_blocks * problems)), -(-m // 512))
+    cols = -(-(-(-m // splits)) // 8) * 8
+    splits = -(-m // cols)
+    head = problems * (m + row_blocks + 1)
+    return cols, head + head % 2 + problems * 2 * splits * n
 
 
 def hamming_top2_batched_plain(desc_a, desc_b, mask_a, mask_b):
@@ -281,16 +348,14 @@ def hamming_top2_batched_cuda(desc_a, desc_b, mask_a, mask_b):
     _check(desc_b, "desc_b", torch.uint8, (b, m, 32))
     _check(mask_a, "mask_a", torch.bool, (b, n))
     _check(mask_b, "mask_b", torch.bool, (b, m))
-    if m < 2 or n < 1 or n >= (1 << 23) or b < 1 or b > 65535:
+    if (m < 2 or n < 1 or n >= (1 << 23) or m >= (1 << 22) or b < 1
+            or b > 65535):
         raise ValueError(f"hamming_top2_batched_cuda: unsupported B={b}, "
                          f"N={n}, M={m}")
-    for t, name in ((desc_a, "desc_a"), (desc_b, "desc_b")):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: expected 16-byte alignment")
+    _check_aligned(desc_a=desc_a, desc_b=desc_b)
     dev = desc_a.device
-    splits = _splits(n, m, b)
-    part = torch.empty((b * 3 * splits * n,), dtype=torch.int32, device=dev)
-    colkey = torch.empty((b * m,), dtype=torch.int32, device=dev)
+    cols, words = _column_strips(n, m, b)
+    scratch = torch.empty((words,), dtype=torch.int32, device=dev)
     d1 = torch.empty((b, n), dtype=torch.int32, device=dev)
     d2 = torch.empty_like(d1)
     idx = torch.empty_like(d1)
@@ -299,9 +364,8 @@ def hamming_top2_batched_cuda(desc_a, desc_b, mask_a, mask_b):
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.slam_hamming_top2_batched(
         desc_a.data_ptr(), desc_b.data_ptr(), mask_a.data_ptr(),
-        mask_b.data_ptr(), b, n, m, splits, part.data_ptr(),
-        colkey.data_ptr(), d1.data_ptr(), d2.data_ptr(), idx.data_ptr(),
-        col_best.data_ptr(), stream)
+        mask_b.data_ptr(), b, n, m, cols, scratch.data_ptr(), d1.data_ptr(),
+        d2.data_ptr(), idx.data_ptr(), col_best.data_ptr(), stream)
     _raise_on(err, "hamming_top2_batched launch")
     hamming_top2_batched_cuda.launches += 1
     return d1, d2, idx, col_best
@@ -333,20 +397,124 @@ def chain_sweep_plain(jj_inv, ji, winv, v, n_live: int):
     return x
 
 
-def chain_sweep_cuda(jj_inv, ji, winv, v, n_live: int):
+def chain_prepare_plain(jj_inv, ji, n_live: int):
+    """Plain twin of chain_prepare_cuda: the fused blocks of the chain,
+    (CHAIN_LEVELS, 2, F, 6, 6). Level 0 holds, for live rows i,
+    [0,i] = -JjInv_i^T Ji_{i+1}^T (the backward sweep's step from row
+    i + 1; zero at the last live row) and [1,i] = -JjInv_i Ji_i (the
+    forward sweep's step from row i - 1; zero at row 1, since x_0 = 0).
+    Level l + 1 composes two steps of level l: [0,i] = B_i B_{i+j},
+    [1,i] = B_i B_{i-j}, j = 2^l, zero where the step leaves the live
+    rows [1, n_live)."""
+    prep = torch.zeros((CHAIN_LEVELS, 2, jj_inv.shape[0], 6, 6),
+                       dtype=jj_inv.dtype, device=jj_inv.device)
+    n = n_live
+    if n >= 3:
+        prep[0, 0, 1:n - 1] = -(jj_inv[1:n - 1].transpose(1, 2)
+                                @ ji[2:n].transpose(1, 2))
+        prep[0, 1, 2:n] = -(jj_inv[2:n] @ ji[2:n])
+    for lvl in range(CHAIN_LEVELS - 1):
+        j = 1 << lvl
+        if n - j > 1:
+            back, fwd = prep[lvl]
+            prep[lvl + 1, 0, 1:n - j] = back[1:n - j] @ back[1 + j:n]
+            prep[lvl + 1, 1, 1 + j:n] = fwd[1 + j:n] @ fwd[1:n - j]
+    return prep
+
+
+def _strided_solve(blocks, d):
+    """y_k = d_k + B_k y_{k-1} (y_{-1} = 0) over k = 0..n-1 as
+    csrc/chain_sweep.cu solves it: blocks (L, n, 6, 6) with level l
+    stepping 2^l rows; the offsets doubled L - 1 times, then K = 2^(L-1)
+    interleaved chains y_k = d_k + B_k y_{k-K} marched side by side."""
+    levels, n = blocks.shape[:2]
+    for lvl in range(levels - 1):
+        j = 1 << lvl
+        if j < n:
+            d = torch.cat([d[:j], d[j:] + torch.einsum(
+                "kab,kb->ka", blocks[lvl, j:], d[:-j])])
+    k = 1 << (levels - 1)
+    y = torch.zeros_like(d)
+    prev = torch.zeros((k, 6), dtype=d.dtype, device=d.device)
+    for t in range(0, n, k):
+        m = min(k, n - t)
+        prev = d[t:t + m] + torch.einsum("kab,kb->ka",
+                                         blocks[-1, t:t + m], prev[:m])
+        y[t:t + m] = prev
+    return y
+
+
+def chain_sweep_fused_plain(jj_inv, ji, winv, v, n_live: int):
+    """The algebra of csrc/chain_sweep.cu in plain PyTorch, for the
+    tests: the 6x6 blocks fused and doubled once (chain_prepare_plain),
+    the offsets c_i = JjInv_i^T v_i and e_i = JjInv_i (winv_i s_i)
+    computed for all rows at once, and each sweep solved as
+    2^(CHAIN_LEVELS - 1) interleaved chains of one product per row.
+    Same contract as chain_sweep_plain; the float32 sums are associated
+    differently."""
+    x = winv[:, None] * v
+    x[0].zero_()
+    if n_live < 2:
+        return x
+    live = slice(1, n_live)
+    prep = chain_prepare_plain(jj_inv, ji, n_live)
+    c = torch.einsum("iba,ib->ia", jj_inv[live], v[live])
+    # Backward: row n_live - 1 first.
+    s = _strided_solve(prep[:, 0, live].flip(1), c.flip(0)).flip(0)
+    e = torch.einsum("iab,ib->ia", jj_inv[live], winv[live, None] * s)
+    x[live] = _strided_solve(prep[:, 1, live], e)
+    return x
+
+
+def chain_prepare_cuda(jj_inv, ji, n_live: int):
+    """The fused 6x6 blocks of the chain, (CHAIN_LEVELS, 2, F, 6, 6), as
+    chain_prepare_plain defines them, by the prepare kernels of
+    csrc/chain_sweep.cu. They hold for as long as jj_inv and ji do (one
+    Gauss-Newton iteration); chain_sweep_cuda takes them as `prep`."""
+    f = jj_inv.shape[0]
+    _check(jj_inv, "jj_inv", torch.float32, (f, 6, 6))
+    _check(ji, "ji", torch.float32, (f, 6, 6))
+    if not 1 <= n_live <= f:
+        raise ValueError(f"chain_prepare_cuda: n_live={n_live} not in "
+                         f"[1, {f}]")
+    prep = torch.empty((CHAIN_LEVELS, 2, f, 6, 6), dtype=torch.float32,
+                       device=jj_inv.device)
+    lib = build()
+    stream = torch.cuda.current_stream(jj_inv.device).cuda_stream
+    _raise_on(lib.slam_chain_prepare(jj_inv.data_ptr(), ji.data_ptr(), f,
+                                     int(n_live), prep.data_ptr(), stream),
+              "chain_prepare launch")
+    chain_prepare_cuda.launches += 1
+    return prep
+
+
+chain_prepare_cuda.launches = 0
+
+
+def chain_sweep_cuda(jj_inv, ji, winv, v, n_live: int, prep=None):
     """The two chain sweeps in one launch of csrc/chain_sweep.cu. Same
-    contract as chain_sweep_plain."""
+    contract as chain_sweep_plain. `prep` is chain_prepare_cuda's result
+    for the same jj_inv, ji and n_live, which `posegraph.optimize` makes
+    once per Gauss-Newton iteration. It is optional only so that the
+    call without it keeps working as it did before the blocks were
+    fused: the blocks are then prepared here, by one more counted call
+    of chain_prepare_cuda."""
     f = v.shape[0]
     _check(jj_inv, "jj_inv", torch.float32, (f, 6, 6))
     _check(ji, "ji", torch.float32, (f, 6, 6))
     _check(winv, "winv", torch.float32, (f,))
     _check(v, "v", torch.float32, (f, 6))
-    if not 1 <= n_live <= f:
-        raise ValueError(f"chain_sweep_cuda: n_live={n_live} not in [1, {f}]")
-    x = torch.empty_like(v)
+    if prep is None:
+        prep = chain_prepare_cuda(jj_inv, ji, n_live)
+    _check(prep, "prep", torch.float32, (CHAIN_LEVELS, 2, f, 6, 6))
     lib = build()
+    most = min(f, lib.chain_max_live)
+    if not 1 <= n_live <= most:
+        raise ValueError(
+            f"chain_sweep_cuda: n_live={n_live} not in [1, {most}]")
+    x = torch.empty_like(v)
     stream = torch.cuda.current_stream(v.device).cuda_stream
-    _raise_on(lib.slam_chain_sweep(jj_inv.data_ptr(), ji.data_ptr(),
+    _raise_on(lib.slam_chain_sweep(jj_inv.data_ptr(), prep.data_ptr(),
                                    winv.data_ptr(), v.data_ptr(), f,
                                    int(n_live), x.data_ptr(), stream),
               "chain_sweep launch")
@@ -358,6 +526,7 @@ chain_sweep_cuda.launches = 0
 
 _COUNTED = {"fast_score": fast_score_cuda, "hamming_top2": hamming_top2_cuda,
             "hamming_top2_batched": hamming_top2_batched_cuda,
+            "chain_prepare": chain_prepare_cuda,
             "chain_sweep": chain_sweep_cuda}
 
 

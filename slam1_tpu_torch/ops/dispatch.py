@@ -48,9 +48,21 @@ def hamming_top2_batched(desc_a, desc_b, mask_a, mask_b):
               mask_b.contiguous())
 
 
-def chain_sweep(jj_inv, ji, winv, v, n_live: int):
-    """The square-root chain preconditioner's two sweeps -> x (F,6)."""
-    fn = (cuda_kernels.chain_sweep_cuda if use_cuda(v)
-          else cuda_kernels.chain_sweep_plain)
-    return fn(jj_inv.contiguous(), ji.contiguous(), winv.contiguous(),
-              v.contiguous(), n_live)
+def chain_prepare(jj_inv, ji, n_live: int):
+    """What chain_sweep can reuse for as long as jj_inv and ji hold (one
+    Gauss-Newton iteration): the kernel's fused 6x6 blocks on CUDA
+    tensors, nothing (None) on the CPU, where the plain twin needs none."""
+    if use_cuda(jj_inv):
+        return cuda_kernels.chain_prepare_cuda(jj_inv.contiguous(),
+                                               ji.contiguous(), n_live)
+    return None
+
+
+def chain_sweep(jj_inv, ji, winv, v, n_live: int, prep=None):
+    """The square-root chain preconditioner's two sweeps -> x (F,6).
+    `prep` is chain_prepare's value for the same jj_inv, ji, n_live."""
+    args = (jj_inv.contiguous(), ji.contiguous(), winv.contiguous(),
+            v.contiguous(), n_live)
+    if use_cuda(v):
+        return cuda_kernels.chain_sweep_cuda(*args, prep=prep)
+    return cuda_kernels.chain_sweep_plain(*args)

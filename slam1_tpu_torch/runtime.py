@@ -15,6 +15,17 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 
+def default_device(device=None) -> torch.device:
+    """`device` when one is given; else the card when there is one, else
+    the CPU. What `device=None` means in every function of the port that
+    makes tensors from nothing (cameras, synthetic worlds, empty maps and
+    stores, converted numpy states): on a machine with a card the system
+    runs there unless the caller asks for the CPU."""
+    if device is not None:
+        return torch.device(device)
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
 def device(name: str) -> torch.device:
     """The torch device `name`. Raises when CUDA is asked for and is
     missing — a run meant for the card never carries on silently on the

@@ -16,6 +16,7 @@ from slam1_tpu_torch.models.mapping import KeyframeStore, MapState
 from slam1_tpu_torch.models.pipeline import SlamState
 from slam1_tpu_torch.models.vo import VOState
 from slam1_tpu_torch.ops.camera import StereoCamera
+from slam1_tpu_torch.runtime import default_device
 from slam1_tpu_torch.types import Features, StereoObservations
 from slam1_tpu_torch.utils.synthetic import SyntheticWorld
 
@@ -23,7 +24,7 @@ from slam1_tpu_torch.utils.synthetic import SyntheticWorld
 def tensor(a, device=None) -> torch.Tensor:
     """numpy array (or scalar) -> tensor on `device`, dtype kept (a
     copy: exported arrays may be read-only)."""
-    return torch.as_tensor(np.array(a), device=device)
+    return torch.as_tensor(np.array(a), device=default_device(device))
 
 
 def _convert(nt, cls, device):
@@ -52,7 +53,8 @@ def world(w_np, device=None) -> SyntheticWorld:
 def vo_state(s_np, device=None, seed: int = 0) -> VOState:
     """The reference's VOState without its PRNG key: the port's state
     gets a fresh generator seeded with `seed`."""
-    gen = torch.Generator(device=device or "cpu")
+    device = default_device(device)
+    gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     return VOState(T_w_cam=tensor(s_np.T_w_cam, device),
                    prev_obs=observations(s_np.prev_obs, device),

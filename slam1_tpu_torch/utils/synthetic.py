@@ -17,8 +17,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from slam1_tpu_torch.models.posegraph import PoseGraph
 from slam1_tpu_torch.ops import se3
 from slam1_tpu_torch.ops.camera import StereoCamera, project_stereo
+from slam1_tpu_torch.runtime import default_device
 
 
 class SyntheticWorld(NamedTuple):
@@ -39,6 +41,7 @@ def make_trajectory(n_frames: int, kind: str = "arc", speed: float = 1.0,
     kinds: 'straight' | 'arc' | 'loop' | 'loop2' (two laps)."""
     if kind not in _YAW_RATE:
         raise ValueError(f"unknown trajectory kind: {kind}")
+    device = default_device(device)
     xi = torch.tensor([0.0, 0.0, speed, 0.0, _YAW_RATE[kind](n_frames), 0.0],
                       dtype=dtype, device=device)
     step = se3.exp_se3(xi)
@@ -58,6 +61,7 @@ def make_world(seed: int = 0, n_frames: int = 64, n_points: int = 4096,
     band-limited texture with a shading dipole, boosted centre), drawn
     from numpy's generator seeded with `seed`. image_hw rescales the
     camera to that canvas and narrows the default depth band."""
+    device = default_device(device)
     if cam is None:
         cam = (StereoCamera.for_canvas(*image_hw, dtype, device)
                if image_hw else StereoCamera.kitti_default(dtype, device))
@@ -176,3 +180,48 @@ def render_sequence(world: SyntheticWorld, height: int, width: int):
               for i in range(world.poses.shape[0])]
     return (torch.stack([f[0] for f in frames]),
             torch.stack([f[1] for f in frames]))
+
+
+def chain_inputs(f: int, n_live: int, seed: int):
+    """Chain-sweep operands (JjInv, Ji, winv, v) shaped like a pose
+    graph's, on the CPU: Ji = -(rotation blocks) of the chain adjoints,
+    JjInv = I + 1e-4 noise, unit-weight edges; rows from n_live on
+    decoupled (Ji = 0, JjInv = I)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    R = se3.exp_so3(0.05 * torch.randn(f, 3, generator=g))
+    ji = torch.zeros(f, 6, 6)
+    ji[:, :3, :3] = -R
+    ji[:, 3:, 3:] = -R
+    ji[:, :3, 3:] = -0.3 * R
+    jj = torch.eye(6) + 1e-4 * torch.randn(f, 6, 6, generator=g)
+    winv = torch.full((f,), 1.0 / (1.0 + 1e-4))
+    ji[n_live:] = 0.0
+    jj[n_live:] = torch.eye(6)
+    winv[n_live:] = 1e4
+    v = torch.randn(f, 6, generator=g)
+    return jj, ji, winv, v
+
+
+def loop2_graph(n: int = 600, seed: int = 4, device=None) -> PoseGraph:
+    """A two-lap loop of `n` poses with noisy odometry, the drifted
+    poses it chains to, and four loop edges between the laps at 1000
+    times the odometry weight (a long SLAM run's pose graph in small)."""
+    rng = np.random.default_rng(seed)
+    gt = make_trajectory(n, "loop2", 1.0, device="cpu")
+    noise = torch.as_tensor(
+        rng.normal(0, [2e-3] * 3 + [2e-2] * 3, (n - 1, 6)),
+        dtype=torch.float32)
+    z = se3.inverse(gt[:-1]) @ gt[1:] @ se3.exp_se3(noise)
+    poses = [torch.eye(4)]
+    for k in range(n - 1):
+        poses.append(poses[-1] @ z[k])
+    li = torch.tensor([5, 60, 120, 200])
+    lj = li + n // 2
+    ei = torch.arange(n - 1)
+    graph = PoseGraph(
+        poses=torch.stack(poses), ei=torch.cat([ei, li]),
+        ej=torch.cat([ei + 1, lj]),
+        z=torch.cat([z, se3.inverse(gt[li]) @ gt[lj]]),
+        w=torch.cat([torch.ones(n - 1), torch.full((4,), 1000.0)]))
+    device = default_device(device)
+    return PoseGraph(*[x.to(device) for x in graph])

@@ -69,7 +69,7 @@ def test_downsample2_other_shapes_within_one_ulp(shape):
 
 def _assert_features_equal(fj, ft):
     """fj: the reference's Features (carried across), ft: the port's."""
-    fj = interop.features(jax.device_get(fj))
+    fj = interop.features(jax.device_get(fj), device="cpu")
     m = fj.mask
     assert torch.equal(ft.mask, m) and m.sum() > 50
     for name in ("xy", "score", "angle", "desc"):
@@ -95,7 +95,7 @@ def test_stereo_frontend_identical(pair):
     fj, oj = jax.device_get(jfrontend(jnp.asarray(left), jnp.asarray(right),
                                       world.cam, cfg))
     ft, ot = stereo_frontend(torch.as_tensor(left), torch.as_tensor(right),
-                             interop.camera(jax.device_get(world.cam)),
+                             interop.camera(jax.device_get(world.cam), "cpu"),
                              tiny_config())
     _assert_features_equal(fj, ft)
     m = np.asarray(oj.mask)

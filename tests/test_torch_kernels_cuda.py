@@ -40,10 +40,21 @@ def _hamming_inputs(seed, n, m, dup):
     rng = np.random.default_rng(seed)
     da = rng.integers(0, 256, (n, 32), dtype=np.uint8)
     db = rng.integers(0, 256, (m, 32), dtype=np.uint8)
-    if dup:                      # repeated rows and columns force ties
-        da[1::2] = da[:-1:2]
-        db[1::2] = db[:-1:2]
-        db[: m // 2] = da[: m // 2]
+    if dup == "pairs":           # repeated rows and columns force ties
+        da[1::2] = da[:-1:2][: n // 2]
+        db[1::2] = db[:-1:2][: m // 2]
+        db[: min(n, m) // 2] = da[: min(n, m) // 2]
+    elif dup == "straddle":
+        # Equal columns and equal rows on both sides of the kernel's tile
+        # boundaries: MMA tile (8 columns, 16 rows), warp (16 rows), row
+        # block (128 rows), column strip (208 columns at 2688).
+        for j in (1, 7, 8, 15, 16, 127, 128, 207, 208, 415, 416, m - 1):
+            if 0 < j < m:
+                db[j] = db[0]
+        da[::5] = db[0]
+        for i in (1, 7, 8, 15, 16, 31, 32, 127, 128, 129, n - 1):
+            if 2 < i < n:
+                da[i] = da[2]
     ma = rng.random(n) > 0.2
     mb = rng.random(m) > 0.2
     uva = rng.uniform(0, 100, (n, 2)).astype(np.float32)
@@ -64,9 +75,12 @@ def test_fast_score_cuda_matches_plain(cuda_device, shape):
     assert (k - p).abs().max().item() <= FAST_TOL
 
 
-@pytest.mark.parametrize("dup", [False, True], ids=["random", "ties"])
+@pytest.mark.parametrize("dup", [None, "pairs", "straddle"],
+                         ids=["random", "ties", "ties-across-tiles"])
 @pytest.mark.parametrize("gate", sorted(GATES))
-@pytest.mark.parametrize("n,m", [(256, 128), (2688, 2688), (300, 77)])
+@pytest.mark.parametrize("n,m", [(256, 128), (2688, 2688), (300, 77),
+                                 (1, 2), (130, 257), (129, 1000),
+                                 (16, 5000)])
 def test_hamming_top2_cuda_matches_plain(cuda_device, gate, dup, n, m):
     arrs = _hamming_inputs(10, n, m, dup)
     da, db, ma, mb, uva, uvb = [torch.as_tensor(x).to(cuda_device)
@@ -102,31 +116,41 @@ def test_vo_slice_launches_both_kernels(cuda_device):
     assert cuda_kernels.launch_counts() == {"fast_score": 5,
                                             "hamming_top2": 9,
                                             "hamming_top2_batched": 0,
+                                            "chain_prepare": 0,
                                             "chain_sweep": 0}
     assert np.isfinite(poses).all()
     assert np.mean([bool(m.pnp_ok) for m in metrics]) > 0.5
 
 
-@pytest.mark.parametrize("b,n,m", [(8, 1024, 1024), (3, 300, 77)])
-def test_hamming_top2_batched_cuda_matches_plain(cuda_device, b, n, m):
+@pytest.mark.parametrize("invalid", ["last", "all", "none"])
+@pytest.mark.parametrize("b,n,m", [(8, 1024, 1024), (3, 300, 77),
+                                   (1, 1024, 1024), (2, 130, 257)])
+def test_hamming_top2_batched_cuda_matches_plain(cuda_device, b, n, m,
+                                                 invalid):
     rng = np.random.default_rng(b * n)
     da = rng.integers(0, 256, (b, n, 32), dtype=np.uint8)
     db = rng.integers(0, 256, (b, m, 32), dtype=np.uint8)
-    da[0, 1::2] = da[0, :-1:2]                  # ties
+    da[0, 1::2] = da[0, :-1:2][: n // 2]        # ties
     db[0, : min(n, m) // 2] = da[0, : min(n, m) // 2]
     ma = rng.random((b, n)) > 0.2
     mb = rng.random((b, m)) > 0.2
-    ma[-1] = False                              # a padded problem
-    mb[-1] = False
+    if invalid == "last":                       # a padded problem
+        ma[-1] = mb[-1] = False
+    elif invalid == "all":                      # a slate of padding only
+        ma[:] = mb[:] = False
     args = [torch.as_tensor(x).to(cuda_device) for x in (da, db, ma, mb)]
     outk = cuda_kernels.hamming_top2_batched_cuda(*args)
     outp = cuda_kernels.hamming_top2_batched_plain(*args)
     for name, a, c in zip(("d1", "d2", "idx", "col_best"), outk, outp):
         assert torch.equal(a, c), name
-    assert (outk[2][-1] == 0).all() and (outk[0][-1] == 1 << 20).all()
+    if invalid != "none":
+        assert (outk[2][-1] == 0).all() and (outk[0][-1] == 1 << 20).all()
+        assert (outk[1][-1] == 1 << 20).all() and (outk[3][-1] == 0).all()
 
 
-@pytest.mark.parametrize("f,n_live", [(64, 64), (64, 20), (2048, 601)])
+@pytest.mark.parametrize("f,n_live", [(64, 64), (64, 20), (2048, 601),
+                                      (2048, 1), (2048, 2), (2048, 2048),
+                                      (33, 33), (200, 130)])
 def test_chain_sweep_cuda_matches_plain(cuda_device, f, n_live):
     g = torch.Generator().manual_seed(f + n_live)
     jj = torch.eye(6) + 1e-2 * torch.randn(f, 6, 6, generator=g)
@@ -136,16 +160,28 @@ def test_chain_sweep_cuda_matches_plain(cuda_device, f, n_live):
     ji[n_live:] = 0.0
     v = torch.randn(f, 6, generator=g)
     ops = [x.to(cuda_device) for x in (jj, ji, winv, v)]
-    xk = cuda_kernels.chain_sweep_cuda(*ops, n_live)
+    before = cuda_kernels.launch_counts()
+    prep = cuda_kernels.chain_prepare_cuda(ops[0], ops[1], n_live)
+    assert torch.allclose(
+        prep, cuda_kernels.chain_prepare_plain(ops[0], ops[1], n_live),
+        rtol=0, atol=1e-5)
+    xk = cuda_kernels.chain_sweep_cuda(*ops, n_live, prep=prep)
     xp = cuda_kernels.chain_sweep_plain(*ops, n_live)
     assert torch.isfinite(xk).all()
     scale = xp.abs().max().item()
     assert (xk - xp).abs().max().item() <= 1e-4 * scale
+    # Without `prep` the wrapper prepares the blocks itself.
+    assert torch.equal(cuda_kernels.chain_sweep_cuda(*ops, n_live), xk)
+    after = cuda_kernels.launch_counts()
+    assert after["chain_prepare"] - before["chain_prepare"] == 2
+    assert after["chain_sweep"] - before["chain_sweep"] == 2
 
 
 def test_slam_system_launches_the_kernels(cuda_device):
     """A short loop clip through SlamSystem on CUDA tensors: every frame's
-    FAST and Hamming launches, and one batched launch per slate."""
+    FAST and Hamming launches, one batched launch per slate, one
+    chain_prepare per Gauss-Newton iteration and one chain_sweep per
+    application of the preconditioner."""
     cfg = tiny_config()
     cfg = cfg.replace(ba=dataclasses.replace(cfg.ba, local_every=0))
     h, w = cfg.image.height, cfg.image.width
@@ -161,4 +197,11 @@ def test_slam_system_launches_the_kernels(cuda_device):
     counts = cuda_kernels.launch_counts()
     assert counts["fast_score"] == 24 and counts["hamming_top2"] == 47
     assert counts["hamming_top2_batched"] == sys_.n_slates
+    runs = len(sys_.stage_seconds["pgo"])
+    if runs:
+        gn = (runs - 1) * max(cfg.ba.pg_iters // 5, 3) + cfg.ba.pg_iters
+        assert counts["chain_prepare"] == gn
+        assert counts["chain_sweep"] == gn * (cfg.ba.cg_iters + 1)
+    else:
+        assert counts["chain_prepare"] == counts["chain_sweep"] == 0
     assert np.isfinite(poses).all()

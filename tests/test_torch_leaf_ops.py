@@ -99,7 +99,7 @@ def _points(seed, n=200):
 @pytest.mark.parametrize("fn", ["project", "project_stereo"])
 def test_projection(fn):
     jc = jcam.StereoCamera.kitti_default()
-    tc = interop.camera(jc)
+    tc = interop.camera(jc, device="cpu")
     X = _points(6)
     j = getattr(jcam, fn)(jc, jnp.asarray(X))
     t = getattr(tcam, fn)(tc, torch.as_tensor(X))
@@ -112,7 +112,7 @@ def test_projection(fn):
 
 def test_stereo_rectified():
     jc = jcam.StereoCamera.for_canvas(128, 256)
-    tc = interop.camera(jc)
+    tc = interop.camera(jc, device="cpu")
     rng = np.random.default_rng(7)
     uv_l = rng.uniform(0, 256, (300, 2)).astype(np.float32)
     uv_r = uv_l - np.stack([rng.uniform(-2, 40, 300), np.zeros(300)],

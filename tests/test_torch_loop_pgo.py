@@ -117,8 +117,9 @@ def slate():
     jres = jlc.verify_loop_slate(keys, jax.tree.map(jnp.asarray, st),
                                  jnp.asarray(cands), jnp.asarray(hits), cam,
                                  cfg)
-    tres = tlc.verify_loop_slate(t(u), interop.kf_store(st), t(cands),
-                                 t(hits), interop.camera(cam), tiny_config())
+    tres = tlc.verify_loop_slate(t(u), interop.kf_store(st, "cpu"),
+                                 t(cands), t(hits),
+                                 interop.camera(cam, "cpu"), tiny_config())
     return cfg, cam, st, cands, hits, keys, u, jax.device_get(jres), tres
 
 
@@ -141,9 +142,9 @@ def test_verify_loop_pair_matches_jax(slate, i):
     cfg, cam, st, cands, hits, keys, u, jres, tres = slate
     jp = jlc.verify_loop_pair(keys[i], jax.tree.map(jnp.asarray, st),
                               int(cands[i]), int(hits[i]), cam, cfg)
-    tp = tlc.verify_loop_pair(t(u[i]), interop.kf_store(st), int(cands[i]),
-                              int(hits[i]), interop.camera(cam),
-                              tiny_config())
+    tp = tlc.verify_loop_pair(t(u[i]), interop.kf_store(st, "cpu"),
+                              int(cands[i]), int(hits[i]),
+                              interop.camera(cam, "cpu"), tiny_config())
     assert bool(tp.ok) == bool(jp.ok)
     assert int(tp.num_inliers) == int(jp.num_inliers)
     assert int(tp.anchor_frame) == int(jp.anchor_frame)
@@ -173,8 +174,8 @@ def test_place_query_matches_jax(n_rows, max_frame):
     st = st._replace(n=np.int32(14))
     cj, sj = jlc.place_query(jax.tree.map(jnp.asarray, st), 13, max_frame,
                              n_rows, k=3, thresh=32, nms_frames=15)
-    ct, sc = tlc.place_query(interop.kf_store(st), 13, max_frame, n_rows,
-                             k=3, thresh=32, nms_frames=15)
+    ct, sc = tlc.place_query(interop.kf_store(st, "cpu"), 13, max_frame,
+                             n_rows, k=3, thresh=32, nms_frames=15)
     np.testing.assert_array_equal(ct.numpy(), np.asarray(cj))
     np.testing.assert_array_equal(sc.numpy(), np.asarray(sj))
     assert (ct.numpy() >= 0).any()

@@ -87,7 +87,7 @@ def bow_run():
         descs.append(d)
     masks = [rng.random(64) > 0.1 for _ in range(6)]
     js = jbow.init_bow(cj, 16, reservoir=256)
-    ts = tbow.init_bow(ct, 16, reservoir=256)
+    ts = tbow.init_bow(ct, 16, reservoir=256, device="cpu")
     key = jax.random.PRNGKey(5)
     stages = []
     for i, (d, m) in enumerate(zip(descs, masks)):
@@ -183,7 +183,7 @@ def map_run():
     cj = jcfg.MappingConfig(**MAP_KW)
     ct = tcfg.MappingConfig(**MAP_KW)
     rng = np.random.default_rng(11)
-    js, ts = jmap.init_map(cj), tmap.init_map(ct)
+    js, ts = jmap.init_map(cj), tmap.init_map(ct, device="cpu")
     prev = (None, None, None)
     rounds = []
     for r in range(6):
@@ -232,7 +232,7 @@ def test_map_cull_matches_jax(map_run):
 
 def test_map_interop_roundtrip(map_run):
     js, _, _, _ = map_run[0][2]
-    ts = interop.map_state(js)
+    ts = interop.map_state(js, device="cpu")
     assert_same_state(js, ts, 0.0)
 
 
@@ -241,7 +241,7 @@ def test_map_interop_roundtrip(map_run):
 @pytest.mark.parametrize("n,k", [(40, 16), (12, 16)])
 def test_kf_insert_matches_jax(n, k):
     rng = np.random.default_rng(n)
-    js, ts = jmap.init_kf_store(5, k), tmap.init_kf_store(5, k)
+    js, ts = jmap.init_kf_store(5, k), tmap.init_kf_store(5, k, device="cpu")
     for f in range(7):
         o = dict(
             uv_l=rng.uniform(0, 100, (n, 2)).astype(np.float32),

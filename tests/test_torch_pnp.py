@@ -65,7 +65,7 @@ def test_ransac_pnp_matches_jax(n_valid, prior, weights, outliers):
     u = np.array(jax.random.uniform(key, (cfg.ransac_iters, N),
                                     minval=1e-9, maxval=1.0))
     t = ransac_pnp(torch.as_tensor(X), torch.as_tensor(uv),
-                   torch.as_tensor(mask), interop.camera(cam),
+                   torch.as_tensor(mask), interop.camera(cam, device="cpu"),
                    TrackingConfig(ransac_iters=64),
                    xi_init=None if xi_init is None
                    else torch.as_tensor(xi_init),
@@ -86,7 +86,7 @@ def test_ransac_pnp_generator_path():
     same seed gives the same pose."""
     cam, X, uv, mask, xi = problem(1, 150)
     args = (torch.as_tensor(X), torch.as_tensor(uv), torch.as_tensor(mask),
-            interop.camera(cam), TrackingConfig(ransac_iters=64))
+            interop.camera(cam, device="cpu"), TrackingConfig(ransac_iters=64))
     a = ransac_pnp(*args, generator=torch.Generator().manual_seed(5))
     b = ransac_pnp(*args, generator=torch.Generator().manual_seed(5))
     assert torch.equal(a.T, b.T) and bool(a.ok)

@@ -93,8 +93,8 @@ def _run_both(trajectory, n_frames, n_points):
     j_pre = js.poses()
     j_post = js.finalize()
 
-    ts = tpipe.SlamSystem(interop.camera(jax.device_get(world.cam)), tcfg,
-                          bow_train_frame=8, draws=ReplayDraws(0))
+    ts = tpipe.SlamSystem(interop.camera(jax.device_get(world.cam), "cpu"),
+                          tcfg, bow_train_frame=8, draws=ReplayDraws(0))
     tl, tr = torch.as_tensor(lefts), torch.as_tensor(rights)
     ts.process(tl[0], tr[0])
     for i in range(1, n_frames):
@@ -163,7 +163,8 @@ def test_reference_rounding_fused_blur_flips_one_descriptor_bit():
     left, right = (np.array(a) for a in render_frame(world, 2, h, w))
     fj, _ = jfront(jnp.asarray(left), jnp.asarray(right), world.cam, cfg)
     ft, _ = tfront(torch.as_tensor(left), torch.as_tensor(right),
-                   interop.camera(jax.device_get(world.cam)), tiny_config())
+                   interop.camera(jax.device_get(world.cam), "cpu"),
+                   tiny_config())
     dj, dt = np.asarray(fj.desc), ft.desc.numpy()
     assert np.argwhere(dj != dt).tolist() == [[42, 10]]
     assert (dj[42, 10] >> 7) & 1 == 0 and (dt[42, 10] >> 7) & 1 == 1
@@ -267,7 +268,7 @@ def test_slice_closes_the_loop_and_improves_ate(loop_clip):
 def test_slam_system_refuses_unported_options():
     cam = interop.camera(jax.device_get(
         make_world(jax.random.PRNGKey(0), n_frames=2, n_points=10,
-                   image_hw=(128, 256)).cam))
+                   image_hw=(128, 256)).cam), device="cpu")
     cfg = tiny_config()
     with pytest.raises(NotImplementedError, match="item 13"):
         tpipe.SlamSystem(cam, cfg)                 # local_every=5
@@ -294,13 +295,13 @@ def test_slam_step_from_carried_state():
     exported = jax.device_get(js)
     js2, jrow, _ = jpipe.slam_step(js, lefts[2], rights[2], world.cam, cfg)
 
-    ts = interop.slam_state(exported._replace(key=None))
+    ts = interop.slam_state(exported._replace(key=None), device="cpu")
     draws = ReplayDraws(0)
     draws.key = key
     ts2, trow, _ = tpipe.slam_step(
         ts, torch.as_tensor(np.array(lefts[2])),
         torch.as_tensor(np.array(rights[2])),
-        interop.camera(jax.device_get(world.cam)), tiny_config(), draws)
+        interop.camera(jax.device_get(world.cam), "cpu"), tiny_config(), draws)
     assert ts2.frame == int(js2.frame) == 2
     # the packed row: counts and flags exact, chi^2 and the mean
     # reprojection error (px) to 1e-5 relative

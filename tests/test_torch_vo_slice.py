@@ -66,7 +66,7 @@ def rot_angle(Ra, Rb):
 @pytest.mark.parametrize("frame", [0, 5, 11])
 def test_render_frame_matches_jax(clip, frame):
     _, world, _, _ = clip
-    tw = interop.world(jax.device_get(world))
+    tw = interop.world(jax.device_get(world), device="cpu")
     atol = 1e-6 if frame == 0 else 1e-4
     for j, t in zip(render_frame(world, frame, H, W),
                     tsyn.render_frame(tw, frame, H, W)):
@@ -81,7 +81,7 @@ def test_make_trajectory_matches_jax(kind):
     to under a millimetre."""
     from slam1_tpu.utils.synthetic import make_trajectory
     np.testing.assert_allclose(
-        tsyn.make_trajectory(30, kind, 0.8).numpy(),
+        tsyn.make_trajectory(30, kind, 0.8, device="cpu").numpy(),
         np.asarray(make_trajectory(30, kind, 0.8)), rtol=0, atol=1e-3)
 
 
@@ -91,7 +91,7 @@ def test_run_sequence_matches_jax(clip):
                               world.cam, cfg)
     pt, mt = tvo.run_sequence(
         torch.as_tensor(lefts), torch.as_tensor(rights),
-        interop.camera(jax.device_get(world.cam)), tiny_config(),
+        interop.camera(jax.device_get(world.cam), device="cpu"), tiny_config(),
         draws=reference_draws(cfg, lefts.shape[0] - 1))
     assert pt.shape == pj.shape and len(mt) == len(mj)
     for i, (a, b) in enumerate(zip(mj, mt)):
@@ -118,12 +118,12 @@ def test_vo_step_from_carried_state(clip):
     u = np.array(jax.random.uniform(
         sub, (cfg.tracking.ransac_iters, cfg.detector.max_kp),
         minval=1e-9, maxval=1.0))
-    ts = interop.vo_state(jax.device_get(js._replace(key=None)))
+    ts = interop.vo_state(jax.device_get(js._replace(key=None)), device="cpu")
     js2, jm = jvo.vo_step(js, jnp.asarray(lefts[1]), jnp.asarray(rights[1]),
                           world.cam, cfg)
     ts2, tm = tvo.vo_step(ts, torch.as_tensor(lefts[1]),
                           torch.as_tensor(rights[1]),
-                          interop.camera(jax.device_get(world.cam)),
+                          interop.camera(jax.device_get(world.cam), "cpu"),
                           tiny_config(), u=torch.as_tensor(u))
     assert ts2.frame == int(js2.frame) == 1
     assert int(tm.num_stereo) == int(jm.num_stereo)
@@ -137,7 +137,7 @@ def test_port_tracks_its_own_world():
     """The port end to end on its own renderer and RANSAC generator."""
     cfg = tiny_config()
     world = tsyn.make_world(7, n_frames=8, n_points=1500, trajectory="arc",
-                            speed=0.8, image_hw=(H, W))
+                            speed=0.8, image_hw=(H, W), device="cpu")
     lefts, rights = tsyn.render_sequence(world, H, W)
     poses, metrics = tvo.run_sequence(lefts, rights, world.cam, cfg)
     assert poses.shape == (8, 4, 4) and np.isfinite(poses).all()
