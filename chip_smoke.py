@@ -18,6 +18,10 @@ exits non-zero and never prints the final `ok` line:
   3. kernels — each kernel against its plain PyTorch twin on the card,
                at the main paths' shapes: fast_score on a rendered and
                a random image at the three pyramid levels (batch 2),
+               level by level through its one-level entry and all
+               levels in one launch, on copies moved 4 bytes off their
+               alignment and on a 61 x 83 canvas (the scalar path), and
+               with arc = 12 (the run-time-arc instantiation);
                hamming_top2 at 2688 x 2688 ungated / epipolar-gated /
                window-gated / with duplicated descriptors (ties) / with
                duplicates that straddle an MMA tile, a warp, a row block
@@ -39,7 +43,7 @@ exits non-zero and never prints the final `ok` line:
                `SlamSystem.process` on frame 0, `process_block` on
                blocks of 32, then `finalize`, with the launch counters
                reset just before and read just after; checks the launch
-               counts (fast_score 3F, hamming_top2 2F-1, one batched
+               counts (fast_score F, hamming_top2 2F-1, one batched
                hamming_top2 per slate, one chain_prepare per Gauss-Newton
                iteration, one chain_sweep per preconditioner
                application), >= 2 accepted
@@ -119,7 +123,7 @@ SAME_ATE_TOL = 1e-6          # m, between two runs of the same clip
 KERNELS = {
     "fast_score": ("slam1_tpu_torch/csrc/fast_score.cu",
                    "slam1_tpu/ops/pallas_kernels.py:229",
-                   "one frame: 3 launches, 2 images x 3 pyramid levels"),
+                   "one frame: 1 launch, 2 images x 3 pyramid levels"),
     "hamming_top2": ("slam1_tpu_torch/csrc/hamming_top2.cu",
                      "slam1_tpu/ops/pallas_kernels.py:100",
                      "one frame: 2 gated launches of 2688 x 2688"),
@@ -245,21 +249,47 @@ def phase_kernels(cfg, lefts, rights, dev):
     mid = lefts.shape[0] // 2
     rendered = torch.stack([lefts[mid], rights[mid]])
     noise = torch.rand(rendered.shape, generator=g).to(dev)
-    for name, img in (("rendered", rendered), ("random", noise)):
-        for lvl, im in enumerate(pyramid(img, cfg.detector.num_levels)):
-            im = im.contiguous()
-            k = cuda_kernels.fast_score_cuda(im, thr, arc)
-            p = fast.fast_score(im, thr, arc)
-            torch.cuda.synchronize()
-            err = (k - p).abs().max().item()
-            same_mask = bool(torch.equal(k > 0, p > 0))
-            say("kernels", kernel="fast_score", image=name, level=lvl,
-                shape=tuple(im.shape), max_abs_err=err,
-                corners=int((p > 0).sum()), masks_equal=same_mask)
-            check(same_mask and err <= FAST_TOL,
-                  f"fast_score {name} level {lvl}: err {err}, masks "
-                  f"equal {same_mask}")
-            errs["fast_score"] = max(errs["fast_score"], err)
+    def held(case, im, k, arc_):
+        """One score map against the plain twin's."""
+        p = fast.fast_score(im, thr, arc_)
+        torch.cuda.synchronize()
+        err = (k - p).abs().max().item()
+        same_mask = bool(torch.equal(k > 0, p > 0))
+        say("kernels", kernel="fast_score", case=case, arc=arc_,
+            shape=tuple(im.shape), max_abs_err=err,
+            corners=int((p > 0).sum()), masks_equal=same_mask)
+        check(same_mask and err <= FAST_TOL,
+              f"fast_score {case}: err {err}, masks equal {same_mask}")
+        errs["fast_score"] = max(errs["fast_score"], err)
+
+    def held_levels(case, imgs, arc_):
+        """All levels in one launch against the twin, level by level."""
+        outs = cuda_kernels.fast_score_levels_cuda(imgs, thr, arc_)
+        for lvl, (im, k) in enumerate(zip(imgs, outs)):
+            held(f"{case} one-launch level {lvl}", im, k, arc_)
+
+    n_levels = cfg.detector.num_levels
+    pyramids = {name: [im.contiguous() for im in pyramid(img, n_levels)]
+                for name, img in (("rendered", rendered), ("random", noise))}
+    for name, imgs in pyramids.items():
+        for lvl, im in enumerate(imgs):
+            held(f"{name} level {lvl}", im,
+                 cuda_kernels.fast_score_cuda(im, thr, arc), arc)
+        held_levels(name, imgs, arc)
+    # The scalar path: contiguous copies 4 bytes off a 16-byte boundary,
+    # and a canvas whose rows are no whole number of 16 bytes.
+    moved = [synthetic.misaligned_copy(im) for im in pyramids["random"]]
+    check(all(im.data_ptr() % 16 for im in moved), "copies are aligned")
+    held_levels("misaligned", moved, arc)
+    held("misaligned level 0", moved[0],
+         cuda_kernels.fast_score_cuda(moved[0], thr, arc), arc)
+    held_levels("ragged", pyramid(noise[:, :61, :83].contiguous(), n_levels),
+                arc)
+    # Another arc than the compiled-in one.
+    check(arc != 12, "arc = 12 is the compiled-in arc")
+    held_levels("random arc-12", pyramids["random"], 12)
+    held_levels("ragged arc-12",
+                pyramid(noise[:, :61, :83].contiguous(), n_levels), 12)
 
     n = cfg.detector.max_kp
     rng = np.random.default_rng(2)
@@ -350,8 +380,7 @@ def phase_slice(cfg, world, lefts, rights, dev):
     secs = time.perf_counter() - t0
     counts = cuda_kernels.launch_counts()
     f = lefts.shape[0]
-    want = {"fast_score": cfg.detector.num_levels * f,
-            "hamming_top2": 2 * f - 1}
+    want = {"fast_score": f, "hamming_top2": 2 * f - 1}
     gt = world.poses.cpu().numpy()
     ate = ate_rmse(poses, gt, align=False)
     ok_share = float(np.mean([bool(m.pnp_ok) for m in metrics]))
@@ -539,8 +568,7 @@ def phase_slam(cfg, dev):
     pgo_runs = len(sys_.stage_seconds["pgo"])
     live_iters = max(cfg.ba.pg_iters // 5, 3)
     gn_iters = (pgo_runs - 1) * live_iters + cfg.ba.pg_iters
-    want = {"fast_score": cfg.detector.num_levels * f,
-            "hamming_top2": 2 * f - 1,
+    want = {"fast_score": f, "hamming_top2": 2 * f - 1,
             "hamming_top2_batched": sys_.n_slates,
             "chain_prepare": gn_iters,
             "chain_sweep": gn_iters * (cfg.ba.cg_iters + 1)}
@@ -779,7 +807,7 @@ def phase_times(cfg, lefts, rights, world, hamming_inputs):
     times["fast_score"] = time_kernel(
         "fast_score",
         lambda: [fast.fast_score(im, thr, arc) for im in imgs],
-        lambda: [cuda_kernels.fast_score_cuda(im, thr, arc) for im in imgs],
+        lambda: cuda_kernels.fast_score_levels_cuda(imgs, thr, arc),
         *bound_fast_score([im.shape for im in imgs]))
 
     da, db, ma, mb, uva, uvb = hamming_inputs

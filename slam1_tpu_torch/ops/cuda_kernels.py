@@ -2,8 +2,9 @@
 
 CUDA C++ kernels for sm_90a live in `slam1_tpu_torch/csrc/`:
 
-  - `fast_score.cu`   — FAST-9 score map; replaces the TPU kernel
-    `slam1_tpu/ops/pallas_kernels.py:fast_score`.
+  - `fast_score.cu`   — FAST-9 score maps; replaces the TPU kernel
+    `slam1_tpu/ops/pallas_kernels.py:fast_score`. Its levels entry
+    scores every pyramid level of a frame in one launch.
   - `hamming_top2.cu` — fused Hamming top-2 + column argmin with an
     optional geometric gate; replaces
     `slam1_tpu/ops/pallas_kernels.py:hamming_top2`. Its batched entry
@@ -50,6 +51,9 @@ BIG = 1 << 20
 # marches 2^(CHAIN_LEVELS - 1) interleaved chains. csrc/chain_sweep.cu
 # holds the same constant; build() checks that they agree.
 CHAIN_LEVELS = 4
+# Most images one fast_score launch takes. csrc/fast_score.cu holds the
+# same constant; build() checks that they agree.
+FAST_MAX_LEVELS = 8
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
@@ -102,14 +106,31 @@ def tensor_core_sass(source: str):
     return found
 
 
+class _FastLevel(ctypes.Structure):
+    """One image of a fast_score launch, as csrc/fast_score.cu reads it
+    (`FastLevelArg`): input, output, B, H, W."""
+    _fields_ = [("img", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("b", ctypes.c_int), ("h", ctypes.c_int),
+                ("w", ctypes.c_int)]
+
+
 class _Kernels:
     """The C entry points of the three libraries, argtypes declared."""
 
     def __init__(self, libs):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         self.libs = libs
-        self.slam_fast_score = libs["fast_score.cu"].slam_fast_score
+        fast = libs["fast_score.cu"]
+        self.slam_fast_score = fast.slam_fast_score
         self.slam_fast_score.argtypes = [p, p, i, i, i, f, i, p]
+        self.slam_fast_score_levels = fast.slam_fast_score_levels
+        self.slam_fast_score_levels.argtypes = [
+            ctypes.POINTER(_FastLevel), i, f, i, p]
+        fast.slam_fast_score_max_levels.argtypes = []
+        fast.slam_fast_score_max_levels.restype = i
+        if fast.slam_fast_score_max_levels() != FAST_MAX_LEVELS:
+            raise RuntimeError("csrc/fast_score.cu and FAST_MAX_LEVELS "
+                               "disagree")
         ham = libs["hamming_top2.cu"]
         self.slam_hamming_top2 = ham.slam_hamming_top2
         self.slam_hamming_top2.argtypes = [p, p, p, p, p, p, i, i, i, f, f,
@@ -122,7 +143,8 @@ class _Kernels:
         self.slam_chain_prepare.argtypes = [p, p, i, i, p, p]
         self.slam_chain_sweep = chain.slam_chain_sweep
         self.slam_chain_sweep.argtypes = [p, p, p, p, i, i, p, p]
-        for fn in (self.slam_fast_score, self.slam_hamming_top2,
+        for fn in (self.slam_fast_score, self.slam_fast_score_levels,
+                   self.slam_hamming_top2,
                    self.slam_hamming_top2_batched, self.slam_chain_prepare,
                    self.slam_chain_sweep):
             fn.restype = i
@@ -194,28 +216,75 @@ def _raise_on(err: int, what: str):
 # FAST-9 score
 # ---------------------------------------------------------------------------
 
+def _check_fast_args(imgs, arc, single=None):
+    """What the FAST kernel takes: float32, contiguous (B,H,W) CUDA
+    tensors with at least one pixel, all on one device with one B.
+    `single` names the argument when it is one image, not a list."""
+    if not 1 <= arc <= 16:
+        raise ValueError(f"arc must be in [1, 16], got {arc}")
+    if not 1 <= len(imgs) <= FAST_MAX_LEVELS:
+        raise ValueError(f"imgs: expected 1 to {FAST_MAX_LEVELS} levels, "
+                         f"got {len(imgs)}")
+    for n, im in enumerate(imgs):
+        name = single or f"imgs[{n}]"
+        if im.dim() != 3:
+            raise ValueError(f"{name}: expected (B,H,W), got "
+                             f"{tuple(im.shape)}")
+        _check(im, name, torch.float32)
+        if im.numel() == 0:
+            raise ValueError(f"{name}: empty image {tuple(im.shape)}")
+        if im.device != imgs[0].device:
+            raise ValueError(f"{name}: on {im.device}, imgs[0] on "
+                             f"{imgs[0].device}")
+        if im.shape[0] != imgs[0].shape[0]:
+            raise ValueError(f"{name}: batch {im.shape[0]}, imgs[0] has "
+                             f"{imgs[0].shape[0]}")
+
+
+def fast_score_levels_cuda(imgs, threshold: float, arc: int = 9):
+    """FAST scores of 1 to 8 (B,H,W) float32 CUDA tensors (the levels of
+    a pyramid; any sizes, one B) in ONE launch of csrc/fast_score.cu.
+    Returns one score map per image, as ops.fast.fast_score gives it."""
+    imgs = list(imgs)
+    _check_fast_args(imgs, arc)
+    # One allocation per level: PyTorch's allocator hands out 512-byte
+    # aligned blocks, so the kernel can store vectors wherever W % 4 ==
+    # 0, and an empty_like costs the host less than a slice and a view
+    # of one shared buffer.
+    outs = [torch.empty_like(im) for im in imgs]
+    levels = (_FastLevel * len(imgs))(*[
+        _FastLevel(im.data_ptr(), o.data_ptr(), *im.shape)
+        for im, o in zip(imgs, outs)])
+    lib = build()
+    stream = torch.cuda.current_stream(imgs[0].device).cuda_stream
+    _raise_on(lib.slam_fast_score_levels(levels, len(imgs), float(threshold),
+                                         int(arc), stream),
+              "fast_score launch")
+    fast_score_cuda.launches += 1
+    return outs
+
+
 def fast_score_cuda(img: torch.Tensor, threshold: float,
                     arc: int = 9) -> torch.Tensor:
     """FAST score of a (B,H,W) or (H,W) float32 CUDA tensor via the
-    kernel in csrc/fast_score.cu. Same contract as ops.fast.fast_score."""
-    squeeze = img.dim() == 2
-    x = img[None] if squeeze else img
-    _check(x, "img", torch.float32)
-    if x.dim() != 3:
-        raise ValueError(f"img: expected (B,H,W) or (H,W), got {img.shape}")
-    if not 1 <= arc <= 16:
-        raise ValueError(f"arc must be in [1, 16], got {arc}")
-    b, h, w = x.shape
+    kernel in csrc/fast_score.cu (its one-level case). Same contract as
+    ops.fast.fast_score."""
+    if img.dim() not in (2, 3):
+        raise ValueError(f"img: expected (B,H,W) or (H,W), got "
+                         f"{tuple(img.shape)}")
+    x = img[None] if img.dim() == 2 else img
+    _check_fast_args([x], arc, single="img")
     out = torch.empty_like(x)
     lib = build()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    _raise_on(lib.slam_fast_score(x.data_ptr(), out.data_ptr(), b, h, w,
+    _raise_on(lib.slam_fast_score(x.data_ptr(), out.data_ptr(), *x.shape,
                                   float(threshold), int(arc), stream),
               "fast_score launch")
     fast_score_cuda.launches += 1
-    return out[0] if squeeze else out
+    return out.view(img.shape)
 
 
+# Launches of the FAST kernel through either wrapper.
 fast_score_cuda.launches = 0
 
 

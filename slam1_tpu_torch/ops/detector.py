@@ -4,8 +4,10 @@ oriented rBRIEF descriptors, with fixed output capacity (counterpart of
 
 Every function takes a batch of images (B,H,W) — the stereo frontend
 detects left and right in one pass — and returns `Features` with a
-leading batch dimension. The score map comes from
-`dispatch.fast_score` (the CUDA kernel for CUDA tensors). Patch
+leading batch dimension. The score maps come from
+`dispatch.fast_score` / `dispatch.fast_score_levels` (the CUDA kernel
+for CUDA tensors; `detect_pyramid` scores all its levels in one launch).
+Patch
 extraction is a plain gather: the JAX version's tile-local one-hot
 contractions (`detector.py:27-63`) select exactly one pixel per patch
 element from the zero-padded blurred image.
@@ -51,16 +53,19 @@ def _paraboff(m, p, c):
     return torch.clamp(torch.where(ok, t, torch.zeros_like(t)), -0.5, 0.5)
 
 
-def detect(img, cfg: DetectorConfig, valid_h=None, valid_w=None) -> Features:
+def detect(img, cfg: DetectorConfig, valid_h=None, valid_w=None,
+           raw=None) -> Features:
     """Detect + describe on a (B,H,W) float32 batch; valid_h/valid_w
-    (ints) bound the usable region of a padded canvas."""
+    (ints) bound the usable region of a padded canvas. `raw` is the
+    image's FAST score map where the caller already has it."""
     bsz, h, w = img.shape
     dev = img.device
     margin = cfg.patch_size // 2 + 1
     valid_h = h if valid_h is None else valid_h
     valid_w = w if valid_w is None else valid_w
 
-    raw = dispatch.fast_score(img, cfg.fast_threshold, cfg.fast_arc)
+    if raw is None:
+        raw = dispatch.fast_score(img, cfg.fast_threshold, cfg.fast_arc)
     score = fast.nms(raw, cfg.nms_radius)
     ys = torch.arange(h, device=dev)[:, None]
     xs = torch.arange(w, device=dev)[None, :]
@@ -143,17 +148,19 @@ def detect_pyramid(img, cfg: DetectorConfig, valid_h=None,
         raise NotImplementedError(
             "only scale_factor=2 pyramids are ported (the reference's "
             "jax.image.resize branch is not)")
+    levels = [img]
+    for _ in range(1, cfg.num_levels):
+        levels.append(_downsample2(levels[-1]))
+    raws = dispatch.fast_score_levels(levels, cfg.fast_threshold,
+                                      cfg.fast_arc)
     feats = []
-    cur = img
-    for lvl in range(cfg.num_levels):
+    for lvl, (cur, raw) in enumerate(zip(levels, raws)):
         s = cfg.scale_factor ** lvl
-        if lvl > 0:
-            cur = _downsample2(cur)
         gr, gc = cfg.level_grid(lvl)
         lcfg = dataclasses.replace(cfg, grid_rows=gr, grid_cols=gc,
                                    num_levels=1)
         f = detect(cur, lcfg, valid_h=int(valid_h / s),
-                   valid_w=int(valid_w / s))
+                   valid_w=int(valid_w / s), raw=raw)
         if lvl > 0:
             f = f._replace(xy=f.xy * s + (s - 1.0) / 2.0)
         feats.append(f)

@@ -28,6 +28,17 @@ def fast_score(img, threshold: float, arc: int = 9):
     return fast.fast_score(img, threshold, arc)
 
 
+def fast_score_levels(imgs, threshold: float, arc: int = 9):
+    """FAST-9 score maps of a list of (B,H,W) float32 images (the levels
+    of a pyramid): one kernel launch for CUDA tensors, the plain twin
+    image by image on the CPU."""
+    imgs = list(imgs)
+    if use_cuda(imgs[0]):
+        return cuda_kernels.fast_score_levels_cuda(
+            [im.contiguous() for im in imgs], threshold, arc)
+    return [fast.fast_score(im, threshold, arc) for im in imgs]
+
+
 def hamming_top2(desc_a, desc_b, mask_a, mask_b, *, uv_a=None, uv_b=None,
                  dy_tol=None, dx_lo=0.0, dx_hi=0.0):
     """Hamming top-2 over packed descriptors -> (d1, d2, idx, col_best)."""

@@ -67,6 +67,24 @@ def fast_score(img, threshold: float, arc: int = 9):
     return torch.where(keep, score, torch.zeros_like(score))
 
 
+def arc_mask(bits, arc: int):
+    """The arc test as csrc/fast_score.cu makes it. `bits`: an integer
+    tensor of 16-bit masks, bit k set where tap k of the circle passed
+    its compare. True where >= `arc` consecutive taps on the circle are
+    set: with m32 = m | m << 16, bit i of AND_{k < arc} (m32 >> k) says
+    that taps i .. i + arc - 1 (mod 16) are all set."""
+    m32 = bits.to(torch.int64)
+    m32 = m32 | (m32 << 16)
+    run = m32.clone()
+    have = 1                      # bit i of run: bits i..i+have-1 set
+    while 2 * have <= arc:
+        run = run & (run >> have)
+        have *= 2
+    if have < arc:
+        run = run & (run >> (arc - have))
+    return (run & 0xFFFF) != 0
+
+
 def nms(score, radius: int = 2):
     """Local-maximum suppression: keep pixels equal to the (2r+1)^2
     window max (-inf outside the image, as reduce_window "SAME")."""

@@ -182,6 +182,17 @@ def render_sequence(world: SyntheticWorld, height: int, width: int):
             torch.stack([f[1] for f in frames]))
 
 
+def misaligned_copy(t, items: int = 1):
+    """A contiguous copy of `t` whose first element lies `items` elements
+    past the start of its allocation: contiguous, yet off the 16-byte
+    boundary that vector loads need (what `x[1:]` of a larger tensor
+    is)."""
+    buf = torch.empty(t.numel() + items, dtype=t.dtype, device=t.device)
+    view = buf[items:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 def chain_inputs(f: int, n_live: int, seed: int):
     """Chain-sweep operands (JjInv, Ji, winv, v) shaped like a pose
     graph's, on the CPU: Ji = -(rotation blocks) of the chain adjoints,

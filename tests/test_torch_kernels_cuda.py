@@ -75,6 +75,83 @@ def test_fast_score_cuda_matches_plain(cuda_device, shape):
     assert (k - p).abs().max().item() <= FAST_TOL
 
 
+def _assert_fast_equal(k, p):
+    assert k.shape == p.shape
+    assert torch.equal(k > 0, p > 0)
+    assert (k - p).abs().max().item() <= FAST_TOL
+
+
+LEVEL_SHAPES = {
+    "frame": [(2, 376, 1280), (2, 188, 640), (2, 94, 320)],
+    "ragged": [(2, 61, 83), (2, 31, 42), (2, 16, 21)],
+    "one-level": [(1, 70, 129)],
+    "five-levels": [(3, 97, 130), (3, 49, 65), (3, 25, 33), (3, 13, 17),
+                    (3, 7, 9)],
+    "too-small-to-score": [(2, 6, 40), (2, 40, 5), (2, 1, 1)],
+    "smallest-first": [(1, 8, 12), (1, 33, 64), (1, 64, 128)],
+}
+
+
+@pytest.mark.parametrize("arc", [9, 12, 16])
+@pytest.mark.parametrize("moved", [False, True],
+                         ids=["aligned", "moved-4-bytes"])
+@pytest.mark.parametrize("case", sorted(LEVEL_SHAPES))
+def test_fast_score_levels_cuda_matches_plain(cuda_device, case, moved, arc):
+    g = torch.Generator().manual_seed(11)
+    imgs = [torch.rand(s, generator=g).to(cuda_device)
+            for s in LEVEL_SHAPES[case]]
+    if moved:                   # contiguous, off the 16-byte boundary
+        imgs = [synthetic.misaligned_copy(im) for im in imgs]
+        assert all(im.is_contiguous() and im.data_ptr() % 16 for im in imgs)
+    before = cuda_kernels.launch_counts()["fast_score"]
+    outs = cuda_kernels.fast_score_levels_cuda(imgs, 0.08, arc)
+    assert cuda_kernels.launch_counts()["fast_score"] == before + 1
+    assert len(outs) == len(imgs)
+    for im, k in zip(imgs, outs):
+        p = tfast.fast_score(im, 0.08, arc)
+        _assert_fast_equal(k, p)
+        if min(im.shape[1:]) < 7:
+            assert not k.any()
+        # The one-level entry on the same image.
+        _assert_fast_equal(cuda_kernels.fast_score_cuda(im, 0.08, arc), p)
+    if arc == 9 and case == "frame":
+        assert all((k > 0).sum() > 100 for k in outs)
+
+
+@pytest.mark.parametrize("arc", [9, 12, 16])
+def test_fast_score_cuda_compares_strictly(cuda_device, arc):
+    """Taps exactly threshold above (below) the centre are not brighter
+    (darker): with all 16 there the pixel is no corner; with the
+    difference one float past the threshold, it is."""
+    thr = 0.25                       # 0.5 +- 0.25 are exact in float32
+    imgs = []
+    # The last two taps are floats whose difference from 0.5 is exact.
+    for tap in (0.75, 0.25, 0.75 + 2.0 ** -24, 0.25 - 2.0 ** -25):
+        img = torch.full((1, 16, 24), 0.5)
+        for dy, dx in tfast.CIRCLE:
+            img[0, 8 + dy, 12 + dx] = tap
+        imgs.append(img.to(cuda_device))
+    outs = cuda_kernels.fast_score_levels_cuda(imgs, thr, arc)
+    for im, k in zip(imgs, outs):
+        _assert_fast_equal(k, tfast.fast_score(im, thr, arc))
+    assert [bool(k[0, 8, 12] > 0) for k in outs] == [False, False, True,
+                                                     True]
+
+
+def test_fast_score_cuda_2d_and_dispatch(cuda_device):
+    from slam1_tpu_torch.ops import dispatch
+    img = torch.rand(40, 52, generator=torch.Generator().manual_seed(2))
+    img = img.to(cuda_device)
+    p = tfast.fast_score(img, 0.08)
+    _assert_fast_equal(cuda_kernels.fast_score_cuda(img, 0.08), p)
+    # The dispatch makes a strided view contiguous; the wrapper refuses it.
+    wide = torch.rand(2, 40, 104, generator=torch.Generator().manual_seed(3))
+    view = wide.to(cuda_device)[:, :, ::2]
+    outs = dispatch.fast_score_levels([view, view[:, ::2]], 0.08)
+    _assert_fast_equal(outs[0], tfast.fast_score(view, 0.08))
+    _assert_fast_equal(outs[1], tfast.fast_score(view[:, ::2], 0.08))
+
+
 @pytest.mark.parametrize("dup", [None, "pairs", "straddle"],
                          ids=["random", "ties", "ties-across-tiles"])
 @pytest.mark.parametrize("gate", sorted(GATES))
@@ -98,6 +175,23 @@ def test_wrappers_reject_bad_inputs(cuda_device):
         cuda_kernels.fast_score_cuda(img.double(), 0.08)
     with pytest.raises(ValueError, match="contiguous"):
         cuda_kernels.fast_score_cuda(img.transpose(1, 2), 0.08)
+    levels = cuda_kernels.fast_score_levels_cuda
+    with pytest.raises(TypeError, match=r"imgs\[1\]"):
+        levels([img, img.double()], 0.08)
+    with pytest.raises(ValueError, match=r"imgs\[1\].*contiguous"):
+        levels([img, img.transpose(1, 2)], 0.08)
+    with pytest.raises(ValueError, match=r"imgs\[1\].*\(B,H,W\)"):
+        levels([img, img[0]], 0.08)
+    with pytest.raises(ValueError, match=r"imgs\[1\].*batch"):
+        levels([img, img[:1]], 0.08)
+    with pytest.raises(ValueError, match=r"imgs\[1\].*CUDA"):
+        levels([img, img.cpu()], 0.08)
+    with pytest.raises(ValueError, match=r"imgs\[0\].*empty"):
+        levels([img[:, :0]], 0.08)
+    with pytest.raises(ValueError, match="levels"):
+        levels([img] * (cuda_kernels.FAST_MAX_LEVELS + 1), 0.08)
+    with pytest.raises(ValueError, match="arc"):
+        levels([img], 0.08, arc=0)
     d = torch.zeros(8, 32, dtype=torch.uint8, device=cuda_device)
     m = torch.ones(8, dtype=torch.bool, device=cuda_device)
     with pytest.raises(ValueError, match="shape"):
@@ -113,6 +207,7 @@ def test_vo_slice_launches_both_kernels(cuda_device):
     lefts, rights = synthetic.render_sequence(world, h, w)
     cuda_kernels.reset_launch_counts()
     poses, metrics = vo.run_sequence(lefts, rights, world.cam, cfg)
+    # tiny_config has one pyramid level: one FAST launch per frame.
     assert cuda_kernels.launch_counts() == {"fast_score": 5,
                                             "hamming_top2": 9,
                                             "hamming_top2_batched": 0,
@@ -120,6 +215,22 @@ def test_vo_slice_launches_both_kernels(cuda_device):
                                             "chain_sweep": 0}
     assert np.isfinite(poses).all()
     assert np.mean([bool(m.pnp_ok) for m in metrics]) > 0.5
+
+
+@pytest.mark.parametrize("levels", [1, 3])
+def test_detect_pyramid_launches_fast_score_once(cuda_device, levels):
+    """Both images and every pyramid level in one launch."""
+    from slam1_tpu_torch.ops import detector
+    cfg = dataclasses.replace(tiny_config().detector, num_levels=levels)
+    img = torch.rand(2, 128, 256, generator=torch.Generator().manual_seed(4))
+    cuda_kernels.reset_launch_counts()
+    feats = detector.detect_pyramid(img.to(cuda_device), cfg)
+    assert cuda_kernels.launch_counts()["fast_score"] == 1
+    on_cpu = detector.detect_pyramid(img, cfg)
+    assert cuda_kernels.launch_counts()["fast_score"] == 1
+    assert torch.equal(feats.mask.cpu(), on_cpu.mask)
+    assert torch.equal(feats.score.cpu(), on_cpu.score)
+    assert feats.mask.sum() > 100
 
 
 @pytest.mark.parametrize("invalid", ["last", "all", "none"])
@@ -179,7 +290,7 @@ def test_chain_sweep_cuda_matches_plain(cuda_device, f, n_live):
 
 def test_slam_system_launches_the_kernels(cuda_device):
     """A short loop clip through SlamSystem on CUDA tensors: every frame's
-    FAST and Hamming launches, one batched launch per slate, one
+    one FAST launch (both images, every level) and Hamming launches, one batched launch per slate, one
     chain_prepare per Gauss-Newton iteration and one chain_sweep per
     application of the preconditioner."""
     cfg = tiny_config()
