@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port's main paths once on one GPU: the stereo
-VO step, then the full SLAM system (mapping, BoW, place recognition,
-loop verification, pose-graph optimisation) with local BA off.
+VO step, the SLAM system with local BA off, and the SLAM system at the
+default config (local BA on, checkpoints, asynchronous drain) followed
+by resume and global BA with pose priors.
 
     python3 chip_smoke.py
 
@@ -52,16 +53,40 @@ exits non-zero and never prints the final `ok` line:
                it, ATE after finalize <= the odometry-only ATE (the ATE
                before finalize is printed: the reference's final
                relaxation can raise it by centimetres), and pnp_ok >=
-               0.8. The same clip runs a second time and must give the
-               same ATEs; chain_sweep is held against its twin on the
+               0.8; chain_sweep is held against its twin on the
                chain operands of the finished run's pose graph.
-               Then the first 6 frames of `slam_step` on
-               CPU and on CUDA with the same draws (num_stereo, kf.n and
-               map.cursor within 2%, poses within 1e-2 m), and the host
-               syncs of one warm vo_step and one warm slam_step under
-               torch.cuda.set_sync_debug_mode("warn") (slam_step may not
-               add any).
-  6. times   — per kernel: its device time (a CUDA graph of 20 calls
+  6. slam-ba — the same clip at `SlamConfig()` with only
+               bow.poll_lag_s=0 (so two passes can be compared): local
+               BA every 5 keyframes, a checkpoint saved at frame 320.
+               Checks: one BA cost per cadence window, all finite; the
+               launch counts by the same formulas (BA launches no
+               hand-written kernel); loop edges, pnp_ok and ATE as in
+               `slam`; a second pass gives the same ATEs; a warm
+               slam_step and a warm local_ba_step make no host sync.
+               Prints frames/s, ms per local_ba_step and the ATEs beside
+               the BA-off run's.
+  7. checkpoint — `SlamSystem.resume` from the frame-320 snapshot, frames
+               321-599, finalize: final poses within 1e-3 m of the
+               straight run's.
+  8. global-ba — `global_ba_step` on the finished state with the
+               keyframe count's bucket, the observation bucket the CLI
+               picks, the run's loop edges as priors and the trace:
+               final cost finite and <= the first trace entry, at least
+               one accepted step, ATE after <= 1.05 x before. Prints the
+               trace, ms per LM iteration and ms per CG matvec with its
+               byte bound.
+  9. async   — the first 200 frames at `SlamConfig()` unchanged
+               (poll_lag_s=0.05): no metrics row lost, poses finite,
+               pnp_ok >= 0.8, the fetch worker gone with the system.
+ 10. cpu-vs-gpu — the first 6 frames of `slam_step` on CPU and on CUDA
+               with the same draws (num_stereo, kf.n and map.cursor
+               within 2%, poses within 1e-2 m); `bundle_adjust` of a
+               seeded 6-camera, 120-point problem on CPU and CUDA
+               tensors (equal accept sequences, poses within 1e-4 m);
+               the host syncs of one warm vo_step and one warm slam_step
+               under torch.cuda.set_sync_debug_mode("warn") (slam_step
+               may not add any).
+ 11. times   — per kernel: its device time (a CUDA graph of 20 calls
                replayed), its eager time (CUDA events around 20 wrapper
                calls), its plain twin's time, in turns plain, kernel,
                kernel, plain; its bound from the function's inputs and
@@ -74,18 +99,22 @@ exits non-zero and never prints the final `ok` line:
                and per PGO.
 
 The last four lines are: a JSON object of the end-to-end numbers, the
-nvidia-smi line (name, power limit), {"kernels": [...]} and
-{"ok": true, "device": {...}}.
+nvidia-smi line (name, power limit), {"kernels": [...]} (`launches` is
+the count of the slam-ba pass, `launches_by_path` those of every path)
+and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 import warnings
 
@@ -96,7 +125,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from slam1_tpu_torch import runtime  # noqa: E402
 from slam1_tpu_torch.config import SlamConfig  # noqa: E402
-from slam1_tpu_torch.models import pipeline, posegraph, vo  # noqa: E402
+from slam1_tpu_torch.models import ba, pipeline, posegraph, vo  # noqa: E402
 from slam1_tpu_torch.models.loop_closure import place_query, \
     verify_loop_slate  # noqa: E402
 from slam1_tpu_torch.ops import cuda_kernels, fast, se3  # noqa: E402
@@ -104,7 +133,8 @@ from slam1_tpu_torch.ops.detector import _downsample2  # noqa: E402
 from slam1_tpu_torch.ops.pnp import draw_uniform  # noqa: E402
 from slam1_tpu_torch.utils import synthetic  # noqa: E402
 from slam1_tpu_torch.utils.evalmetrics import ate_rmse  # noqa: E402
-from slam1_tpu_torch.utils.timing import event_ms, graph_ms  # noqa: E402
+from slam1_tpu_torch.utils.timing import device_busy_ms, event_ms, \
+    graph_ms  # noqa: E402
 
 N_FRAMES = 24
 N_POINTS = 6000
@@ -119,6 +149,10 @@ SLATE_B = 8
 CHAIN_F, CHAIN_LIVE = 2048, 601
 CHAIN_TOL = 1e-4             # max |kernel - twin| / max |twin|
 SAME_ATE_TOL = 1e-6          # m, between two runs of the same clip
+CKPT_FRAME = 320             # a block boundary of the slam-ba pass
+RESUME_TOL = 1e-3            # m, resumed run against the straight run
+ASYNC_FRAMES = 200
+BA_TOL = 1e-4                # m, bundle_adjust on CPU against CUDA
 # name: (source, what it replaces, what one "ms" covers)
 KERNELS = {
     "fast_score": ("slam1_tpu_torch/csrc/fast_score.cu",
@@ -489,12 +523,15 @@ def check_chain(ops, n_live, what):
     return out
 
 
-def slam_config():
-    """The default config with the two parts the port lacks switched off
-    as the JAX package documents: local BA and the asynchronous drain."""
+def slam_config(ba_on: bool):
+    """The default config with the drain made synchronous, so that two
+    passes can be compared; `ba_on` False also switches local BA off, as
+    the JAX package documents."""
     cfg = SlamConfig()
-    return cfg.replace(ba=dataclasses.replace(cfg.ba, local_every=0),
-                       bow=dataclasses.replace(cfg.bow, poll_lag_s=0.0))
+    cfg = cfg.replace(bow=dataclasses.replace(cfg.bow, poll_lag_s=0.0))
+    if not ba_on:
+        cfg = cfg.replace(ba=dataclasses.replace(cfg.ba, local_every=0))
+    return cfg
 
 
 def odometry_poses(sys_):
@@ -514,11 +551,26 @@ def graph_cost(sys_, poses):
     return float(posegraph.optimize(sys_.pose_graph(poses), iters=0)[1])
 
 
-def run_slam(cfg, world, lefts, rights):
+def run_blocks(sys_, lefts, rights, first, ckpt_path=None):
+    """Frames [first, F) through process_block in blocks of SLAM_BLOCK,
+    saving a checkpoint after frame CKPT_FRAME when `ckpt_path` is
+    given: the seconds the saves took."""
+    t_ckpt = 0.0
+    for s in range(first, lefts.shape[0], SLAM_BLOCK):
+        sys_.process_block(lefts[s:s + SLAM_BLOCK], rights[s:s + SLAM_BLOCK])
+        if ckpt_path and sys_.frame_count == CKPT_FRAME:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sys_.save_checkpoint(ckpt_path)
+            t_ckpt = time.perf_counter() - t0
+    return t_ckpt
+
+
+def run_slam(cfg, world, lefts, rights, ckpt_path=None):
     """One pass of the clip through SlamSystem (bootstrap, blocks,
     finalize) with the launch counters reset just before and read just
-    after: (system, poses before / after finalize, counts, seconds)."""
-    f = lefts.shape[0]
+    after: (system, poses before / after finalize, counts, seconds of
+    bootstrap, loop without the checkpoint, finalize, checkpoint)."""
     sys_ = pipeline.SlamSystem(world.cam, cfg, seed=SEED, bow_train_frame=30)
     cuda_kernels.reset_launch_counts()
     torch.cuda.synchronize()
@@ -526,8 +578,7 @@ def run_slam(cfg, world, lefts, rights):
     sys_.process(lefts[0], rights[0])
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    for s in range(1, f, SLAM_BLOCK):
-        sys_.process_block(lefts[s:s + SLAM_BLOCK], rights[s:s + SLAM_BLOCK])
+    t_ckpt = run_blocks(sys_, lefts, rights, 1, ckpt_path)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     pre = sys_.poses()
@@ -535,7 +586,49 @@ def run_slam(cfg, world, lefts, rights):
     torch.cuda.synchronize()
     t3 = time.perf_counter()
     return (sys_, pre, post, cuda_kernels.launch_counts(),
-            (t1 - t0, t2 - t1, t3 - t2))
+            (t1 - t0, t2 - t1 - t_ckpt, t3 - t2, t_ckpt))
+
+
+def slam_numbers(sys_, cfg, pre, post, gt):
+    """What every SLAM pass is judged by: ATEs, loop edges with their
+    distance to the ground truth, pnp_ok share and the launch counts the
+    run's own bookkeeping implies."""
+    f = post.shape[0]
+    edges = []
+    for i, j, Z, _ in sys_.loop_edges:
+        Z_true = np.linalg.inv(gt[i]) @ gt[j]
+        edges.append((i, j, float(np.linalg.norm(Z[:3, 3] - Z_true[:3, 3]))))
+    # Gauss-Newton iterations: every live relaxation but the last entry
+    # of stage_seconds["pgo"], which is finalize's.
+    pgo_runs = len(sys_.stage_seconds["pgo"])
+    gn_iters = ((pgo_runs - 1) * max(cfg.ba.pg_iters // 5, 3)
+                + cfg.ba.pg_iters)
+    want = {"fast_score": f, "hamming_top2": 2 * f - 1,
+            "hamming_top2_batched": sys_.n_slates,
+            "chain_prepare": gn_iters,
+            "chain_sweep": gn_iters * (cfg.ba.cg_iters + 1)}
+    return dict(ate_pre=ate_rmse(pre, gt, align=False),
+                ate_post=ate_rmse(post, gt, align=False),
+                ate_odo=ate_rmse(odometry_poses(sys_), gt, align=False),
+                ok_share=float(np.mean([m.pnp_ok for m in sys_.metrics])),
+                edges=edges, pgo_runs=pgo_runs, want=want)
+
+
+def check_slam(name, n, counts, post):
+    """The checks every SLAM pass must hold."""
+    f = post.shape[0]
+    for kernel, k in n["want"].items():
+        check(counts[kernel] == k,
+              f"{name}: {kernel} launches {counts[kernel]} != {k}")
+    check(bool(np.isfinite(post).all()) and post.shape == (f, 4, 4),
+          f"{name}: poses not finite / wrong shape")
+    check(len(n["edges"]) >= 2, f"{name}: {len(n['edges'])} loop edges < 2")
+    check(all(d < 0.5 for _, _, d in n["edges"]),
+          f"{name}: loop edge off the ground truth by >= 0.5 m: {n['edges']}")
+    check(n["ate_post"] <= n["ate_odo"],
+          f"{name}: ATE after finalize {n['ate_post']} > odometry-only "
+          f"{n['ate_odo']}")
+    check(n["ok_share"] >= 0.8, f"{name}: pnp_ok share {n['ok_share']} < 0.8")
 
 
 def phase_slam(cfg, dev):
@@ -549,47 +642,26 @@ def phase_slam(cfg, dev):
     say("slam-render", frames=SLAM_FRAMES, points=20 * SLAM_FRAMES,
         seconds=f"{time.perf_counter() - t0:.3f}")
     f = SLAM_FRAMES
-    sys_, pre, post, counts, (t_boot, t_loop, t_final) = run_slam(
+    sys_, pre, post, counts, (t_boot, t_loop, t_final, _) = run_slam(
         cfg, world, lefts, rights)
     gt = world.poses.cpu().numpy()
-    ate_pre = ate_rmse(pre, gt, align=False)
-    ate_post = ate_rmse(post, gt, align=False)
-    odo = odometry_poses(sys_)
-    ate_odo = ate_rmse(odo, gt, align=False)
+    n = slam_numbers(sys_, cfg, pre, post, gt)
     cost_pre, cost_post = (graph_cost(sys_, p) for p in (pre, post))
-    ok_share = float(np.mean([m.pnp_ok for m in sys_.metrics]))
     fps = (f - 1) / t_loop
-    edges = []
-    for i, j, Z, _ in sys_.loop_edges:
-        Z_true = np.linalg.inv(gt[i]) @ gt[j]
-        edges.append((i, j, float(np.linalg.norm(Z[:3, 3] - Z_true[:3, 3]))))
-    # Gauss-Newton iterations: every live relaxation but the last entry
-    # of stage_seconds["pgo"], which is finalize's.
-    pgo_runs = len(sys_.stage_seconds["pgo"])
-    live_iters = max(cfg.ba.pg_iters // 5, 3)
-    gn_iters = (pgo_runs - 1) * live_iters + cfg.ba.pg_iters
-    want = {"fast_score": f, "hamming_top2": 2 * f - 1,
-            "hamming_top2_batched": sys_.n_slates,
-            "chain_prepare": gn_iters,
-            "chain_sweep": gn_iters * (cfg.ba.cg_iters + 1)}
-    n_acc = sum(e.accepted for e in sys_.loop_events)
     say("slam", frames=f, bootstrap_seconds=f"{t_boot:.3f}",
         loop_seconds=f"{t_loop:.3f}", finalize_seconds=f"{t_final:.3f}",
-        slam_frames_per_s=fps, launches=counts, expected=want,
+        slam_frames_per_s=fps, launches=counts, expected=n["want"],
         slates=sys_.n_slates, verifications=len(sys_.loop_events),
-        accepted=n_acc, pgo_runs=pgo_runs, loop_edges=edges,
-        ate_odometry_only_m=ate_odo,
-        ate_before_finalize_m=ate_pre, ate_after_finalize_m=ate_post,
+        accepted=sum(e.accepted for e in sys_.loop_events),
+        pgo_runs=n["pgo_runs"], loop_edges=n["edges"],
+        ate_odometry_only_m=n["ate_odo"],
+        ate_before_finalize_m=n["ate_pre"],
+        ate_after_finalize_m=n["ate_post"],
         pose_graph_cost_before_finalize=cost_pre,
-        pose_graph_cost_after_finalize=cost_post, pnp_ok_share=ok_share,
+        pose_graph_cost_after_finalize=cost_post,
+        pnp_ok_share=n["ok_share"],
         keyframes=int(sys_.state.kf.n), landmarks=int(sys_.state.map.cursor))
-    for name, n in want.items():
-        check(counts[name] == n, f"{name} launches {counts[name]} != {n}")
-    check(bool(np.isfinite(post).all()) and post.shape == (f, 4, 4),
-          "poses not finite / wrong shape")
-    check(len(edges) >= 2, f"{len(edges)} loop edges < 2")
-    check(all(d < 0.5 for _, _, d in edges),
-          f"loop edge off the ground truth by >= 0.5 m: {edges}")
+    check_slam("slam", n, counts, post)
     # finalize's 25-iteration relaxation must lower the pose-graph cost,
     # and the loop-closed trajectory must beat odometry alone. (Its ATE
     # against the live-relaxed trajectory before finalize is printed, not
@@ -597,25 +669,6 @@ def phase_slam(cfg, dev):
     # the cost and can raise ATE by centimetres — see PERF.md.)
     check(cost_post <= cost_pre,
           f"pose-graph cost after finalize {cost_post} > {cost_pre}")
-    check(ate_post <= ate_odo,
-          f"ATE after finalize {ate_post} > odometry-only {ate_odo}")
-    check(ok_share >= 0.8, f"pnp_ok share {ok_share} < 0.8")
-
-    # The kernels use no atomics and no order that depends on
-    # scheduling: a second pass over the same clip gives the same poses.
-    sys2, pre2, post2, counts2, (_, t_loop2, _) = run_slam(
-        cfg, world, lefts, rights)
-    ate_pre2 = ate_rmse(pre2, gt, align=False)
-    ate_post2 = ate_rmse(post2, gt, align=False)
-    say("slam-repeat", slam_frames_per_s=(f - 1) / t_loop2,
-        ate_before_finalize_m=ate_pre2, ate_after_finalize_m=ate_post2,
-        max_abs_pose_diff=float(np.abs(post - post2).max()),
-        loop_edges=len(sys2.loop_edges), launches_equal=counts2 == counts)
-    check(abs(ate_pre2 - ate_pre) <= SAME_ATE_TOL
-          and abs(ate_post2 - ate_post) <= SAME_ATE_TOL,
-          f"two runs differ: ATE {ate_pre}/{ate_post} vs "
-          f"{ate_pre2}/{ate_post2}")
-    del sys2
 
     # chain_sweep against its twin on the finished run's real pose graph
     # (1000:1 edge weights, adjoints with grown translation blocks).
@@ -631,11 +684,235 @@ def phase_slam(cfg, dev):
                    check_chain([jj_inv, ji_c, winv, v], f,
                                f"run-graph-{name}"))
     return sys_, world, lefts, rights, counts, (chain_errs, chain_rel), dict(
-        slam_frames_per_s=fps, slam_frames_per_s_second_run=(f - 1) / t_loop2,
-        slam_ate_odometry_m=ate_odo,
-        slam_ate_before_m=ate_pre,
-        slam_ate_after_m=ate_post, slam_pnp_ok_share=ok_share,
-        slam_loop_edges=len(edges), slam_slates=sys_.n_slates)
+        slam_frames_per_s=fps, slam_ate_odometry_m=n["ate_odo"],
+        slam_ate_before_m=n["ate_pre"], slam_ate_after_m=n["ate_post"],
+        slam_pnp_ok_share=n["ok_share"], slam_loop_edges=len(n["edges"]),
+        slam_slates=sys_.n_slates)
+
+
+def phase_slam_ba(cfg, world, lefts, rights, off, tmp):
+    """This slice's path: the clip at the default config (local BA on),
+    two passes, a checkpoint at CKPT_FRAME in each (a checkpoint consumes
+    its poll's verification at once, so it is part of the run)."""
+    f = lefts.shape[0]
+    gt = world.poses.cpu().numpy()
+    path = os.path.join(tmp, "ckpt.npz")
+    sys_, pre, post, counts, (_, t_loop, t_final, t_ckpt) = run_slam(
+        cfg, world, lefts, rights, ckpt_path=path)
+    n = slam_numbers(sys_, cfg, pre, post, gt)
+    kf_n = sys_.metrics[-1].kf_n
+    windows = (kf_n - 1) // cfg.ba.local_every
+    costs = torch.stack(sys_.ba_costs).cpu().numpy() if sys_.ba_costs else []
+    fps = (f - 1) / t_loop
+    say("slam-ba", frames=f, loop_seconds=f"{t_loop:.3f}",
+        finalize_seconds=f"{t_final:.3f}",
+        checkpoint_save_seconds=f"{t_ckpt:.3f}",
+        checkpoint_mb=os.path.getsize(path) / 1e6,
+        slam_frames_per_s=fps, slam_frames_per_s_ba_off=off[
+            "slam_frames_per_s"], launches=counts, expected=n["want"],
+        local_ba_windows=len(costs), expected_windows=windows,
+        ba_cost_first_median_last=[float(costs[0]), float(np.median(costs)),
+                                   float(costs[-1])],
+        slates=sys_.n_slates, pgo_runs=n["pgo_runs"], loop_edges=n["edges"],
+        ate_odometry_only_m=n["ate_odo"], ate_before_finalize_m=n["ate_pre"],
+        ate_after_finalize_m=n["ate_post"],
+        ate_ba_off_odometry_before_after_m=[
+            off["slam_ate_odometry_m"], off["slam_ate_before_m"],
+            off["slam_ate_after_m"]], pnp_ok_share=n["ok_share"],
+        keyframes=kf_n, landmarks=int(sys_.state.map.cursor))
+    check(len(costs) == windows and windows > 0,
+          f"{len(costs)} local BA windows, the keyframe count implies "
+          f"{windows}")
+    check(bool(np.isfinite(costs).all()), "a local BA cost is not finite")
+    check_slam("slam-ba", n, counts, post)
+
+    # Every scatter-add of BA sums in float64: a second pass over the
+    # same clip gives the same poses.
+    sys2, pre2, post2, counts2, (_, t_loop2, _, _) = run_slam(
+        cfg, world, lefts, rights, ckpt_path=os.path.join(tmp, "ckpt2.npz"))
+    ate_pre2 = ate_rmse(pre2, gt, align=False)
+    ate_post2 = ate_rmse(post2, gt, align=False)
+    costs2 = torch.stack(sys2.ba_costs).cpu().numpy()
+    moved = np.nonzero(costs2 != costs)[0]
+    say("slam-ba-repeat", slam_frames_per_s=(f - 1) / t_loop2,
+        first_window_with_another_cost=(int(moved[0]) if len(moved)
+                                        else None),
+        ate_before_finalize_m=ate_pre2, ate_after_finalize_m=ate_post2,
+        max_abs_pose_diff=float(np.abs(post - post2).max()),
+        loop_edges=len(sys2.loop_edges), launches_equal=counts2 == counts)
+    check(abs(ate_pre2 - n["ate_pre"]) <= SAME_ATE_TOL
+          and abs(ate_post2 - n["ate_post"]) <= SAME_ATE_TOL,
+          f"two runs differ: ATE {n['ate_pre']}/{n['ate_post']} vs "
+          f"{ate_pre2}/{ate_post2}")
+    del sys2
+
+    # One warm windowed BA on the finished state: host syncs and time.
+    st, cam = sys_.state, sys_.cam
+    end = kf_n // 2
+    syncs, where = count_syncs(
+        lambda: pipeline.local_ba_step(st, cam, cfg, end_kf=end))
+    ba_ms = event_ms(lambda: pipeline.local_ba_step(st, cam, cfg, end_kf=end),
+                     reps=10, warm=2)
+    ba_device_ms = device_busy_ms(
+        lambda: pipeline.local_ba_step(st, cam, cfg, end_kf=end))
+    say("slam-ba-step", local_ba_step_ms=ba_ms,
+        local_ba_step_device_busy_ms=ba_device_ms, host_syncs=syncs,
+        sync_lines=where, window=cfg.ba.window,
+        observation_slots=cfg.ba.window * cfg.mapping.obs_per_frame,
+        lm_iters=cfg.ba.local_lm_iters)
+    check(syncs == 0, f"local_ba_step made {syncs} host syncs: {where}")
+    return sys_, post, counts, path, dict(
+        slam_ba_frames_per_s=fps,
+        slam_ba_frames_per_s_second_run=(f - 1) / t_loop2,
+        slam_ba_ate_odometry_m=n["ate_odo"], slam_ba_ate_before_m=n["ate_pre"],
+        slam_ba_ate_after_m=n["ate_post"], slam_ba_loop_edges=len(n["edges"]),
+        slam_ba_windows=len(costs), local_ba_step_ms=ba_ms,
+        local_ba_step_device_busy_ms=ba_device_ms, local_ba_step_syncs=syncs,
+        checkpoint_save_s=t_ckpt)
+
+
+def phase_checkpoint(cfg, world, lefts, rights, path, straight):
+    """Resume from the snapshot of frame CKPT_FRAME and run the rest of
+    the clip: the final poses against the straight run's."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sys_ = pipeline.SlamSystem.resume(path, world.cam.to("cpu"), cfg)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    check(sys_.state.traj.is_cuda and sys_.frame_count == CKPT_FRAME,
+          "resume: the state is not on the card or not at the snapshot")
+    run_blocks(sys_, lefts, rights, CKPT_FRAME + 1)
+    post = sys_.finalize()
+    diff = float(np.abs(post[:, :3, 3] - straight[:, :3, 3]).max())
+    say("checkpoint", resumed_at=CKPT_FRAME, load_seconds=f"{t_load:.3f}",
+        frames_after=lefts.shape[0] - 1 - CKPT_FRAME,
+        max_abs_position_diff_m=diff, loop_edges=len(sys_.loop_edges),
+        local_ba_windows_after=len(sys_.ba_costs))
+    check(post.shape == straight.shape and diff <= RESUME_TOL,
+          f"resumed run is {diff} m off the straight run")
+    return dict(checkpoint_load_s=t_load, resume_max_diff_m=diff)
+
+
+def bound_ba_matvec(o, c, l, e):
+    """One product of the reduced camera system with x (C,6): the
+    coupling blocks W (O,6,3) and both index vectors read once, Hll^-1
+    (L,3,3), Hcc (C,6,6) and x read and the result written once, the
+    priors' two Jacobians (E,6,6), weights and indices read once; 72
+    operations per observation (two 6x3 products), 18 per landmark, 72
+    per camera, 288 per prior edge."""
+    n_bytes = (o * (18 * 4 + 2 * 8) + l * 36 + c * (36 + 6 + 6) * 4
+               + e * (2 * 36 * 4 + 4 + 2 * 8))
+    return bound(n_bytes, 72 * o + 18 * l + 72 * c + 288 * e, PEAK_F32_FLOPS)
+
+
+def phase_global_ba(cfg, sys_, world):
+    """Global BA with pose priors on the finished state, as the CLI's
+    offline pass drives it."""
+    st = sys_.state
+    f = sys_.frame_count + 1
+    gt = world.poses.cpu().numpy()
+    n_kf = int(st.kf.n)
+    bucket = min(next((b for b in (128, 512, 2048, 8192) if b >= n_kf),
+                      n_kf), st.kf.xyz.shape[0])
+    n_obs_real = int(torch.sum(st.map.obs_count[:bucket]))
+    obs_bucket = 1 << max(int(np.ceil(np.log2(max(n_obs_real, 1)))), 10)
+    loop_rows = sys_.loop_edge_rows()
+    ate_before = ate_rmse(sys_.poses(), gt, align=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new, cost, trace = pipeline.global_ba_step(
+        st, sys_.cam, cfg, n_kf=bucket, obs_bucket=obs_bucket,
+        return_trace=True, loop_rows=loop_rows)
+    torch.cuda.synchronize()
+    call_ms = 1e3 * (time.perf_counter() - t0)
+    poses = new.traj[:f].cpu().numpy()
+    ate_after = ate_rmse(poses, gt, align=False)
+    tr = {k: getattr(trace, k).cpu().numpy().tolist() for k in trace._fields}
+    cost = float(cost)
+
+    # One CG matvec of the reduced system at the initial point.
+    prob, _ = pipeline.build_global_problem(
+        st, bucket, obs_bucket, loop_rows=loop_rows,
+        prior_odo_weight=cfg.ba.prior_odo_weight,
+        prior_loop_weight=cfg.ba.prior_loop_weight)
+    _, r0, hw = ba._cost(prob, sys_.cam, cfg.ba.huber_delta)
+    r, Jc, Jl, w = ba._linearize(prob, sys_.cam, prob.w * hw)
+    lam = torch.full((), cfg.ba.lm_lambda0, device=r.device)
+    matvec, btil, _, _ = ba._reduced_system(prob, r, Jc, Jl, w, lam)
+    mv_ms = event_ms(lambda: matvec(btil), reps=20, warm=3)
+    mv_device_ms = graph_ms(lambda: matvec(btil))
+    lin_ms = event_ms(lambda: ba._linearize(prob, sys_.cam, prob.w * hw),
+                      reps=10, warm=2)
+    o, c, l, e = (prob.uv.shape[0], prob.poses.shape[0],
+                  prob.points.shape[0], prob.pe_i.shape[0])
+    mv_bound_ms, mv_by = bound_ba_matvec(o, c, l, e)
+    iters = cfg.ba.lm_iters
+    say("global-ba", keyframes=n_kf, camera_rows=bucket,
+        observations=n_obs_real, observation_bucket=obs_bucket,
+        weighted_observations=int(prob.w.sum()), landmark_rows=l,
+        prior_edges=e, lm_iters=iters, cg_iters=cfg.ba.cg_iters,
+        call_ms=call_ms, ms_per_lm_iteration=call_ms / iters,
+        matvecs_per_call=iters * (cfg.ba.cg_iters + 1),
+        matvec_ms=mv_ms, matvec_device_ms=mv_device_ms,
+        matvec_bound_ms=mv_bound_ms, matvec_bound_by=mv_by,
+        matvec_share_of_bound=mv_bound_ms / mv_device_ms,
+        linearize_ms=lin_ms, final_cost=cost, trace=tr,
+        ate_before_m=ate_before, ate_after_m=ate_after)
+    check(math.isfinite(cost) and cost <= tr["cost"][0],
+          f"global BA cost {cost} not finite or above the first trace "
+          f"entry {tr['cost'][0]}")
+    check(any(tr["accept"]), "global BA accepted no step")
+    check(bool(np.isfinite(poses).all()) and ate_after <= 1.05 * ate_before,
+          f"global BA moved keyframe ATE {ate_before} -> {ate_after}")
+    return dict(global_ba_ms_per_lm_iteration=call_ms / iters,
+                global_ba_observations=n_obs_real,
+                global_ba_matvec_ms=mv_ms,
+                global_ba_matvec_device_ms=mv_device_ms,
+                global_ba_matvec_bound_ms=mv_bound_ms,
+                global_ba_linearize_ms=lin_ms,
+                global_ba_accepted=int(sum(tr["accept"])),
+                global_ba_cost_first_last=[tr["cost"][0], cost],
+                global_ba_ate_before_m=ate_before,
+                global_ba_ate_after_m=ate_after)
+
+
+def fetch_threads():
+    return [t for t in threading.enumerate()
+            if t.name.startswith("slam-fetch")]
+
+
+def phase_async(world, lefts, rights):
+    """The default config unchanged (asynchronous drain, BA on) over the
+    first ASYNC_FRAMES frames: timing decides which poll consumes what,
+    so the checks are invariants."""
+    cfg = SlamConfig()
+    check(cfg.bow.poll_lag_s > 0 and cfg.ba.local_every > 0,
+          "SlamConfig() is not the asynchronous, BA-on default")
+    f = ASYNC_FRAMES
+    sys_, pre, post, _, (_, t_loop, t_final, _) = run_slam(
+        cfg, world, lefts[:f], rights[:f])
+    frames = [m.frame for m in sys_.metrics]
+    ok_share = float(np.mean([m.pnp_ok for m in sys_.metrics]))
+    workers = len(fetch_threads())
+    say("async", frames=f, metrics_rows=len(frames),
+        slam_frames_per_s=(f - 1) / t_loop, finalize_seconds=f"{t_final:.3f}",
+        local_ba_windows=len(sys_.ba_costs), loop_edges=len(sys_.loop_edges),
+        pnp_ok_share=ok_share, fetch_threads_alive=workers,
+        ate_m=ate_rmse(post, world.poses[:f].cpu().numpy(), align=False))
+    check(frames == list(range(1, f)), "a metrics row was lost or repeated")
+    check(bool(np.isfinite(post).all()), "poses not finite")
+    check(ok_share >= 0.8, f"pnp_ok share {ok_share} < 0.8")
+    check(len(sys_.ba_costs) == (sys_.metrics[-1].kf_n - 1)
+          // cfg.ba.local_every, "a local BA window was skipped")
+    check(workers == 1, f"{workers} fetch workers alive, expected 1")
+    fps = (f - 1) / t_loop
+    del sys_
+    gc.collect()
+    deadline = time.time() + 10.0
+    while fetch_threads() and time.time() < deadline:
+        time.sleep(0.05)
+    check(not fetch_threads(), "the fetch worker outlived its system")
+    return dict(async_frames_per_s=fps, async_frames=f)
 
 
 def count_syncs(fn):
@@ -686,6 +963,24 @@ def phase_slam_cpu_vs_gpu(cfg, world, lefts, rights, dev):
         for x, y in zip(a, b):
             check(abs(x - y) <= 0.02 * max(x, y), f"CPU vs GPU {a} vs {b}")
     check(dt <= 1e-2, f"CPU vs GPU poses: {dt} m")
+
+    # Six frames are too few for a BA window: one bundle_adjust of the
+    # seeded 6-camera, 120-point problem on CPU and on CUDA tensors.
+    p, _, _, bcam = synthetic.ba_problem(0, px_noise=0.3, n_outliers=40,
+                                         device="cpu")
+    bcfg = dataclasses.replace(cfg.ba, lm_iters=6)
+    out_c, cost_c, tr_c = ba.bundle_adjust(p, bcam, bcfg, return_trace=True)
+    out_g, cost_g, tr_g = ba.bundle_adjust(
+        ba.BAProblem(*[x.to(dev) for x in p]), bcam.to(dev), bcfg,
+        return_trace=True)
+    d_ba = float((out_g.poses.cpu() - out_c.poses)[:, :3, 3].abs().max())
+    say("ba-cpu-vs-gpu", cameras=p.poses.shape[0], points=p.points.shape[0],
+        observations=p.uv.shape[0], accept_cpu=tr_c.accept.tolist(),
+        accept_gpu=tr_g.accept.tolist(), cost_cpu=float(cost_c),
+        cost_gpu=float(cost_g), max_abs_position_diff_m=d_ba)
+    check(tr_c.accept.tolist() == tr_g.accept.tolist(),
+          "bundle_adjust: accept sequences differ between CPU and CUDA")
+    check(d_ba <= BA_TOL, f"bundle_adjust CPU vs CUDA poses: {d_ba} m")
 
     # Warm steps with their draws made on the card, as SlamSystem and
     # vo_step make them (draws copied from the host would add syncs).
@@ -861,17 +1156,26 @@ def main():
     errs, hamming_inputs = phase_kernels(cfg, lefts, rights, dev)
     backend_errs, rel_errs = phase_kernels_backend(dev)
     errs.update(backend_errs)
-    _, ate, ok_share = phase_slice(cfg, world, lefts, rights, dev)
-    scfg = slam_config()
-    sys_, sworld, slefts, srights, counts, run_graph_errs, slam = phase_slam(
-        scfg, dev)
+    vo_counts, ate, ok_share = phase_slice(cfg, world, lefts, rights, dev)
+    scfg = slam_config(ba_on=False)
+    sys_off, sworld, slefts, srights, counts_off, run_graph_errs, slam = \
+        phase_slam(scfg, dev)
     keep_worst(errs, rel_errs, {k: (e, run_graph_errs[1][k])
                                 for k, e in run_graph_errs[0].items()})
-    vo_syncs, slam_syncs = phase_slam_cpu_vs_gpu(scfg, sworld, slefts,
+    bcfg = slam_config(ba_on=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        sys_, post_ba, counts, ckpt, slam_ba = phase_slam_ba(
+            bcfg, sworld, slefts, srights, slam, tmp)
+        slam_ba.update(phase_checkpoint(bcfg, sworld, slefts, srights, ckpt,
+                                        post_ba))
+    slam_ba.update(phase_global_ba(bcfg, sys_, sworld))
+    slam_ba.update(phase_async(sworld, slefts, srights))
+    vo_syncs, slam_syncs = phase_slam_cpu_vs_gpu(bcfg, sworld, slefts,
                                                  srights, dev)
     times, fps = phase_times(cfg, lefts, rights, world, hamming_inputs)
-    new_times, stages = phase_times_slam(scfg, sys_, sworld)
+    new_times, stages = phase_times_slam(bcfg, sys_, sworld)
     times.update(new_times)
+    by_path = {"vo": vo_counts, "slam": counts_off, "slam_ba": counts}
 
     # No single PyTorch call computes any of these functions (no packed
     # Hamming top-2, FAST score or block-bidiagonal sweep): library_ms
@@ -880,13 +1184,15 @@ def main():
     # run's graph reach 1e9, so the absolute error says little).
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": counts[name],
+                "launches_by_path": {k: v.get(name, 0)
+                                     for k, v in by_path.items()},
                 "max_abs_err": errs[name],
                 **({"max_rel_err": rel_errs[name]} if name in rel_errs
                    else {}),
                 "per": per, **times[name], "library_ms": None}
                for name, (src, rep, per) in KERNELS.items()]
     print(json.dumps({"vo_frames_per_s": fps, "ate_m": ate,
-                      "pnp_ok_share": ok_share, **slam, **stages,
+                      "pnp_ok_share": ok_share, **slam, **slam_ba, **stages,
                       "syncs_per_step": {"vo_step": vo_syncs,
                                          "slam_step": slam_syncs},
                       "seconds": time.perf_counter() - t_start}))

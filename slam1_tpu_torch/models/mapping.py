@@ -197,8 +197,13 @@ def insert(state: MapState, xyz_world, desc, mask, frame_idx, uv,
     delta = (xyz_world - state.xyz[mrow]) / torch.clamp(
         old_cnt + 1.0, min=1.0)[:, None]
     state.count.index_add_(0, mrow, is_merge.to(torch.int32))
-    state.xyz.index_add_(0, mrow, torch.where(is_merge[:, None], delta,
-                                              torch.zeros_like(delta)))
+    # Several lanes can merge into one row, and CUDA adds them in the
+    # order its atomics land: summed in float64 and rounded once, since
+    # bundle adjustment carries these positions back into the poses.
+    moved = torch.zeros((cap, 3), dtype=torch.float64, device=dev)
+    moved.index_add_(0, mrow, torch.where(is_merge[:, None], delta,
+                                          torch.zeros_like(delta)).double())
+    state.xyz.add_(moved.to(dt))
     hit = _row_hits(cap, mrow, is_merge)
     state.valid[:] = state.valid | hit
     state.last_frame[:] = torch.where(hit, frame_i, state.last_frame)

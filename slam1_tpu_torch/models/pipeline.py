@@ -11,19 +11,27 @@ waits on the device. The host-side `SlamSystem` drains the ring at a
 fixed cadence (one transfer per drain), triggers loop verification on
 the drained rows, and relaxes the pose graph on accepted loops.
 
-Not ported yet (construction raises NotImplementedError and names the
-ROADMAP item): windowed local BA (`ba.local_every > 0`), the
-asynchronous drain (`bow.poll_lag_s > 0`) and checkpoints
-(`runtime.checkpoint_every > 0`).
+Fixed-cadence backend launches ride on the drains: windowed local BA
+every `ba.local_every` keyframes (`local_ba_step`), pose-graph
+relaxation on accepted loops, checkpoints every
+`runtime.checkpoint_every` frames. With `bow.poll_lag_s > 0` the drain
+is asynchronous: a worker thread fetches a snapshot of the ring every
+`bow.poll_max_pending` frames and each verification slate's result, and
+the camera loop consumes what has landed. `global_ba_step` is the
+offline pass over all keyframes, with the pose graph as priors.
 
-State tables are updated in place (the reference donates its state);
-the state's `frame` is a host integer. Random draws come from a
-`DrawSource`; the default draws from seeded `torch.Generator`s.
+State tables are updated in place by `slam_step` (the reference donates
+its state); the backend steps (`local_ba_step`, `global_ba_step`,
+`_pgo_step`) replace the tensors they change. The state's `frame` is a
+host integer. Random draws come from a `DrawSource`; the default draws
+from seeded `torch.Generator`s.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
+import os
 import time
 import warnings
 from typing import NamedTuple, Optional
@@ -35,6 +43,8 @@ from slam1_tpu_torch.config import SlamConfig
 from slam1_tpu_torch.models import bow as bow_mod
 from slam1_tpu_torch.models import mapping
 from slam1_tpu_torch.models import posegraph
+from slam1_tpu_torch.models.ba import _cost as ba_cost
+from slam1_tpu_torch.models.ba import bundle_adjust, make_problem
 from slam1_tpu_torch.models.frontend import stereo_frontend
 from slam1_tpu_torch.models.loop_closure import place_query, \
     verify_loop_slate
@@ -42,7 +52,9 @@ from slam1_tpu_torch.models.tracker import chain_pose, temporal_track
 from slam1_tpu_torch.ops import se3
 from slam1_tpu_torch.ops.camera import StereoCamera
 from slam1_tpu_torch.ops.pnp import uniform
+from slam1_tpu_torch.runtime import default_device
 from slam1_tpu_torch.types import StereoObservations
+from slam1_tpu_torch.utils import checkpoint as ckpt_mod
 
 MAX_LOOP_EDGES = 128
 KF_FEATURES = 1024          # per-keyframe snapshot (top-K by corner score)
@@ -80,6 +92,14 @@ class DrawSource:
     def _uniform(self, shape, gen=None):
         u = uniform(shape, gen or self._gen, self.gen_device)
         return u.to(self.device)
+
+    def get_state(self) -> torch.Tensor:
+        """The step stream's generator state (a CPU byte tensor, for a
+        CUDA generator too); the other streams are seeded per call."""
+        return self._gen.get_state()
+
+    def set_state(self, state: torch.Tensor):
+        self._gen.set_state(state.cpu().to(torch.uint8))
 
     def init(self, n: int):
         """(N,) reservoir and (N,) DB-row draws of the bootstrap frame."""
@@ -295,6 +315,215 @@ def slam_step_block(state: SlamState, lefts, rights, cam: StereoCamera,
     return state, torch.stack(rows)
 
 
+def _set_rows(table, idx, ok, values):
+    """A copy of `table` (R, ...) with table[idx[k]] = values[k] for the
+    lanes where `ok` holds, whose `idx` must be distinct and in range;
+    the other lanes write nothing (the reference's `mode="drop"`). They
+    land in one extra row that is cut off again, so no write depends on
+    the order of a scatter and nothing is read back to the host."""
+    n = table.shape[0]
+    buf = torch.cat([table, table[:1]])
+    buf[torch.where(ok, idx, n)] = values
+    return buf[:n]
+
+
+def _slot_observations(state: SlamState, rows, row_ok):
+    """The observation slots of keyframe rows `rows` (R,) flattened to
+    R * OPF observations: (cam_idx, lm, lm clipped into the table, valid,
+    uv, ur)."""
+    obs = state.map.obs[rows]                               # (R,OPF,4)
+    ur = state.map.obs_ur[rows].reshape(-1)
+    opf = obs.shape[1]
+    cap = state.map.xyz.shape[0]
+    dev = obs.device
+    cam_idx = torch.arange(rows.shape[0], device=dev).repeat_interleave(opf)
+    lm = obs[..., 1].to(torch.int64).reshape(-1)
+    lm_ok = (lm >= 0) & (lm < cap)
+    lmc = torch.clamp(lm, 0, cap - 1)
+    slot_ok = (torch.arange(opf, device=dev)[None, :]
+               < state.map.obs_count[rows][:, None]).reshape(-1)
+    valid = slot_ok & lm_ok & row_ok[cam_idx] & state.map.valid[lmc]
+    return cam_idx, lm, lmc, valid, obs[..., 2:4].reshape(-1, 2), ur
+
+
+def local_ba_step(state: SlamState, cam: StereoCamera, cfg: SlamConfig,
+                  end_kf=None):
+    """Windowed local BA over the `ba.window` keyframes ending at
+    keyframe row `end_kf` (an int or 0-d tensor; default: the newest).
+
+    Builds a BAProblem from the per-keyframe observation slots, runs
+    `ba.local_lm_iters` Schur-LM iterations, and feeds the optimised
+    poses back into the trajectory and the keyframe store and the
+    optimised landmarks back into the map. Returns (state, BA cost, a
+    0-d tensor). `end_kf` lets the backend catch up window by window
+    when it consumes keyframe counts in bursts.
+
+    Nothing is written in place and nothing is read back to the host:
+    the returned state holds new tensors for `traj`, `rel`, `kf.poses`,
+    `map.xyz` and `T_w_cam` and shares every other tensor with `state`,
+    whose own tensors stay as they were.
+    """
+    w_kf = cfg.ba.window
+    dev = state.traj.device
+    f_cap = state.traj.shape[0]
+    kf_cap = state.kf.xyz.shape[0]
+    kfn = state.kf.n.long()
+    if end_kf is not None:
+        kfn = torch.minimum(mapping.scalar(end_kf, torch.int64, dev), kfn)
+    start = torch.clamp(kfn - w_kf, 0, kf_cap - w_kf)
+    rows = start + torch.arange(w_kf, device=dev)           # (W,)
+    row_ok = rows < kfn
+    frames = state.kf.frame_of_row[rows].long()             # (W,)
+    fr_ok = row_ok & (frames >= 0)
+
+    cam_idx, lm, _, valid, uv, ur = _slot_observations(state, rows, fr_ok)
+    cap = state.map.xyz.shape[0]
+    poses = state.traj[torch.clamp(frames, 0, f_cap - 1)]
+    w = valid.to(uv.dtype)
+    wr = ((ur > 0) & valid).to(uv.dtype)     # stereo term anchors scale
+
+    # Compact the window's landmarks into a local table of W*OPF slots,
+    # so the Schur elimination works over the window's landmarks and not
+    # the map's capacity: sorted ids, the first of each run, and the
+    # k-th first found by a search in the running count.
+    n_obs = lm.shape[0]
+    ids = torch.sort(torch.where(valid, lm, cap)).values    # (O,)
+    is_first = (ids < cap) & torch.cat([
+        torch.ones(1, dtype=torch.bool, device=dev), ids[1:] != ids[:-1]])
+    n_first = torch.cumsum(is_first.to(torch.int64), 0)
+    lanes = torch.arange(n_obs, device=dev)
+    src = torch.clamp(torch.searchsorted(n_first, lanes + 1), max=n_obs - 1)
+    uniq_ok = lanes < n_first[-1]
+    uniq = torch.where(uniq_ok, ids[src], cap)              # sorted, then cap
+    lm_local = torch.clamp(torch.searchsorted(uniq, lm), 0, n_obs - 1)
+    pts_local = state.map.xyz[torch.where(uniq_ok, uniq, 0)]
+
+    prob = make_problem(poses, pts_local, cam_idx, lm_local, uv, w,
+                        ur=ur, wr=wr)
+    ba_cfg = dataclasses.replace(cfg.ba, lm_iters=cfg.ba.local_lm_iters)
+    out, cost = bundle_adjust(prob, cam, ba_cfg)
+
+    xyz_new = _set_rows(state.map.xyz, uniq, uniq_ok, out.points)
+    traj = _set_rows(state.traj, frames, fr_ok, out.poses)
+    kf_poses = _set_rows(state.kf.poses, rows, row_ok, out.poses)
+    t_w = traj[min(max(state.frame, 0), f_cap - 1)]
+
+    # Re-derive the odometry twists of every edge touching a pose this
+    # window changed (frames [lo, hi]; edge f couples f-1 and f, hence
+    # <= hi + 1): PGO re-solves from `rel` + loop edges, so stale twists
+    # would revert the refinement at the next relaxation, while a wider
+    # bound would absorb every pose-graph relaxation in between into the
+    # odometry. Convention (_pgo_step): rel[f] = -log(inv(traj[f-1])
+    # @ traj[f]).
+    big = torch.iinfo(torch.int64).max
+    lo = torch.min(torch.where(fr_ok, frames, big))
+    hi = torch.max(torch.where(fr_ok, frames, -1))
+    rel_new = -se3.log_se3(se3.inverse(traj[:-1]) @ traj[1:])
+    f_idx = torch.arange(1, f_cap, device=dev)
+    upd = (f_idx >= lo) & (f_idx <= hi + 1) & state.rel_mask[1:]
+    rel = torch.cat([state.rel[:1],
+                     torch.where(upd[:, None], rel_new, state.rel[1:])])
+
+    new_state = state._replace(
+        traj=traj, kf=state.kf._replace(poses=kf_poses),
+        map=state.map._replace(xyz=xyz_new), T_w_cam=t_w, rel=rel)
+    return new_state, cost
+
+
+def build_global_problem(state: SlamState, n_kf: int, obs_bucket: int = 0,
+                         loop_rows=None, prior_odo_weight: float = 0.0,
+                         prior_loop_weight: float = 0.0):
+    """BAProblem over keyframe rows [0, n_kf) from the per-keyframe
+    observation slots, and the (n_kf,) frame of each row (clipped into
+    the trajectory). `n_kf` is a host integer, a bucket >= kf.n: padding
+    rows carry no observation.
+
+    obs_bucket > 0 compacts the observation axis: the raw slot layout
+    is mostly padding. Valid rows are sorted to the front (stable) and
+    the first `obs_bucket` kept; overflow beyond the bucket is dropped.
+
+    loop_rows (optional): (le_i, le_j, le_z, le_w) fixed-capacity loop
+    edges in keyframe-row indices. When given (and prior_odo_weight >
+    0), the problem carries pose-prior edges: the consecutive-keyframe
+    chain with the current relative poses as the prior mean (residual 0
+    at the initial point) plus the loop edges.
+    """
+    dev = state.traj.device
+    rows = torch.arange(n_kf, device=dev)
+    fo = state.kf.frame_of_row[:n_kf].long()
+    row_ok = (rows < state.kf.n) & (fo >= 0)
+    cam_idx, lm, lmc, valid, uv, ur = _slot_observations(state, rows, row_ok)
+    frames = torch.clamp(fo, 0, state.traj.shape[0] - 1)
+    poses = state.traj[frames]
+    w = valid.to(uv.dtype)
+    wr = ((ur > 0) & valid).to(uv.dtype)
+    if obs_bucket and obs_bucket < lm.shape[0]:
+        order = torch.sort((~valid).to(torch.uint8),
+                           stable=True).indices[:obs_bucket]
+        cam_idx, lmc, uv, w, ur, wr = (a[order] for a in
+                                       (cam_idx, lmc, uv, w, ur, wr))
+    pe = {}
+    if loop_rows is not None and prior_odo_weight > 0:
+        le_i, le_j, le_z, le_w = loop_rows
+        ei = torch.arange(n_kf - 1, device=dev)
+        chain_ok = row_ok[:-1] & row_ok[1:]
+        z_chain = se3.inverse(poses[:-1]) @ poses[1:]
+        pe = dict(
+            pe_i=torch.cat([ei, le_i.long()]),
+            pe_j=torch.cat([ei + 1, le_j.long()]),
+            pe_z=torch.cat([z_chain, le_z]),
+            pe_w=torch.cat([prior_odo_weight * chain_ok.to(uv.dtype),
+                            prior_loop_weight * (le_w > 0).to(uv.dtype)]))
+    return make_problem(poses, state.map.xyz, cam_idx, lmc, uv, w,
+                        ur=ur, wr=wr, **pe), frames
+
+
+def global_ba_step(state: SlamState, cam: StereoCamera, cfg: SlamConfig,
+                   n_kf: int, obs_bucket: int = 0,
+                   return_trace: bool = False, loop_rows=None):
+    """Global BA over the first n_kf keyframe rows; returns (state,
+    cost), plus the per-LM-iteration BATrace when `return_trace`.
+    `obs_bucket`: compacted observation count (see build_global_problem);
+    callers pick the smallest bucket covering
+    int(sum(map.obs_count[:n_kf])). `loop_rows` (fixed-capacity
+    keyframe-row loop edges) enables the pose-prior regularisation.
+    Replaces `traj`, `kf.poses`, `map.xyz` and `T_w_cam`; writes nothing
+    in place."""
+    prob, frames = build_global_problem(
+        state, n_kf, obs_bucket, loop_rows=loop_rows,
+        prior_odo_weight=(cfg.ba.prior_odo_weight
+                          if loop_rows is not None else 0.0),
+        prior_loop_weight=cfg.ba.prior_loop_weight)
+    if cfg.ba.global_trim_px > 0:
+        # One-shot association gate at the (post-PGO) initial point: the
+        # observation store accumulates a small garbage tail
+        # (mis-inherited landmark identities, voxel-merge gluings, points
+        # at the depth clamp) whose residuals dwarf the rest and that
+        # every LM step would chase. Trimmed at a fixed pixel radius
+        # before the solve: the trajectory is globally consistent here.
+        _, r0, _ = ba_cost(prob, cam, cfg.ba.huber_delta)
+        rn0 = torch.linalg.norm(r0[:, :2], dim=-1)
+        keep = (rn0 < cfg.ba.global_trim_px).to(prob.w.dtype)
+        prob = prob._replace(w=prob.w * keep, wr=prob.wr * keep)
+    res = bundle_adjust(prob, cam, cfg.ba, return_trace=return_trace)
+    out, cost = res[0], res[1]
+    # Only real keyframe rows write back (n_kf is a bucket >= kf.n;
+    # padding rows' frames clip to 0).
+    rows = torch.arange(n_kf, device=frames.device)
+    ok = (rows < state.kf.n) & (state.kf.frame_of_row[:n_kf] >= 0)
+    traj = _set_rows(state.traj, frames, ok, out.poses)
+    kf_poses = torch.cat([
+        torch.where(ok[:, None, None], out.poses, state.kf.poses[:n_kf]),
+        state.kf.poses[n_kf:]])
+    t_w = traj[min(max(state.frame, 0), traj.shape[0] - 1)]
+    new_state = state._replace(
+        traj=traj, kf=state.kf._replace(poses=kf_poses),
+        map=state.map._replace(xyz=out.points), T_w_cam=t_w)
+    if return_trace:
+        return new_state, cost, res[2]
+    return new_state, cost
+
+
 def _pgo_step(traj, rel, rel_mask, kf_frames, le_i, le_j, le_z, le_w,
               frame: int, map_xyz, map_last, map_valid,
               bucket: int, iters: int, cg_iters: int, n_live: int):
@@ -352,9 +581,13 @@ class SlamSystem:
 
     Nothing in the per-frame path reads the device: each slam_step
     writes one packed metrics row into the device ring, and the host
-    drains the ring every `bow.loop_poll_every` frames with one
-    transfer. The backend (BoW-triggered and place-query loop
-    detection, slate verification, PGO) runs on the drained rows.
+    drains the ring with one transfer. With `bow.poll_lag_s == 0` the
+    drain happens at every poll (every `bow.loop_poll_every` frames;
+    deterministic). With `bow.poll_lag_s > 0` a worker thread fetches a
+    snapshot of the ring once `bow.poll_max_pending` frames have
+    accumulated, and each slate's packed result; polls consume what has
+    landed, so the backend (loop detection, local BA, PGO) lags the
+    camera loop by a bounded number of frames and never stalls it.
     `draws` replaces the default DrawSource (seeded with `seed`).
     """
 
@@ -363,18 +596,10 @@ class SlamSystem:
                  draws: Optional[DrawSource] = None):
         self.cam = cam
         self.cfg = cfg or SlamConfig()
-        if self.cfg.ba.local_every != 0:
-            raise NotImplementedError(
-                "windowed local BA (ba.local_every > 0) is not ported yet: "
-                "ROADMAP.md Queue 1 item 13; set ba.local_every=0")
-        if self.cfg.bow.poll_lag_s > 0:
-            raise NotImplementedError(
-                "the asynchronous drain (bow.poll_lag_s > 0) is not ported "
-                "yet: ROADMAP.md Queue 1 item 14; set bow.poll_lag_s=0")
-        if self.cfg.runtime.checkpoint_every > 0:
-            raise NotImplementedError(
-                "checkpoints (runtime.checkpoint_every > 0) are not ported "
-                "yet: ROADMAP.md Queue 1 item 14")
+        if self.cfg.bow.poll_max_pending > ROW_RING:
+            raise ValueError(
+                f"bow.poll_max_pending={self.cfg.bow.poll_max_pending} "
+                f"exceeds the {ROW_RING}-row metrics ring")
         self.seed = seed
         self.bow_train_frame = bow_train_frame
         self.draws = draws or DrawSource(seed, cam.fx.device)
@@ -382,7 +607,9 @@ class SlamSystem:
         self.loop_edges: list = []       # (i, j, Z (4,4) np, weight)
         self.loop_events: list = []
         self.metrics: list = []          # drained StepOutputs
+        self.ba_costs: list = []         # 0-d tensors, one per local BA
         self.frame_count = 0             # host mirror of state.frame
+        self._kf_at_last_ba = 1
         self._bow_trained = False
         self._hit_history = []           # [(frame, [(cand, chi2)])]
         self._last_drained = 0
@@ -391,6 +618,26 @@ class SlamSystem:
         self._defer_pgo = False
         self.n_slates = 0                # slates dispatched
         self.stage_seconds = {"place_query": [], "pgo": []}  # host s/call
+        # poll_lag_s > 0 selects the batched asynchronous drain; 0 drains
+        # at every poll (synchronous, deterministic).
+        self._async = self.cfg.bow.poll_lag_s > 0.0
+        self._pool = None
+        self._ring_inflight = None       # (future, first, last frame)
+        self._verify_inflight = None     # (future, rows, depth)
+        if self._async:
+            self._pool = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="slam-fetch")
+
+    def __del__(self):
+        pool = getattr(self, "_pool", None)
+        if pool is not None:
+            pool.shutdown(wait=False)
+
+    def _fetch(self, tensor):
+        """A future of `tensor` as a numpy array on the host, fetched by
+        the worker thread. `tensor` must not be written afterwards: the
+        worker reads it whenever the device gets there."""
+        return self._pool.submit(lambda: tensor.cpu().numpy())
 
     # ------------------------------------------------------------- core
     def process(self, left, right):
@@ -400,7 +647,7 @@ class SlamSystem:
             self.frame_count = 0
             return None
         if (self.frame_count - self._last_drained) + 1 > ROW_RING:
-            self._poll()                 # never let the ring wrap
+            self._poll(force=True)       # never let the ring wrap
         self.state, out_row, _ = slam_step(self.state, left, right,
                                            self.cam, cfg, self.draws)
         self._after_frames(1)
@@ -414,8 +661,10 @@ class SlamSystem:
         assert k <= ROW_RING, (
             f"block of {k} frames exceeds the {ROW_RING}-row metrics "
             f"ring; split the block")
+        # Rows carry loop-closure trigger bits: drain before the block
+        # that would overwrite undrained rows.
         if (self.frame_count - self._last_drained) + k > ROW_RING:
-            self._poll()
+            self._poll(force=True)
         self.state, _ = slam_step_block(self.state, lefts, rights, self.cam,
                                         self.cfg, self.draws)
         self._after_frames(k)
@@ -432,29 +681,58 @@ class SlamSystem:
             self._bow_trained = True
         if self._crossed(self.cfg.bow.loop_poll_every, k):
             self._poll()
+        # Checkpoint after the poll, so backend work launched on this
+        # frame (local BA, PGO) is captured.
+        rt = self.cfg.runtime
+        if self._crossed(rt.checkpoint_every, k):
+            self.save_checkpoint(os.path.join(
+                rt.checkpoint_dir, f"ckpt_{self.frame_count:06d}.npz"))
 
-    def _drain_rows(self):
-        """Undrained metrics rows from the device ring, oldest first, as
-        ONE transfer."""
+    def _drain_rows(self, force=False):
+        """Undrained metrics rows from the device ring, oldest first,
+        one transfer per drain. In the asynchronous mode a drain hands a
+        snapshot of the ring to the worker once `poll_max_pending` frames
+        have accumulated and returns the rows of the snapshot that has
+        landed (none while it is in flight); `force` waits for it and
+        fetches the rest itself."""
+        rows = []
+        if self._ring_inflight is not None:
+            fut, first, last = self._ring_inflight
+            if not (force or fut.done()):
+                return rows
+            ring = fut.result()
+            self._ring_inflight = None
+            rows = [ring[f % ROW_RING] for f in range(first, last + 1)]
+            self._last_drained = last
         n_new = self.frame_count - self._last_drained
         if n_new <= 0:
-            return []
+            return rows
+        if self._async and not force:
+            if n_new >= self.cfg.bow.poll_max_pending:
+                # The live ring is written in place by later steps: the
+                # worker gets a copy made at this point of the stream.
+                self._ring_inflight = (
+                    self._fetch(self.state.rows.clone()),
+                    self._last_drained + 1, self.frame_count)
+            return rows
         ring = self.state.rows.cpu().numpy()
         start = self._last_drained + 1
         if n_new > ROW_RING:
             warnings.warn(f"metrics ring overflowed: "
                           f"{n_new - ROW_RING} rows lost")
             start = self.frame_count - ROW_RING + 1
-        rows = [ring[f % ROW_RING] for f in
-                range(start, self.frame_count + 1)]
+        rows += [ring[f % ROW_RING] for f in
+                 range(start, self.frame_count + 1)]
         self._last_drained = self.frame_count
         return rows
 
-    def _poll(self):
-        """Consume drained metrics rows and launch backend work."""
+    def _poll(self, force=False):
+        """Consume landed metrics rows and launch backend work; `force`
+        (finalize, checkpoints) drains everything, waiting for fetches
+        still in flight."""
         cfg = self.cfg
-        self._consume_verifications()
-        rows = self._drain_rows()
+        self._consume_verifications(force)
+        rows = self._drain_rows(force)
         if not rows:
             return
         drained = [_unpack_row(r) for r in rows]
@@ -519,6 +797,15 @@ class SlamSystem:
                         break
                 self._try_close_loop(pairs)
 
+        # One windowed BA per cadence window the drained keyframe count
+        # has passed: bursty row consumption must not skip windows.
+        if cfg.ba.local_every:
+            while kf_n - self._kf_at_last_ba >= cfg.ba.local_every:
+                self._kf_at_last_ba += cfg.ba.local_every
+                self.state, cost = local_ba_step(
+                    self.state, self.cam, cfg, end_kf=self._kf_at_last_ba)
+                self.ba_costs.append(cost)   # stays on the device
+
     def _place_pairs(self, q_row, q_frame, max_frame, kf_n):
         """place_query of keyframe row q_row -> [(q_frame, cand, score)]."""
         cfg = self.cfg
@@ -561,6 +848,8 @@ class SlamSystem:
         tol = self.cfg.bow.candidate_tol
         inflight = [(phf, pc) for rows, _p, _d in self._verifying
                     for phf, pc, _v in rows]
+        if self._verify_inflight is not None:
+            inflight += [(vf, vc) for vf, vc, _v in self._verify_inflight[1]]
 
         def _suppressed(hf, c):
             if self._edge_is_dup(c, hf):
@@ -658,13 +947,31 @@ class SlamSystem:
                     uniq.append((hf, c, v))
             self._dispatch_slate(uniq, depth=1, salt=1)
 
-    def _consume_verifications(self):
-        """Apply every dispatched slate (retries dispatched meanwhile
-        extend the list: drain until empty)."""
-        while self._verifying:
-            pending, self._verifying = self._verifying, []
-            for rows, packed, depth in pending:
-                self._apply_slate(rows, packed.cpu().numpy(), depth=depth)
+    def _consume_verifications(self, force=False):
+        """Apply dispatched slates (retries dispatched meanwhile extend
+        the list: drain until empty). In the asynchronous mode one
+        slate's result is in flight to the worker at a time and is
+        applied once it has landed; `force` waits for all of them."""
+        if not self._async:
+            while self._verifying:
+                pending, self._verifying = self._verifying, []
+                for rows, packed, depth in pending:
+                    self._apply_slate(rows, packed.cpu().numpy(),
+                                      depth=depth)
+            return
+        while True:
+            if self._verify_inflight is not None:
+                fut, rows, depth = self._verify_inflight
+                if not (force or fut.done()):
+                    return
+                self._verify_inflight = None
+                self._apply_slate(rows, fut.result(), depth=depth)
+            if not self._verifying:
+                return
+            rows, packed, depth = self._verifying.pop(0)
+            self._verify_inflight = (self._fetch(packed), rows, depth)
+            if not force:
+                return
 
     def loop_edge_rows(self, cap: int = MAX_LOOP_EDGES):
         """Fixed-capacity (le_i, le_j, le_z, le_w) loop edges with
@@ -708,7 +1015,7 @@ class SlamSystem:
                 pairs = self._place_pairs(q_row, q_frame, max_frame, kf_n)
                 if pairs:
                     self._try_close_loop(pairs)
-                self._consume_verifications()
+                self._consume_verifications(force=True)
         finally:
             self._defer_pgo = False
         added = len(self.loop_edges) - n0
@@ -753,10 +1060,64 @@ class SlamSystem:
             torch.cuda.synchronize(dev)
         self.stage_seconds["pgo"].append(time.perf_counter() - t0)
 
+    # ------------------------------------------------ checkpoint/resume
+    def save_checkpoint(self, path: str):
+        """Snapshot the state, the step stream's generator and the
+        host-side bookkeeping into one npz. Pending rows are drained
+        first (resume replays from the snapshot), and verifications are
+        consumed again after the poll: a hit among the drained rows
+        dispatches a new slate, whose loop edge must be in the snapshot
+        since its trigger rows are already consumed."""
+        self._poll(force=True)
+        self._consume_verifications(force=True)
+        meta = {
+            "frame_count": self.frame_count,
+            "kf_at_last_ba": self._kf_at_last_ba,
+            "seed": self.seed,
+            "bow_train_frame": self.bow_train_frame,
+            "bow_trained": self._bow_trained,
+            "hit_history": self._hit_history,
+            "last_place_kf": self._last_place_kf,
+            "n_slates": self.n_slates,
+            "loop_edges": [
+                (int(i), int(j), np.asarray(Z).tolist(), float(w))
+                for i, j, Z, w in self.loop_edges],
+        }
+        ckpt_mod.save(path, (self.state, self.draws.get_state()), meta=meta)
+
+    @classmethod
+    def resume(cls, path: str, cam: StereoCamera,
+               cfg: Optional[SlamConfig] = None,
+               device=None) -> "SlamSystem":
+        """Restore a system from a checkpoint onto `device` (default: the
+        card when there is one); the camera is moved there."""
+        cfg = cfg or SlamConfig()
+        device = default_device(device)
+        cam = cam.to(device)
+        meta = ckpt_mod.load_meta(path)
+        sys_ = cls(cam, cfg, seed=meta["seed"],
+                   bow_train_frame=meta["bow_train_frame"])
+        template = (_template_state(cam, cfg), sys_.draws.get_state())
+        sys_.state, gen_state = ckpt_mod.load(path, template)
+        sys_.draws.set_state(gen_state)
+        sys_.frame_count = meta["frame_count"]
+        # The ring's rows were consumed by the drain before the snapshot.
+        sys_._last_drained = meta["frame_count"]
+        sys_._kf_at_last_ba = meta["kf_at_last_ba"]
+        sys_._bow_trained = meta["bow_trained"]
+        sys_._hit_history = [
+            (int(hf), [(int(c), float(v)) for c, v in cands])
+            for hf, cands in meta["hit_history"]]
+        sys_._last_place_kf = meta["last_place_kf"]
+        sys_.n_slates = meta["n_slates"]
+        sys_.loop_edges = [(i, j, np.asarray(Z, np.float32), w)
+                           for i, j, Z, w in meta["loop_edges"]]
+        return sys_
+
     # ------------------------------------------------------------ final
     def finalize(self, run_pgo: bool = True):
-        self._poll()                       # catch a trailing loop hit
-        self._consume_verifications()      # ... and its verification
+        self._poll(force=True)                  # catch a trailing loop hit
+        self._consume_verifications(force=True)  # ... and its verification
         if run_pgo and self.loop_edges:
             self._run_pgo(iters=self.cfg.ba.pg_iters)
         return self.poses()
@@ -785,6 +1146,15 @@ class SlamSystem:
             w=torch.cat([st.rel_mask[1:f].cpu().float(),
                          torch.tensor([w for _, _, _, w in le],
                                       dtype=torch.float32)]))
+
+
+def _template_state(cam: StereoCamera, cfg: SlamConfig) -> SlamState:
+    """A SlamState of the config's shapes on the camera's device (the
+    bootstrap of a black frame): the structure a checkpoint loads into."""
+    dev = cam.fx.device
+    z = torch.zeros((cfg.image.height, cfg.image.width), dtype=torch.float32,
+                    device=dev)
+    return _init_state(z, z, cam, cfg, DrawSource(0, dev))
 
 
 def run(lefts, rights, cam: StereoCamera, cfg: Optional[SlamConfig] = None,

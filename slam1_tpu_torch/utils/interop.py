@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from slam1_tpu_torch.models.ba import BAProblem
 from slam1_tpu_torch.models.bow import BowState
 from slam1_tpu_torch.models.mapping import KeyframeStore, MapState
 from slam1_tpu_torch.models.pipeline import SlamState
@@ -89,3 +90,11 @@ def slam_state(s_np, device=None) -> SlamState:
         last_kf_frame=tensor(s_np.last_kf_frame, device),
         last_kf_pos=tensor(s_np.last_kf_pos, device),
         prev_lm=tensor(s_np.prev_lm, device), rows=tensor(s_np.rows, device))
+
+
+def ba_problem(p_np, device=None) -> BAProblem:
+    """The reference's BAProblem (a BA problem's twelve arrays), index
+    arrays widened to int64."""
+    p = _convert(p_np, BAProblem, device)
+    return p._replace(cam_idx=p.cam_idx.long(), lm_idx=p.lm_idx.long(),
+                      pe_i=p.pe_i.long(), pe_j=p.pe_j.long())

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from slam1_tpu_torch.models.ba import BAProblem, make_problem
 from slam1_tpu_torch.models.posegraph import PoseGraph
 from slam1_tpu_torch.ops import se3
 from slam1_tpu_torch.ops.camera import StereoCamera, project_stereo
@@ -236,3 +237,57 @@ def loop2_graph(n: int = 600, seed: int = 4, device=None) -> PoseGraph:
         w=torch.cat([torch.ones(n - 1), torch.full((4,), 1000.0)]))
     device = default_device(device)
     return PoseGraph(*[x.to(device) for x in graph])
+
+
+def ba_problem(seed: int = 0, n_cams: int = 6, n_pts: int = 120,
+               pose_noise: float = 0.02, point_noise: float = 0.05,
+               px_noise: float = 0.2, n_outliers: int = 0, device=None):
+    """A small stereo BA problem with ground truth: `n_cams` cameras
+    moving forward with a slight yaw past `n_pts` points, every
+    in-image projection observed in both cameras with `px_noise` px of
+    noise, `n_outliers` observations thrown 30-80 px off, and the
+    initial poses (but camera 0) and points perturbed. All draws come
+    from numpy's generator seeded with `seed`. Returns (BAProblem,
+    true poses (C,4,4), true points (L,3), camera)."""
+    device = default_device(device)
+    rng = np.random.default_rng(seed)
+    cam = StereoCamera.kitti_default(device="cpu")
+    step = se3.exp_se3(torch.tensor([0.0, 0.0, 1.2, 0.0, 0.01, 0.0]))
+    T = [torch.eye(4)]
+    for _ in range(n_cams - 1):
+        T.append(T[-1] @ step)
+    T_true = torch.stack(T)
+    pts_true = torch.as_tensor(np.stack([
+        rng.uniform(-15, 15, n_pts), rng.uniform(-4, 3, n_pts),
+        rng.uniform(8, 50, n_pts)], -1), dtype=torch.float32)
+
+    cam_idx, lm_idx, uvs, urs = [], [], [], []
+    for c in range(n_cams):
+        Xc = se3.transform_points(se3.inverse(T_true[c]), pts_true)
+        uv_l, uv_r, front = project_stereo(cam, Xc)
+        inb = (front & (uv_l[:, 0] > 0) & (uv_l[:, 0] < 1226)
+               & (uv_l[:, 1] > 0) & (uv_l[:, 1] < 370))
+        sel = torch.nonzero(inb)[:, 0]
+        cam_idx.append(torch.full_like(sel, c))
+        lm_idx.append(sel)
+        uvs.append(uv_l[sel])
+        urs.append(uv_r[sel, 0])
+    cam_idx, lm_idx = torch.cat(cam_idx), torch.cat(lm_idx)
+    uvs, urs = torch.cat(uvs).numpy(), torch.cat(urs).numpy()
+    uvs = uvs + rng.normal(0, px_noise, uvs.shape).astype(np.float32)
+    urs = urs + rng.normal(0, px_noise, urs.shape).astype(np.float32)
+    if n_outliers:
+        sel = rng.choice(len(uvs), n_outliers, replace=False)
+        uvs[sel] += rng.uniform(30, 80, (n_outliers, 2)).astype(np.float32)
+        urs[sel] += rng.uniform(30, 80, n_outliers).astype(np.float32)
+    dpose = rng.normal(0, pose_noise, (n_cams, 6)).astype(np.float32)
+    dpose[0] = 0
+    T_init = T_true @ se3.exp_se3(torch.as_tensor(dpose))
+    pts_init = pts_true + torch.as_tensor(
+        rng.normal(0, point_noise, (n_pts, 3)).astype(np.float32))
+    w = torch.ones(len(uvs))
+    prob = make_problem(poses=T_init, points=pts_init, cam_idx=cam_idx,
+                        lm_idx=lm_idx, uv=torch.as_tensor(uvs), w=w,
+                        ur=torch.as_tensor(urs), wr=w.clone())
+    return (BAProblem(*[x.to(device) for x in prob]), T_true.to(device),
+            pts_true.to(device), cam.to(device))

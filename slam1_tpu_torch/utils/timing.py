@@ -4,7 +4,8 @@
 queued, the Python wrapper included. `graph_ms` captures the calls in a
 CUDA graph and replays it, so the host is out of the way and the time is
 what the card needs. Both warm up first and synchronise around the
-measurement.
+measurement. `device_busy_ms` sums the device-side durations that
+`torch.profiler` records, for code a CUDA graph cannot capture.
 """
 
 from __future__ import annotations
@@ -48,3 +49,23 @@ def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
     torch.cuda.current_stream().wait_stream(side)
     graph.replay()
     return _between_events(graph.replay, replays) / (reps * replays)
+
+
+def device_busy_ms(fn, reps: int = 3) -> float:
+    """The time the card is busy for one fn() in ms: the sum of the
+    device-side durations (kernels, copies) `torch.profiler` records
+    over `reps` warm calls. `event_ms` minus this is what the card
+    spends waiting for the host between launches."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = 0.0
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        total_us += getattr(e, "self_cuda_time_total", 0.0) if t is None else t
+    return total_us / 1e3 / reps

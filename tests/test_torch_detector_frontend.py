@@ -25,6 +25,7 @@ from slam1_tpu_torch.models.frontend import stereo_frontend
 from slam1_tpu_torch.ops import brief as tbrief
 from slam1_tpu_torch.ops import detector as tdet
 from slam1_tpu_torch.utils import interop
+from torch_threads import one_torch_thread  # noqa: F401
 
 H, W = 128, 256
 

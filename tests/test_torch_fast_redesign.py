@@ -20,6 +20,7 @@ from slam1_tpu.ops import fast as jfast
 from slam1_tpu_torch.config import tiny_config
 from slam1_tpu_torch.ops import cuda_kernels, detector, dispatch
 from slam1_tpu_torch.ops import fast as tfast
+from torch_threads import one_torch_thread  # noqa: F401
 
 THRESHOLD = 0.08
 

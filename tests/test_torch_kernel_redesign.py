@@ -36,6 +36,7 @@ from slam1_tpu_torch.ops import cuda_kernels, dispatch
 from slam1_tpu_torch.ops.camera import StereoCamera
 from slam1_tpu_torch.utils import synthetic as tsyn
 from slam1_tpu_torch.utils.synthetic import chain_inputs, loop2_graph
+from torch_threads import one_torch_thread  # noqa: F401
 
 CHAIN_TOL = 1e-4             # max |a - b| / max |b|, as chip_smoke.py
 BIG = 1 << 20

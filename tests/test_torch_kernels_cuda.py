@@ -1,4 +1,6 @@
-"""The CUDA kernels against their plain PyTorch twins, on the card.
+"""The CUDA kernels against their plain PyTorch twins, on the card, and
+what else only a card can show (bundle adjustment on CUDA tensors
+against the CPU, a windowed BA without a host sync).
 
 Every test here is marked `cuda` and skips where there is no card (the
 kernels have no CPU mode). The file imports torch and the port only,
@@ -316,3 +318,51 @@ def test_slam_system_launches_the_kernels(cuda_device):
     else:
         assert counts["chain_prepare"] == counts["chain_sweep"] == 0
     assert np.isfinite(poses).all()
+
+
+def test_bundle_adjust_cuda_matches_cpu(cuda_device):
+    """The seeded 6-camera, 120-point problem on CPU and on CUDA tensors:
+    equal accept sequences, poses within 1e-4 m, costs within 1e-3
+    relative; a second CUDA run gives the same poses bit for bit."""
+    from slam1_tpu_torch.config import BAConfig
+    from slam1_tpu_torch.models import ba
+    cfg = BAConfig(lm_iters=6)
+    p, _, _, cam = synthetic.ba_problem(0, px_noise=0.3, n_outliers=40,
+                                        device="cpu")
+    out_c, cost_c, tr_c = ba.bundle_adjust(p, cam, cfg, return_trace=True)
+    pg = ba.BAProblem(*[x.to(cuda_device) for x in p])
+    out_g, cost_g, tr_g = ba.bundle_adjust(pg, cam.to(cuda_device), cfg,
+                                           return_trace=True)
+    assert tr_g.accept.tolist() == tr_c.accept.tolist()
+    assert tr_g.n_obs.tolist() == tr_c.n_obs.tolist()
+    assert (out_g.poses.cpu() - out_c.poses)[:, :3, 3].abs().max() <= 1e-4
+    assert abs(float(cost_g) - float(cost_c)) <= 1e-3 * float(cost_c)
+    out_g2, _ = ba.bundle_adjust(pg, cam.to(cuda_device), cfg)
+    assert torch.equal(out_g2.poses, out_g.poses)
+    assert torch.equal(out_g2.points, out_g.points)
+
+
+def test_local_ba_step_makes_no_host_sync(cuda_device):
+    """A windowed BA on a CUDA state under sync debug mode "error": any
+    synchronising call raises. Its cost stays on the device."""
+    cfg = tiny_config()
+    h, w = cfg.image.height, cfg.image.width
+    world = synthetic.make_world(3, n_frames=12, n_points=1200,
+                                 trajectory="loop", image_hw=(h, w),
+                                 speed=0.9, device=cuda_device)
+    lefts, rights = synthetic.render_sequence(world, h, w)
+    draws = pipeline.DrawSource(0, cuda_device)
+    st = pipeline._init_state(lefts[0], rights[0], world.cam, cfg, draws)
+    for i in range(1, 12):
+        st, _, _ = pipeline.slam_step(st, lefts[i], rights[i], world.cam,
+                                      cfg, draws)
+    pipeline.local_ba_step(st, world.cam, cfg)            # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        new, cost = pipeline.local_ba_step(st, world.cam, cfg, end_kf=10)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert cost.is_cuda and cost.dim() == 0 and bool(torch.isfinite(cost))
+    assert float((new.traj - st.traj).abs().max()) > 0
+    assert torch.equal(new.traj[10:], st.traj[10:])

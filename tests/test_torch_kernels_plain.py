@@ -25,6 +25,7 @@ from slam1_tpu.ops.pallas_kernels import hamming_top2 as pallas_hamming
 from slam1_tpu_torch.ops import cuda_kernels, dispatch
 from slam1_tpu_torch.ops import fast as tfast
 from slam1_tpu_torch.ops import hamming as tham
+from torch_threads import one_torch_thread  # noqa: F401
 
 FAST_TOL = 1e-5
 

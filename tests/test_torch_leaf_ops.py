@@ -21,6 +21,7 @@ from slam1_tpu_torch.ops import lsq as tlsq
 from slam1_tpu_torch.ops import se3 as tse3
 from slam1_tpu_torch.ops import triangulate as ttri
 from slam1_tpu_torch.utils import interop
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-6
 

@@ -26,6 +26,7 @@ from slam1_tpu_torch.models import loop_closure as tlc
 from slam1_tpu_torch.models import posegraph as tpg
 from slam1_tpu_torch.ops import cuda_kernels
 from slam1_tpu_torch.utils import interop
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def t(a):

@@ -26,6 +26,7 @@ from slam1_tpu_torch.models import mapping as tmap
 from slam1_tpu_torch.ops import kmeans as tkm
 from slam1_tpu_torch.types import StereoObservations as TObs
 from slam1_tpu_torch.utils import interop
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def draws(key, shape):

@@ -22,6 +22,7 @@ from slam1_tpu_torch.config import TrackingConfig
 from slam1_tpu_torch.ops import se3 as tse3
 from slam1_tpu_torch.ops.pnp import ransac_pnp
 from slam1_tpu_torch.utils import interop
+from torch_threads import one_torch_thread  # noqa: F401
 
 N = 192
 

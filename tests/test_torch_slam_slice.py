@@ -1,8 +1,8 @@
 """The SLAM slice of the port (`SlamSystem` with local BA off) against
 the JAX package's, on the loop clips of tests/test_pipeline.py.
 
-Both sides run `tiny_config()` with `ba.local_every=0` (the slice does
-not port BA yet) and `bow_train_frame=8`; the world is made by the JAX
+Both sides run `tiny_config()` with `ba.local_every=0` (BA on is held
+in tests/test_torch_slam_ba_slice.py) and `bow_train_frame=8`; the world is made by the JAX
 package and carried across with `utils/interop.py`. The port draws from
 `ReplayDraws`, which recomputes the reference's own key chain with
 `jax.random`: the state key split per frame, `fold_in(seed, 999)` for
@@ -33,6 +33,7 @@ from slam1_tpu_torch.config import tiny_config
 from slam1_tpu_torch.models import pipeline as tpipe
 from slam1_tpu_torch.utils import interop
 from slam1_tpu_torch.utils.evalmetrics import ate_rmse
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 class ReplayDraws:
@@ -266,19 +267,22 @@ def test_slice_closes_the_loop_and_improves_ate(loop_clip):
 
 
 def test_slam_system_refuses_unported_options():
+    """The three options construction used to refuse (local BA, the
+    asynchronous drain, checkpoints) are ported: each constructs, and
+    the only refusal left is a drain batch larger than the ring."""
     cam = interop.camera(jax.device_get(
         make_world(jax.random.PRNGKey(0), n_frames=2, n_points=10,
                    image_hw=(128, 256)).cam), device="cpu")
     cfg = tiny_config()
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tpipe.SlamSystem(cam, cfg)                 # local_every=5
-    cfg = cfg.replace(ba=dataclasses.replace(cfg.ba, local_every=0))
-    with pytest.raises(NotImplementedError, match="item 14"):
+    assert tpipe.SlamSystem(cam, cfg).cfg.ba.local_every == 5
+    lagged = tpipe.SlamSystem(cam, cfg.replace(bow=dataclasses.replace(
+        cfg.bow, poll_lag_s=0.05)))
+    assert lagged._async and lagged._pool is not None
+    tpipe.SlamSystem(cam, cfg.replace(runtime=dataclasses.replace(
+        cfg.runtime, checkpoint_every=8)))
+    with pytest.raises(ValueError, match="poll_max_pending"):
         tpipe.SlamSystem(cam, cfg.replace(bow=dataclasses.replace(
-            cfg.bow, poll_lag_s=0.05)))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tpipe.SlamSystem(cam, cfg.replace(runtime=dataclasses.replace(
-            cfg.runtime, checkpoint_every=8)))
+            cfg.bow, poll_max_pending=tpipe.ROW_RING + 1)))
 
 
 def test_slam_step_from_carried_state():

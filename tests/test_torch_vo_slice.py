@@ -30,6 +30,7 @@ from slam1_tpu_torch.config import tiny_config
 from slam1_tpu_torch.models import vo as tvo
 from slam1_tpu_torch.utils import interop
 from slam1_tpu_torch.utils import synthetic as tsyn
+from torch_threads import one_torch_thread  # noqa: F401
 
 H, W = 128, 256
 
