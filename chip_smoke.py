@@ -1,9 +1,15 @@
 """Drive the PyTorch/CUDA port's main paths once on one GPU: the stereo
-VO step, the SLAM system with local BA off, and the SLAM system at the
-default config (local BA on, checkpoints, asynchronous drain) followed
-by resume and global BA with pose priors.
+VO step, the flow VO, the SLAM system with local BA off, the SLAM
+system at the default config (local BA on, checkpoints, asynchronous
+drain) followed by resume and global BA with pose priors, and the
+`slam-torch` command line on a KITTI-layout sequence.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases kernels,slice,flow,...]
+
+With no argument every phase runs; `--phases` runs the named ones and
+what they need (slam-ba needs slam; checkpoint, global-ba and
+times-slam need slam-ba; times needs kernels), and leaves null in the
+last lines what it did not measure.
 
 Run from the repo root on a machine with one CUDA card (sm_90a: H100).
 It imports torch, numpy and `slam1_tpu_torch` only — never jax. Phases,
@@ -78,6 +84,16 @@ exits non-zero and never prints the final `ok` line:
   9. async   — the first 200 frames at `SlamConfig()` unchanged
                (poll_lag_s=0.05): no metrics row lost, poses finite,
                pnp_ok >= 0.8, the fetch worker gone with the system.
+  flow     — the flow VO (`models/vo_flow.py`: FAST corners through the
+               kernel's one-level entry, pyramidal LK, dense SGM
+               disparity, RANSAC-PnP) over the arc clip on CUDA tensors,
+               the launch counters reset just before: fast_score once per
+               frame, no other kernel; pnp_ok >= 0.6, poses finite, ATE
+               printed beside the VO slice's; the first 6 frames on CPU
+               and CUDA with the same draws (num_tracked and num_stereo
+               within 2%, poses within 1e-2 m); then flow frames/s, ms
+               per vo_step, per disparity and per lk_track call (CUDA
+               events), their device-busy ms and launches (torch.profiler).
  10. cpu-vs-gpu — the first 6 frames of `slam_step` on CPU and on CUDA
                with the same draws (num_stereo, kf.n and map.cursor
                within 2%, poses within 1e-2 m); `bundle_adjust` of a
@@ -86,6 +102,18 @@ exits non-zero and never prints the final `ok` line:
                the host syncs of one warm vo_step and one warm slam_step
                under torch.cuda.set_sync_debug_mode("warn") (slam_step
                may not add any).
+  cli      — the first 120 frames of the loop2 clip cropped to KITTI's
+               370 x 1226, written as a KITTI odometry directory (8-bit
+               grayscale PNG through zlib, or P5 PGM where the native
+               decoder does not build), decoded back (the decoder is
+               printed; the native prefetcher held equal to the Python
+               loader on 4 pairs), then in subprocesses as a user runs
+               them: `slam-torch run --vo-only` (equal to vo.run_sequence
+               in process), `run` at SlamConfig() with checkpoints and
+               metrics (120 frames, ATE < 1 m, fast_score F and
+               hamming_top2 2F-1 launches, frames/s), `eval` (the same
+               ATE), `ba --state` on its checkpoint and `ba` on its
+               trajectory (finite costs).
  11. times   — per kernel: its device time (a CUDA graph of 20 calls
                replayed), its eager time (CUDA events around 20 wrapper
                calls), its plain twin's time, in turns plain, kernel,
@@ -96,7 +124,13 @@ exits non-zero and never prints the final `ok` line:
                reached;
                the VO frames/s of the per-frame loop, the SLAM frames/s
                of the process loop, and ms per place_query, per slate
-               and per PGO.
+               and per PGO (the last three: phase times-slam).
+
+The torch.profiler sessions of every phase (device-busy ms, launch
+counts) run after all of them, so that no host-bound time is taken in a
+process where a session has run (whether a session leaves a cost per
+launch behind is not settled: the flow phase times the disparity again
+after its sessions).
 
 The last four lines are: a JSON object of the end-to-end numbers, the
 nvidia-smi line (name, power limit), {"kernels": [...]} (`launches` is
@@ -106,8 +140,10 @@ and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import gc
+import glob
 import json
 import math
 import os
@@ -125,16 +161,18 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from slam1_tpu_torch import runtime  # noqa: E402
 from slam1_tpu_torch.config import SlamConfig  # noqa: E402
-from slam1_tpu_torch.models import ba, pipeline, posegraph, vo  # noqa: E402
+from slam1_tpu_torch.models import ba, pipeline, posegraph, vo, \
+    vo_flow  # noqa: E402
 from slam1_tpu_torch.models.loop_closure import place_query, \
     verify_loop_slate  # noqa: E402
-from slam1_tpu_torch.ops import cuda_kernels, fast, se3  # noqa: E402
+from slam1_tpu_torch.ops import cuda_kernels, fast, lk, se3  # noqa: E402
 from slam1_tpu_torch.ops.detector import _downsample2  # noqa: E402
 from slam1_tpu_torch.ops.pnp import draw_uniform  # noqa: E402
-from slam1_tpu_torch.utils import synthetic  # noqa: E402
+from slam1_tpu_torch.utils import kitti, native_loader, \
+    synthetic  # noqa: E402
 from slam1_tpu_torch.utils.evalmetrics import ate_rmse  # noqa: E402
-from slam1_tpu_torch.utils.timing import device_busy_ms, event_ms, \
-    graph_ms  # noqa: E402
+from slam1_tpu_torch.utils.timing import device_busy_ms, device_launches, \
+    event_ms, graph_ms  # noqa: E402
 
 N_FRAMES = 24
 N_POINTS = 6000
@@ -153,6 +191,19 @@ CKPT_FRAME = 320             # a block boundary of the slam-ba pass
 RESUME_TOL = 1e-3            # m, resumed run against the straight run
 ASYNC_FRAMES = 200
 BA_TOL = 1e-4                # m, bundle_adjust on CPU against CUDA
+FLOW_PNP_OK = 0.6            # the flow VO's pnp_ok share on the arc clip
+CLI_FRAMES = 120             # the first frames of the loop2 clip
+CLI_CROP = (370, 1226)       # KITTI odometry's image size
+CLI_CKPT_EVERY = 64
+NATIVE_PAIRS = 4             # native loader held to the Python loader
+REPO = os.path.dirname(os.path.abspath(__file__))
+# Phases a run may select (--phases), in the order a full run takes
+# them, and what each needs run before it.
+PHASES = ("kernels", "slice", "flow", "slam", "slam-ba", "checkpoint",
+          "global-ba", "async", "cpu-vs-gpu", "cli", "times", "times-slam")
+NEEDS = {"slam-ba": ("slam",), "checkpoint": ("slam-ba",),
+         "global-ba": ("slam-ba",), "times": ("kernels",),
+         "times-slam": ("slam-ba",)}
 # name: (source, what it replaces, what one "ms" covers)
 KERNELS = {
     "fast_score": ("slam1_tpu_torch/csrc/fast_score.cu",
@@ -631,16 +682,22 @@ def check_slam(name, n, counts, post):
     check(n["ok_share"] >= 0.8, f"{name}: pnp_ok share {n['ok_share']} < 0.8")
 
 
-def phase_slam(cfg, dev):
-    h, w = cfg.image.height, cfg.image.width
+def render_loop2(dev):
+    """bench.measure_slam's clip with the port's renderer."""
+    cfg = SlamConfig()
     t0 = time.perf_counter()
     world = synthetic.make_world(SLAM_SEED, n_frames=SLAM_FRAMES,
                                  n_points=20 * SLAM_FRAMES,
                                  trajectory="loop2", speed=1.0, device=dev)
-    lefts, rights = synthetic.render_sequence(world, h, w)
+    lefts, rights = synthetic.render_sequence(world, cfg.image.height,
+                                              cfg.image.width)
     torch.cuda.synchronize()
     say("slam-render", frames=SLAM_FRAMES, points=20 * SLAM_FRAMES,
         seconds=f"{time.perf_counter() - t0:.3f}")
+    return world, lefts, rights
+
+
+def phase_slam(cfg, world, lefts, rights, dev):
     f = SLAM_FRAMES
     sys_, pre, post, counts, (t_boot, t_loop, t_final, _) = run_slam(
         cfg, world, lefts, rights)
@@ -683,17 +740,18 @@ def phase_slam(cfg, dev):
         keep_worst(chain_errs, chain_rel,
                    check_chain([jj_inv, ji_c, winv, v], f,
                                f"run-graph-{name}"))
-    return sys_, world, lefts, rights, counts, (chain_errs, chain_rel), dict(
+    return sys_, counts, (chain_errs, chain_rel), dict(
         slam_frames_per_s=fps, slam_ate_odometry_m=n["ate_odo"],
         slam_ate_before_m=n["ate_pre"], slam_ate_after_m=n["ate_post"],
         slam_pnp_ok_share=n["ok_share"], slam_loop_edges=len(n["edges"]),
         slam_slates=sys_.n_slates)
 
 
-def phase_slam_ba(cfg, world, lefts, rights, off, tmp):
+def phase_slam_ba(cfg, world, lefts, rights, off, tmp, late):
     """This slice's path: the clip at the default config (local BA on),
     two passes, a checkpoint at CKPT_FRAME in each (a checkpoint consumes
-    its poll's verification at once, so it is part of the run)."""
+    its poll's verification at once, so it is part of the run). Its
+    profiler session goes into `late`."""
     f = lefts.shape[0]
     gt = world.poses.cpu().numpy()
     path = os.path.join(tmp, "ckpt.npz")
@@ -753,22 +811,25 @@ def phase_slam_ba(cfg, world, lefts, rights, off, tmp):
         lambda: pipeline.local_ba_step(st, cam, cfg, end_kf=end))
     ba_ms = event_ms(lambda: pipeline.local_ba_step(st, cam, cfg, end_kf=end),
                      reps=10, warm=2)
-    ba_device_ms = device_busy_ms(
-        lambda: pipeline.local_ba_step(st, cam, cfg, end_kf=end))
-    say("slam-ba-step", local_ba_step_ms=ba_ms,
-        local_ba_step_device_busy_ms=ba_device_ms, host_syncs=syncs,
+    say("slam-ba-step", local_ba_step_ms=ba_ms, host_syncs=syncs,
         sync_lines=where, window=cfg.ba.window,
         observation_slots=cfg.ba.window * cfg.mapping.obs_per_frame,
         lm_iters=cfg.ba.local_lm_iters)
     check(syncs == 0, f"local_ba_step made {syncs} host syncs: {where}")
+
+    def profiled():
+        busy = device_busy_ms(
+            lambda: pipeline.local_ba_step(st, cam, cfg, end_kf=end))
+        say("slam-ba-step-profile", local_ba_step_device_busy_ms=busy)
+        return dict(local_ba_step_device_busy_ms=busy)
+    late.append(profiled)
     return sys_, post, counts, path, dict(
         slam_ba_frames_per_s=fps,
         slam_ba_frames_per_s_second_run=(f - 1) / t_loop2,
         slam_ba_ate_odometry_m=n["ate_odo"], slam_ba_ate_before_m=n["ate_pre"],
         slam_ba_ate_after_m=n["ate_post"], slam_ba_loop_edges=len(n["edges"]),
         slam_ba_windows=len(costs), local_ba_step_ms=ba_ms,
-        local_ba_step_device_busy_ms=ba_device_ms, local_ba_step_syncs=syncs,
-        checkpoint_save_s=t_ckpt)
+        local_ba_step_syncs=syncs, checkpoint_save_s=t_ckpt)
 
 
 def phase_checkpoint(cfg, world, lefts, rights, path, straight):
@@ -1003,6 +1064,249 @@ def phase_slam_cpu_vs_gpu(cfg, world, lefts, rights, dev):
     return vo_syncs, slam_syncs
 
 
+def flow_stage(cfg, lefts, rights):
+    """The two dense stages of one flow VO step on frame 3 of the clip,
+    as vo_step calls them: closures of the disparity of the new pair and
+    of LK tracking of frame 2's corners into frame 3."""
+    fc = cfg.flow
+    prev_s = vo_flow._smooth_for_lk(lefts[2], cfg)
+    cur_s = vo_flow._smooth_for_lk(lefts[3], cfg)
+    xy, mask = vo_flow._detect_corners(lefts[2], cfg)
+    return (lambda: vo_flow._dense_disparity(lefts[3], rights[3], cfg),
+            lambda: lk.lk_track(prev_s, cur_s, xy, mask, win=fc.win,
+                                levels=fc.levels, iters=fc.iters,
+                                max_err=fc.max_err))
+
+
+def phase_flow(cfg, world, lefts, rights, dev, vo_ate, late):
+    """The second VO frontend (FAST corners, pyramidal LK, dense SGM
+    disparity, RANSAC-PnP) over the arc clip on CUDA tensors, the launch
+    counters reset just before; the first frames on CPU tensors against
+    CUDA with the same draws; then its times (its profiler sessions go
+    into `late`)."""
+    f = lefts.shape[0]
+    gt = world.poses.cpu().numpy()
+    cuda_kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    poses, metrics = vo_flow.run_sequence(lefts, rights, world.cam, cfg,
+                                          seed=SEED)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = cuda_kernels.launch_counts()
+    want = {k: 0 for k in counts}
+    want["fast_score"] = f                 # the one-level entry, init too
+    ate = ate_rmse(poses, gt, align=False)
+    ok_share = float(np.mean([bool(m.pnp_ok) for m in metrics]))
+    say("flow", frames=f, seconds=f"{secs:.3f}", launches=counts,
+        expected=want, ate_m=ate, vo_slice_ate_m=vo_ate,
+        pnp_ok_share=ok_share,
+        num_tracked=[int(m.num_tracked) for m in metrics],
+        num_stereo=[int(m.num_stereo) for m in metrics],
+        num_inliers=[int(m.num_inliers) for m in metrics])
+    check(counts == want, f"flow launch counts {counts} != {want}")
+    check(bool(np.isfinite(poses).all()) and poses.shape == (f, 4, 4),
+          "flow poses not finite / wrong shape")
+    check(ok_share >= FLOW_PNP_OK,
+          f"flow pnp_ok share {ok_share} < {FLOW_PNP_OK}")
+
+    # CPU (plain path) vs CUDA (kernel) on the first frames, same draws.
+    n = vo_flow._detect_corners(lefts[0], cfg)[0].shape[0]
+    g = torch.Generator(device="cpu").manual_seed(SEED + 1)
+    draws = [draw_uniform(cfg.tracking.ransac_iters, n, g, "cpu")
+             for _ in range(CPU_FRAMES - 1)]
+    t0 = time.perf_counter()
+    p_cpu, m_cpu = vo_flow.run_sequence(
+        lefts[:CPU_FRAMES].cpu(), rights[:CPU_FRAMES].cpu(),
+        world.cam.to("cpu"), cfg, draws=draws)
+    cpu_secs = time.perf_counter() - t0
+    p_gpu, m_gpu = vo_flow.run_sequence(
+        lefts[:CPU_FRAMES], rights[:CPU_FRAMES], world.cam, cfg,
+        draws=[d.to(dev) for d in draws])
+    dt = float(np.abs(p_cpu[:, :3, 3] - p_gpu[:, :3, 3]).max())
+    dr = max(rot_err(a[:3, :3], b[:3, :3]) for a, b in zip(p_cpu, p_gpu))
+    pairs = {k: [(int(getattr(a, k)), int(getattr(b, k)))
+                 for a, b in zip(m_cpu, m_gpu)]
+             for k in ("num_tracked", "num_stereo")}
+    say("flow-cpu-vs-gpu", frames=CPU_FRAMES, cpu_seconds=f"{cpu_secs:.3f}",
+        max_dt_m=dt, max_drot_rad=dr, cpu_gpu=pairs)
+    for k, v in pairs.items():
+        for c, g_ in v:
+            check(abs(c - g_) <= 0.02 * max(c, g_), f"flow {k} {c} vs {g_}")
+    check(dt <= 1e-2 and dr <= 1e-3,
+          f"flow CPU vs GPU poses: {dt} m, {dr} rad")
+
+    # Warm times: the per-frame loop, one step, its two dense stages.
+    state = vo_flow.init_state(lefts[0], rights[0], world.cam, cfg, SEED)
+    for i in range(1, 3):
+        state, _ = vo_flow.vo_step(state, lefts[i], rights[i], world.cam, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(1, f):
+        state, _ = vo_flow.vo_step(state, lefts[i], rights[i], world.cam, cfg)
+    torch.cuda.synchronize()
+    fps = (f - 1) / (time.perf_counter() - t0)
+
+    def step():
+        vo_flow.vo_step(state, lefts[5], rights[5], world.cam, cfg)
+    disp, track = flow_stage(cfg, lefts, rights)
+    step_ms = event_ms(step, reps=5, warm=1)
+    disp_ms = event_ms(disp, reps=5, warm=1)
+    lk_ms = event_ms(track, reps=10, warm=2)
+    d = cfg.disparity
+    say("flow-times", flow_frames_per_s=fps, vo_step_ms=step_ms,
+        disparity_ms=disp_ms, lk_track_ms=lk_ms, max_disp=d.max_disp,
+        radius=d.radius, sgm_columns=cfg.image.width,
+        lk=dataclasses.asdict(cfg.flow))
+    check(math.isfinite(fps) and fps > 0, "flow fps not measured")
+
+    def profiled():
+        """Device-busy ms and launches; the disparity is timed again
+        after the sessions, against its time before any session."""
+        out = dict(flow_vo_step_device_busy_ms=device_busy_ms(step, reps=2),
+                   flow_disparity_device_busy_ms=device_busy_ms(disp, reps=2),
+                   flow_disparity_launches=device_launches(disp),
+                   flow_lk_track_launches=device_launches(track),
+                   flow_disparity_ms_after_profiler=event_ms(disp, reps=5,
+                                                             warm=1))
+        say("flow-profile", **out)
+        return out
+    late.append(profiled)
+    return counts, dict(
+        flow_frames_per_s=fps, flow_ate_m=ate, flow_pnp_ok_share=ok_share,
+        flow_vo_step_ms=step_ms, flow_disparity_ms=disp_ms,
+        flow_lk_track_ms=lk_ms)
+
+
+def slam_torch(*argv, timeout=900):
+    """`python -m slam1_tpu_torch.cli argv...` in a subprocess from the
+    repo root, as a user runs it: (its last stdout line as JSON, the
+    kernel launch counts it printed on stderr, seconds)."""
+    t0 = time.perf_counter()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [REPO] + [p for p in [env.get("PYTHONPATH")] if p])
+    r = subprocess.run([sys.executable, "-m", "slam1_tpu_torch.cli",
+                        *argv], cwd=REPO, env=env, capture_output=True,
+                       text=True, timeout=timeout)
+    secs = time.perf_counter() - t0
+    check(r.returncode == 0, f"slam-torch {' '.join(argv)} exited "
+          f"{r.returncode}: {r.stderr[-3000:]}")
+    launches = [json.loads(line)["kernel_launches"]
+                for line in r.stderr.splitlines()
+                if line.startswith('{"kernel_launches"')]
+    decoder = [line.split(": ", 1)[1] for line in r.stderr.splitlines()
+               if line.startswith("decoder: ")]
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    say("cli-call", args=" ".join(argv[:1] + tuple(
+        a for a in argv[1:] if a.startswith("--"))),
+        seconds=f"{secs:.3f}", launches=launches[-1] if launches else None,
+        decoder=decoder[-1] if decoder else None,
+        result={k: v for k, v in out.items() if k != "timing"})
+    return out, (launches[-1] if launches else None), secs
+
+
+def phase_cli(world, lefts, rights, tmp):
+    """The user's entry points on a KITTI-layout sequence: the first
+    CLI_FRAMES of the loop2 clip cropped to KITTI's image size, written
+    as 8-bit grayscale PNG (P5 PGM where the native decoder does not
+    build: a machine may have neither cv2 nor PIL), then
+    `slam-torch run --vo-only`, `run` (SLAM, checkpoints, metrics),
+    `eval`, `ba --state` and `ba` in subprocesses."""
+    cfg = SlamConfig()
+    f = CLI_FRAMES
+    h, w = CLI_CROP
+    hw = (cfg.image.height, cfg.image.width)
+    root = os.path.join(tmp, "kitti_seq")
+    lib = native_loader.build_library()
+    fmt = "png" if lib else "pgm"
+    t0 = time.perf_counter()
+    kitti.write_sequence(root, lefts[:f, :h, :w].cpu().numpy(),
+                         rights[:f, :h, :w].cpu().numpy(), world.cam,
+                         world.poses[:f].cpu().numpy(), fmt=fmt)
+    write_s = time.perf_counter() - t0
+    poses_txt = os.path.join(root, "poses.txt")
+    seq = kitti.KittiSequence(root, hw, poses_path=poses_txt)
+    decoder = kitti.decoder_for(seq.lefts[0])
+    t0 = time.perf_counter()
+    frames = list(seq.frames())
+    decode_s = time.perf_counter() - t0
+    check(len(frames) == f and frames[0][0].shape == hw
+          and float(frames[0][0][h:].max()) == 0.0
+          and float(frames[0][0][:, w:].max()) == 0.0,
+          "the decoded sequence is not the padded canvas")
+    native_equal = None
+    if lib:
+        pairs = list(native_loader.stereo_frames(
+            seq.lefts[:NATIVE_PAIRS], seq.rights[:NATIVE_PAIRS], *hw))
+        native_equal = len(pairs) == NATIVE_PAIRS and all(
+            np.array_equal(a, c) and np.array_equal(b, d)
+            for (a, b), (c, d) in zip(pairs, frames))
+    say("cli-data", frames=f, crop=CLI_CROP, canvas=hw, format=fmt,
+        decoder=decoder, native_library=bool(lib),
+        native_equals_python_loader=native_equal,
+        write_seconds=f"{write_s:.3f}", decode_seconds=f"{decode_s:.3f}")
+    check(native_equal in (None, True),
+          "native stereo_frames differ from KittiSequence.frames()")
+
+    vo_npy = os.path.join(tmp, "vo.npy")
+    out, vo_launches, _ = slam_torch("run", "--data", root, "--poses",
+                                     poses_txt, "--vo-only", "--out", vo_npy)
+    L = torch.as_tensor(np.stack([a for a, _ in frames])).cuda()
+    R = torch.as_tensor(np.stack([b for _, b in frames])).cuda()
+    ref, _ = vo.run_sequence(L, R, seq.cam, cfg, seed=0)
+    del L, R
+    same = bool(np.array_equal(np.load(vo_npy), ref))
+    say("cli-vo-only", frames=out["frames"], equals_in_process=same,
+        max_abs_diff=float(np.abs(np.load(vo_npy) - ref).max()),
+        ate_rmse_m=out["ate_rmse_m"], decoder=out.get("decoder"))
+    check(same, "`run --vo-only` differs from vo.run_sequence in process")
+    check(vo_launches is not None and vo_launches == {
+        **{k: 0 for k in vo_launches},
+                          "fast_score": f, "hamming_top2": 2 * f - 1},
+          f"`run --vo-only` launches {vo_launches}")
+
+    traj = os.path.join(tmp, "traj.npy")
+    ckdir = os.path.join(tmp, "ckpt")
+    mpath = os.path.join(tmp, "metrics.jsonl")
+    run, counts, run_s = slam_torch(
+        "run", "--data", root, "--poses", poses_txt, "--out", traj,
+        "--metrics", mpath, "--checkpoint-every", str(CLI_CKPT_EVERY),
+        "--checkpoint-dir", ckdir)
+    timing = run["timing"]["frame"]
+    fps = timing["count"] / timing["total_s"]
+    rows = len(open(mpath).readlines())
+    say("cli-run", frames=run["frames"], ate_rmse_m=run["ate_rmse_m"],
+        rpe_trans_m=run["rpe_trans_m"], loop_closures=run["loop_closures"],
+        frames_per_s=fps, seconds=f"{run_s:.3f}", metrics_rows=rows,
+        checkpoints=sorted(os.listdir(ckdir)), launches=counts)
+    check(run["frames"] == f and math.isfinite(run["ate_rmse_m"])
+          and run["ate_rmse_m"] < 1.0 and "loop_closures" in run,
+          f"`run` line {run}")
+    check(counts is not None and counts["fast_score"] == f
+          and counts["hamming_top2"] == 2 * f - 1, f"`run` launches {counts}")
+    check(rows > 0, "`run --metrics` wrote no row")
+
+    ev, _, _ = slam_torch("eval", traj, poses_txt)
+    check(ev["ate_rmse_m"] == run["ate_rmse_m"],
+          f"`eval` ATE {ev['ate_rmse_m']} != `run`'s {run['ate_rmse_m']}")
+    ckpts = sorted(glob.glob(os.path.join(ckdir, "*.npz")))
+    check(len(ckpts) > 0, "`run --checkpoint-every` wrote no checkpoint")
+    bs, _, _ = slam_torch("ba", "--state", ckpts[-1], "--out",
+                          os.path.join(tmp, "opt_state.npy"))
+    check(bs["keyframes"] > 0 and math.isfinite(bs["final_cost"]),
+          f"`ba --state` line {bs}")
+    bt, _, _ = slam_torch("ba", traj, "--out",
+                          os.path.join(tmp, "opt_traj.npy"))
+    check(bt["frames"] == f and math.isfinite(bt["final_cost"]),
+          f"`ba` line {bt}")
+    return counts, dict(cli_frames_per_s=fps, cli_ate_m=run["ate_rmse_m"],
+                        cli_loop_closures=run["loop_closures"],
+                        cli_decoder=decoder, cli_format=fmt,
+                        cli_ba_state_keyframes=bs["keyframes"],
+                        cli_ba_state_final_cost=bs["final_cost"])
+
+
 def time_kernel(name, plain, kern, bound_ms, bound_by, plain_reps=10):
     """Times of one kernel's unit of work, in turns plain, kernel,
     kernel, plain: `ms` the device time (CUDA graph replay), `eager_ms`
@@ -1135,11 +1439,36 @@ def phase_times(cfg, lefts, rights, world, hamming_inputs):
     return times, fps
 
 
-def main():
+def selected_phases(arg):
+    """The phases --phases names (all when it names none), with what
+    each of them needs."""
+    if not arg:
+        return set(PHASES)
+    want = {p.strip() for p in arg.split(",") if p.strip()}
+    unknown = want - set(PHASES)
+    if unknown:
+        raise SystemExit(f"chip_smoke: unknown phases {sorted(unknown)}; "
+                         f"known: {','.join(PHASES)}")
+    todo = list(want)
+    while todo:
+        for need in NEEDS.get(todo.pop(), ()):
+            if need not in want:
+                want.add(need)
+                todo.append(need)
+    return want
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default="",
+                    help="comma-separated phases to run, with what they "
+                         f"need (default: all): {','.join(PHASES)}")
+    phases = selected_phases(ap.parse_args(argv).phases)
     t_start = time.perf_counter()
     smi = phase_device()
     dev = runtime.device("cuda")
     phase_build()
+    say("phases", run=[p for p in PHASES if p in phases])
     cfg = SlamConfig()
     h, w = cfg.image.height, cfg.image.width
     t0 = time.perf_counter()
@@ -1153,46 +1482,87 @@ def main():
     check(bool(torch.isfinite(lefts).all()) and float(lefts.max()) > 0,
           "rendered frames empty or not finite")
 
-    errs, hamming_inputs = phase_kernels(cfg, lefts, rights, dev)
-    backend_errs, rel_errs = phase_kernels_backend(dev)
-    errs.update(backend_errs)
-    vo_counts, ate, ok_share = phase_slice(cfg, world, lefts, rights, dev)
-    scfg = slam_config(ba_on=False)
-    sys_off, sworld, slefts, srights, counts_off, run_graph_errs, slam = \
-        phase_slam(scfg, dev)
-    keep_worst(errs, rel_errs, {k: (e, run_graph_errs[1][k])
-                                for k, e in run_graph_errs[0].items()})
+    errs, rel_errs, by_path, times, numbers = {}, {}, {}, {}, {}
+    # torch.profiler sessions, run after every other phase (see the
+    # module docstring).
+    late = []
+    vo_syncs = slam_syncs = fps = ate = ok_share = None
+    if "kernels" in phases:
+        kernel_errs, hamming_inputs = phase_kernels(cfg, lefts, rights, dev)
+        errs.update(kernel_errs)
+        backend_errs, backend_rel = phase_kernels_backend(dev)
+        errs.update(backend_errs)
+        rel_errs.update(backend_rel)
+    if "slice" in phases:
+        by_path["vo"], ate, ok_share = phase_slice(cfg, world, lefts, rights,
+                                                   dev)
+    if "flow" in phases:
+        by_path["flow"], flow = phase_flow(cfg, world, lefts, rights, dev, ate,
+                                           late)
+        numbers.update(flow)
+    if phases & {"slam", "async", "cpu-vs-gpu", "cli"}:
+        sworld, slefts, srights = render_loop2(dev)
     bcfg = slam_config(ba_on=True)
-    with tempfile.TemporaryDirectory() as tmp:
-        sys_, post_ba, counts, ckpt, slam_ba = phase_slam_ba(
-            bcfg, sworld, slefts, srights, slam, tmp)
-        slam_ba.update(phase_checkpoint(bcfg, sworld, slefts, srights, ckpt,
-                                        post_ba))
-    slam_ba.update(phase_global_ba(bcfg, sys_, sworld))
-    slam_ba.update(phase_async(sworld, slefts, srights))
-    vo_syncs, slam_syncs = phase_slam_cpu_vs_gpu(bcfg, sworld, slefts,
-                                                 srights, dev)
-    times, fps = phase_times(cfg, lefts, rights, world, hamming_inputs)
-    new_times, stages = phase_times_slam(bcfg, sys_, sworld)
-    times.update(new_times)
-    by_path = {"vo": vo_counts, "slam": counts_off, "slam_ba": counts}
+    if "slam" in phases:
+        sys_off, by_path["slam"], run_graph_errs, slam = phase_slam(
+            slam_config(ba_on=False), sworld, slefts, srights, dev)
+        numbers.update(slam)
+        del sys_off
+        keep_worst(errs, rel_errs, {k: (e, run_graph_errs[1][k])
+                                    for k, e in run_graph_errs[0].items()})
+    if "slam-ba" in phases:
+        with tempfile.TemporaryDirectory() as tmp:
+            sys_, post_ba, by_path["slam_ba"], ckpt, slam_ba = phase_slam_ba(
+                bcfg, sworld, slefts, srights, slam, tmp, late)
+            numbers.update(slam_ba)
+            if "checkpoint" in phases:
+                numbers.update(phase_checkpoint(bcfg, sworld, slefts,
+                                                srights, ckpt, post_ba))
+    if "global-ba" in phases:
+        numbers.update(phase_global_ba(bcfg, sys_, sworld))
+    if "async" in phases:
+        numbers.update(phase_async(sworld, slefts, srights))
+    if "cpu-vs-gpu" in phases:
+        vo_syncs, slam_syncs = phase_slam_cpu_vs_gpu(bcfg, sworld, slefts,
+                                                     srights, dev)
+    if "cli" in phases:
+        with tempfile.TemporaryDirectory() as tmp:
+            by_path["cli"], cli_numbers = phase_cli(sworld, slefts, srights,
+                                                    tmp)
+        numbers.update(cli_numbers)
+    if "times" in phases:
+        new_times, fps = phase_times(cfg, lefts, rights, world,
+                                     hamming_inputs)
+        times.update(new_times)
+    if "times-slam" in phases:
+        new_times, stages = phase_times_slam(bcfg, sys_, sworld)
+        times.update(new_times)
+        numbers.update(stages)
+    for profiled in late:
+        numbers.update(profiled())
 
     # No single PyTorch call computes any of these functions (no packed
     # Hamming top-2, FAST score or block-bidiagonal sweep): library_ms
     # is null throughout. The chain rows also carry max_rel_err, the
     # error over max |twin| that CHAIN_TOL bounds (their operands on the
-    # run's graph reach 1e9, so the absolute error says little).
+    # run's graph reach 1e9, so the absolute error says little). A run
+    # of some phases leaves null what it did not measure.
+    unmeasured = {"ms": None, "eager_ms": None, "plain_ms": None,
+                  "bound_ms": None, "bound_by": None}
     kernels = [{"name": name, "route": "cuda", "source": src,
-                "replaces": rep, "launches": counts[name],
+                "replaces": rep,
+                "launches": by_path.get("slam_ba", {}).get(name),
                 "launches_by_path": {k: v.get(name, 0)
                                      for k, v in by_path.items()},
-                "max_abs_err": errs[name],
+                "max_abs_err": errs.get(name),
                 **({"max_rel_err": rel_errs[name]} if name in rel_errs
                    else {}),
-                "per": per, **times[name], "library_ms": None}
+                "per": per, **times.get(name, unmeasured),
+                "library_ms": None}
                for name, (src, rep, per) in KERNELS.items()]
-    print(json.dumps({"vo_frames_per_s": fps, "ate_m": ate,
-                      "pnp_ok_share": ok_share, **slam, **slam_ba, **stages,
+    print(json.dumps({"phases": [p for p in PHASES if p in phases],
+                      "vo_frames_per_s": fps, "ate_m": ate,
+                      "pnp_ok_share": ok_share, **numbers,
                       "syncs_per_step": {"vo_step": vo_syncs,
                                          "slam_step": slam_syncs},
                       "seconds": time.perf_counter() - t_start}))

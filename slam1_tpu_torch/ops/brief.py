@@ -50,6 +50,19 @@ def gaussian_blur(img, sigma: float = 1.4, ksize: int = 7):
     return sum(float(k[j]) * pv[..., j:j + h, :] for j in range(ksize))
 
 
+def extract_patches(img, xy, patch_size: int):
+    """Gather (N, P, P) patches of an (H,W) image centred on
+    integer-rounded keypoints; indices are clipped to the image."""
+    h, w = img.shape
+    r = patch_size // 2
+    cx = torch.round(xy[..., 0]).long()
+    cy = torch.round(xy[..., 1]).long()
+    off = torch.arange(-r, r + 1, device=img.device)
+    yy = torch.clamp(cy[:, None, None] + off[None, :, None], 0, h - 1)
+    xx = torch.clamp(cx[:, None, None] + off[None, None, :], 0, w - 1)
+    return img[yy, xx]
+
+
 def orientation(patches):
     """Gaussian-weighted intensity-centroid angle per patch (N,P,P) ->
     (N,) radians, over the inscribed disk (see the JAX docstring for
@@ -92,6 +105,19 @@ def _describe(patches, angles, pattern):
     bits = bits.reshape(n, n_pairs // 8, 8)
     weights = (1 << torch.arange(8, device=patches.device)).to(torch.uint8)
     return torch.sum(bits * weights, dim=-1, dtype=torch.uint8)
+
+
+def describe(img_blurred, xy, angles, pattern):
+    """Steered rBRIEF on one (H,W) image that is already blurred.
+
+    xy: (N,2) keypoint coords; angles: (N,); pattern: (B,2,2) array.
+    Returns (N, B//8) uint8 packed descriptors.
+    """
+    pattern = torch.as_tensor(pattern, dtype=img_blurred.dtype).to(
+        img_blurred.device)
+    patch = 2 * int(np.ceil(float(pattern.abs().max()) * 1.5)) + 3
+    patches = extract_patches(img_blurred, xy, max(patch, 33))
+    return _describe(patches, angles, pattern)
 
 
 def unpack_bits(desc_packed):

@@ -12,6 +12,7 @@ from typing import NamedTuple
 
 import torch
 
+from slam1_tpu_torch.ops import se3
 from slam1_tpu_torch.runtime import default_device
 
 
@@ -46,6 +47,25 @@ class StereoCamera(NamedTuple):
     def to(self, device) -> "StereoCamera":
         return StereoCamera(*[v.to(device) for v in self])
 
+    @property
+    def K(self):
+        z = torch.zeros_like(self.fx)
+        o = torch.ones_like(self.fx)
+        return torch.stack([
+            torch.stack([self.fx, z, self.cx]),
+            torch.stack([z, self.fy, self.cy]),
+            torch.stack([z, z, o]),
+        ])
+
+    def projection_matrices(self):
+        """(P_left, P_right) 3x4 for the rectified pair."""
+        K = self.K
+        P_l = torch.cat([K, K.new_zeros((3, 1))], dim=1)
+        z = torch.zeros_like(self.baseline)
+        t = torch.stack([-self.baseline, z, z])
+        P_r = torch.cat([K, (K @ t)[:, None]], dim=1)
+        return P_l, P_r
+
 
 def project(cam: StereoCamera, X_cam, eps=1e-6):
     """Camera-frame points (...,3) -> pixel coords (...,2) + in-front mask."""
@@ -63,3 +83,16 @@ def project_stereo(cam: StereoCamera, X_cam, eps=1e-6):
     X_r = torch.cat([X_cam[..., :1] - cam.baseline, X_cam[..., 1:]], dim=-1)
     uv_r, valid_r = project(cam, X_r, eps)
     return uv_l, uv_r, valid & valid_r
+
+
+def project_world(cam: StereoCamera, T_wc, X_world, eps=1e-6):
+    """World points through world-from-camera pose T_wc -> left pixels."""
+    X_cam = se3.transform_points(se3.inverse(T_wc), X_world)
+    return project(cam, X_cam, eps)
+
+
+def backproject(cam: StereoCamera, uv, depth):
+    """Pixels (...,2) + depth (...) -> camera-frame points (...,3)."""
+    x = (uv[..., 0] - cam.cx) / cam.fx * depth
+    y = (uv[..., 1] - cam.cy) / cam.fy * depth
+    return torch.stack([x, y, depth], dim=-1)

@@ -113,9 +113,35 @@ def detect(img, cfg: DetectorConfig, valid_h=None, valid_w=None,
                     desc=desc.reshape(bsz, n, -1), mask=mask)
 
 
-def _downsample2(img):
+def detect_batch(imgs, cfg: DetectorConfig, valid_h=None, valid_w=None):
+    """The reference's name for detection over a leading batch axis:
+    `detect` already takes a (B,H,W) batch."""
+    return detect(imgs, cfg, valid_h, valid_w)
+
+
+def block_mean2(img, pairwise: bool = False):
+    """Mean of each 2x2 block of (..., H, W) with H, W even, rounded as
+    the reference's `reshape(h2, 2, w2, 2).mean((1, 3))` rounds. XLA
+    picks the order of those four additions by the row width: each row's
+    pair first, (a + b) + (c + d), when W is a power of two, left to
+    right, ((a + b) + c) + d, otherwise; a level made from another level
+    in the same compiled program (levels 2 and up of the reference's
+    jitted pyramids, `pairwise`) takes the pairs first whatever its
+    width (measured on the CPU at 120x160, 97x133, 128x256 and
+    376x1280; the two orders are 1 ulp apart on some pixels)."""
+    a = img[..., 0::2, 0::2]
+    b = img[..., 0::2, 1::2]
+    c = img[..., 1::2, 0::2]
+    d = img[..., 1::2, 1::2]
+    w = img.shape[-1]
+    if pairwise or w & (w - 1) == 0:
+        return ((a + b) + (c + d)) / 4.0
+    return (((a + b) + c) + d) / 4.0
+
+
+def _downsample2(img, pairwise: bool = False):
     """Exact 2x2 average pool of (..., H, W); odd trailing rows/cols are
-    edge-padded first."""
+    edge-padded first. `pairwise` as in `block_mean2`."""
     h, w = img.shape[-2:]
     if h % 2 or w % 2:
         rows = torch.clamp(torch.arange(h + h % 2, device=img.device), 0,
@@ -123,14 +149,7 @@ def _downsample2(img):
         cols = torch.clamp(torch.arange(w + w % 2, device=img.device), 0,
                            w - 1)
         img = img[..., rows, :][..., :, cols]
-    a = img[..., 0::2, 0::2]
-    b = img[..., 0::2, 1::2]
-    c = img[..., 1::2, 0::2]
-    d = img[..., 1::2, 1::2]
-    # Each row's pair summed first. The reference's `mean` rounds in an
-    # order XLA picks per shape: this one on the 128x256 test canvas,
-    # a left-to-right sum at 376x1280 (1 ulp apart on some pixels).
-    return ((a + b) + (c + d)) / 4.0
+    return block_mean2(img, pairwise)
 
 
 def detect_pyramid(img, cfg: DetectorConfig, valid_h=None,
@@ -149,8 +168,8 @@ def detect_pyramid(img, cfg: DetectorConfig, valid_h=None,
             "only scale_factor=2 pyramids are ported (the reference's "
             "jax.image.resize branch is not)")
     levels = [img]
-    for _ in range(1, cfg.num_levels):
-        levels.append(_downsample2(levels[-1]))
+    for lvl in range(1, cfg.num_levels):
+        levels.append(_downsample2(levels[-1], pairwise=lvl > 1))
     raws = dispatch.fast_score_levels(levels, cfg.fast_threshold,
                                       cfg.fast_arc)
     feats = []

@@ -132,7 +132,26 @@ def inverse(T):
     return from_Rt(Rt, -(Rt @ t[..., None])[..., 0])
 
 
+def compose(A, B):
+    return A @ B
+
+
 def transform_points(T, X):
     """Apply (...,4,4) to points (...,N,3) -> (...,N,3)."""
     R, t = to_Rt(T)
     return X @ R.transpose(-1, -2) + t[..., None, :]
+
+
+def rotation_angle(R):
+    """Geodesic angle of a rotation matrix, radians."""
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    return torch.arccos(torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0))
+
+
+def orthonormalize(R):
+    """Project a near-rotation onto SO(3) via SVD (batched)."""
+    U, _, Vt = torch.linalg.svd(R)
+    det = torch.linalg.det(U @ Vt)
+    one = torch.ones_like(det)
+    fix = torch.stack([one, one, det], dim=-1)
+    return (U * fix[..., None, :]) @ Vt

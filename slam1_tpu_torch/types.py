@@ -17,6 +17,10 @@ class Features(NamedTuple):
     desc: torch.Tensor    # (N,32) uint8 packed 256-bit rBRIEF
     mask: torch.Tensor    # (N,)  bool validity
 
+    @property
+    def capacity(self) -> int:
+        return self.xy.shape[-2]
+
 
 class Matches(NamedTuple):
     """Row i of A matched to `idx[i]` of B where `mask[i]`."""

@@ -67,3 +67,10 @@ def rpe(est_poses: np.ndarray, gt_poses: np.ndarray, delta: int = 1):
         r_errs.append(np.degrees(np.arccos(c)))
     return (float(np.sqrt(np.mean(np.square(t_errs)))),
             float(np.sqrt(np.mean(np.square(r_errs)))))
+
+
+def final_pose_diff(est_poses: np.ndarray, gt_poses: np.ndarray):
+    """The reference's own end-of-run check (main.py:143-146):
+    absolute difference of the final pose translation vs GT."""
+    return np.abs(np.asarray(est_poses)[-1][:3, 3]
+                  - np.asarray(gt_poses)[len(est_poses) - 1][:3, 3])

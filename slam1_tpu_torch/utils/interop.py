@@ -16,6 +16,7 @@ from slam1_tpu_torch.models.bow import BowState
 from slam1_tpu_torch.models.mapping import KeyframeStore, MapState
 from slam1_tpu_torch.models.pipeline import SlamState
 from slam1_tpu_torch.models.vo import VOState
+from slam1_tpu_torch.models.vo_flow import FlowVOState
 from slam1_tpu_torch.ops.camera import StereoCamera
 from slam1_tpu_torch.runtime import default_device
 from slam1_tpu_torch.types import Features, StereoObservations
@@ -61,6 +62,17 @@ def vo_state(s_np, device=None, seed: int = 0) -> VOState:
                    prev_obs=observations(s_np.prev_obs, device),
                    xi_vel=tensor(s_np.xi_vel, device), generator=gen,
                    frame=int(np.asarray(s_np.frame)))
+
+
+def flow_vo_state(s_np, device=None, seed: int = 0) -> FlowVOState:
+    """The reference's FlowVOState without its PRNG key: the port's state
+    gets a fresh generator seeded with `seed`."""
+    device = default_device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return FlowVOState(
+        *[tensor(getattr(s_np, k), device) for k in FlowVOState._fields[:7]],
+        generator=gen, frame=int(np.asarray(s_np.frame)))
 
 
 def map_state(m_np, device=None) -> MapState:

@@ -69,3 +69,26 @@ def device_busy_ms(fn, reps: int = 3) -> float:
         t = getattr(e, "self_device_time_total", None)
         total_us += getattr(e, "self_cuda_time_total", 0.0) if t is None else t
     return total_us / 1e3 / reps
+
+
+def device_launches(fn) -> dict:
+    """What one warm fn() puts on the card, as `torch.profiler` records
+    it: `device_events` the kernels, copies and memsets that ran there,
+    `launch_calls` the host's launch calls of the CUDA runtime and
+    driver."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    return {"device_events": sum(e.device_type == DeviceType.CUDA
+                                 for e in events),
+            "launch_calls": sum(e.name in ("cudaLaunchKernel",
+                                           "cudaLaunchKernelExC",
+                                           "cuLaunchKernel",
+                                           "cuLaunchKernelEx")
+                                for e in events)}

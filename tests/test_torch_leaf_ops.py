@@ -1,5 +1,6 @@
 """Leaf math of the port against the JAX package on the same numpy
-inputs: se3, camera, lsq, triangulate.
+inputs: se3, camera, lsq, triangulate, brief's single-image entries,
+`Features.capacity`, `detect_batch` and `final_pose_diff`.
 
 Tolerance: 1e-5 relative (plus a small absolute floor for values near
 0). Both sides compute in float32; the only differences are the order
@@ -152,3 +153,93 @@ def test_solve_spd6():
     close(jlsq.solve_spd6(jnp.asarray(H), jnp.asarray(g)),
           tlsq.solve_spd6(torch.as_tensor(H), torch.as_tensor(g)),
           rtol=1e-4, atol=1e-5)
+
+
+def test_camera_matrices():
+    jc = jcam.StereoCamera.kitti_default()
+    tc = interop.camera(jc, device="cpu")
+    close(jc.K, tc.K)
+    for a, b in zip(jc.projection_matrices(), tc.projection_matrices()):
+        close(a, b)
+
+
+def test_project_world_and_backproject():
+    jc = jcam.StereoCamera.for_canvas(128, 256)
+    tc = interop.camera(jc, device="cpu")
+    T = np.array(jse3.exp_se3(jnp.asarray(twists(12, 1)[0] * 0.3)))
+    X = _points(13)
+    for a, b in zip(jcam.project_world(jc, jnp.asarray(T), jnp.asarray(X)),
+                    tcam.project_world(tc, torch.as_tensor(T),
+                                       torch.as_tensor(X))):
+        if a.dtype == bool:
+            np.testing.assert_array_equal(np.asarray(a), b.numpy())
+        else:
+            close(a, b, atol=1e-3)
+    rng = np.random.default_rng(14)
+    uv = rng.uniform(0, 256, (100, 2)).astype(np.float32)
+    z = rng.uniform(1, 50, 100).astype(np.float32)
+    close(jcam.backproject(jc, jnp.asarray(uv), jnp.asarray(z)),
+          tcam.backproject(tc, torch.as_tensor(uv), torch.as_tensor(z)),
+          atol=1e-5)
+
+
+def test_compose_rotation_angle_orthonormalize():
+    T = np.array(jse3.exp_se3(jnp.asarray(twists(15, 16))))
+    close(jse3.compose(jnp.asarray(T[:8]), jnp.asarray(T[8:])),
+          tse3.compose(torch.as_tensor(T[:8]), torch.as_tensor(T[8:])))
+    R = T[:, :3, :3]
+    close(jse3.rotation_angle(jnp.asarray(R)),
+          tse3.rotation_angle(torch.as_tensor(R)), rtol=1e-4, atol=1e-3)
+    noisy = (R + np.random.default_rng(16).normal(0, 1e-2, R.shape)
+             ).astype(np.float32)
+    close(jse3.orthonormalize(jnp.asarray(noisy)),
+          tse3.orthonormalize(torch.as_tensor(noisy)), rtol=1e-4, atol=1e-5)
+
+
+def _blurred_image(seed, h=96, w=128):
+    from slam1_tpu.ops import brief as jbrief
+    img = np.random.default_rng(seed).random((h, w)).astype(np.float32)
+    return np.array(jbrief.gaussian_blur(jnp.asarray(img)))
+
+
+def test_extract_patches_and_describe():
+    from slam1_tpu.ops import brief as jbrief
+    from slam1_tpu_torch.ops import brief as tbrief
+    img = _blurred_image(17)
+    rng = np.random.default_rng(18)
+    xy = rng.uniform(-3, 130, (64, 2)).astype(np.float32)  # some clipped
+    ang = rng.uniform(-np.pi, np.pi, 64).astype(np.float32)
+    np.testing.assert_array_equal(
+        np.asarray(jbrief.extract_patches(jnp.asarray(img), jnp.asarray(xy),
+                                          33)),
+        tbrief.extract_patches(torch.as_tensor(img), torch.as_tensor(xy),
+                               33).numpy())
+    pattern = jbrief.make_pattern()
+    np.testing.assert_array_equal(
+        np.asarray(jbrief.describe(jnp.asarray(img), jnp.asarray(xy),
+                                   jnp.asarray(ang), pattern)),
+        tbrief.describe(torch.as_tensor(img), torch.as_tensor(xy),
+                        torch.as_tensor(ang), pattern).numpy())
+
+
+def test_features_capacity_and_detect_batch():
+    from slam1_tpu.config import tiny_config as jtiny
+    from slam1_tpu.ops import detector as jdet
+    from slam1_tpu_torch.config import tiny_config
+    from slam1_tpu_torch.ops import detector as tdet
+    imgs = np.stack([_blurred_image(s, 128, 256) for s in (19, 20)])
+    j = jdet.detect_batch(jnp.asarray(imgs), jtiny().detector)
+    t = tdet.detect_batch(torch.as_tensor(imgs), tiny_config().detector)
+    assert t.capacity == j.capacity == tiny_config().detector.max_kp
+    np.testing.assert_array_equal(np.asarray(j.mask), t.mask.numpy())
+    np.testing.assert_array_equal(np.asarray(j.desc), t.desc.numpy())
+    close(j.xy, t.xy, atol=1e-4)
+
+
+def test_final_pose_diff():
+    from slam1_tpu.utils import evalmetrics as jev
+    from slam1_tpu_torch.utils import evalmetrics as tev
+    T = np.array(jse3.exp_se3(jnp.asarray(twists(21, 10))))
+    gt = np.concatenate([T, T[:3]])                # longer than est
+    np.testing.assert_array_equal(jev.final_pose_diff(T[::-1], gt),
+                                  tev.final_pose_diff(T[::-1], gt))
