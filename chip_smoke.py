@@ -1,15 +1,18 @@
 """Drive the PyTorch/CUDA port's main paths once on one GPU: the stereo
-VO step, the flow VO, the SLAM system with local BA off, the SLAM
-system at the default config (local BA on, checkpoints, asynchronous
-drain) followed by resume and global BA with pose priors, and the
-`slam-torch` command line on a KITTI-layout sequence.
+VO step (also at the 1.2 x 8 ORB pyramid), two-view geometry, the flow
+VO, the SLAM system with local BA off, the SLAM system at the default
+config (local BA on, checkpoints, asynchronous drain) followed by
+resume, global BA with pose priors, the reference backend and the
+distributed layer, and the `slam-torch` command line on a KITTI-layout
+sequence.
 
     python3 chip_smoke.py [--phases kernels,slice,flow,...]
 
 With no argument every phase runs; `--phases` runs the named ones and
-what they need (slam-ba needs slam; checkpoint, global-ba and
-times-slam need slam-ba; times needs kernels), and leaves null in the
-last lines what it did not measure.
+what they need (slam-ba needs slam; checkpoint, global-ba, ref-backend,
+dist and times-slam need slam-ba; times needs kernels), and leaves null
+in the last lines what it did not measure. `--phases pyramid,two-view`
+runs without the 600-frame clip.
 
 Run from the repo root on a machine with one CUDA card (sm_90a: H100).
 It imports torch, numpy and `slam1_tpu_torch` only — never jax. Phases,
@@ -43,6 +46,19 @@ exits non-zero and never prints the final `ok` line:
                counts, pnp_ok and ATE; then runs the first 6 frames on
                CPU tensors (the plain path) and on CUDA with the same
                RANSAC draws and compares them.
+  pyramid  — the same clip at `SlamConfig()` with only the ORB pyramid
+               (scale 1.2, 8 levels, 6528 slots): fast_score on the 8
+               ragged levels of both images in one launch, level by
+               level against the twin; hamming_top2 at 6528 x 6528
+               (ungated, epipolar, window) exactly; detect_pyramid on
+               frame 0 against the port's CPU run (differing slots
+               printed and bounded); VO: fast_score F and hamming_top2
+               2F-1 launches, ATE < 1 m, pnp_ok >= 0.8, vo_step ms.
+  two-view — recover_pose_2d2d (256 hypotheses) and dlt on the
+               tracker-gated matches of frames 0 -> 1 at the default
+               detector, on the card and the CPU with the same draws:
+               equal inlier masks, R and t within 1e-4, the rotation
+               within 1 deg of the truth, dlt within 1e-3 relative.
   5. slam    — renders bench.measure_slam's clip with the port's
                renderer (loop2, 600 frames, 20 points per frame, speed
                1.0, numpy seed 11) at the default config with
@@ -81,6 +97,24 @@ exits non-zero and never prints the final `ok` line:
                one accepted step, ATE after <= 1.05 x before. Prints the
                trace, ms per LM iteration and ms per CG matvec with its
                byte bound.
+  ref-backend — `ref_backend.optimize_segment` over the run's first loop
+               (its odometry twists, padded to a multiple of 64, the loop
+               edge's measurement): endpoint gap down >= 10x, twists
+               finite and within 1e-3 of the CPU run; ms per LM
+               iteration.
+  dist     — the distributed layer on the same state and global problem
+               (no priors): partition_problem_device equal to
+               partition_problem at 1 and 2 shards, nothing dropped;
+               distributed_bundle_adjust at one rank over NCCL in this
+               process against bundle_adjust (trace, keyframe ATE <=
+               1.05 x before); optimize_sharded on the run's pose graph
+               (2048 rows, 601 live, its loop edges, the live
+               relaxation's 5 GN x 64 CG)
+               against posegraph.optimize (cost, ATE <= odometry-only),
+               chain_prepare / chain_sweep launches per rank; then both
+               at two ranks spawned on the one card over gloo (joined
+               under a time limit) against one rank. Prints ms per LM /
+               GN iteration and all_reduce bytes per CG step.
   9. async   — the first 200 frames at `SlamConfig()` unchanged
                (poll_lag_s=0.05): no metrics row lost, poses finite,
                pnp_ok >= 0.8, the fetch worker gone with the system.
@@ -112,8 +146,12 @@ exits non-zero and never prints the final `ok` line:
                in process), `run` at SlamConfig() with checkpoints and
                metrics (120 frames, ATE < 1 m, fast_score F and
                hamming_top2 2F-1 launches, frames/s), `eval` (the same
-               ATE), `ba --state` on its checkpoint and `ba` on its
-               trajectory (finite costs).
+               ATE), `ba --state` on its checkpoint, `ba --state
+               --distributed --lm-shards 1` (finite cost, nothing
+               dropped), `ba` on its trajectory (finite costs), and
+               `run --multihost --coordinator 127.0.0.1:<free port>
+               --num-processes 1 --process-id 0 --synthetic 8` (its rank
+               line, the plain run's poses).
  11. times   — per kernel: its device time (a CUDA graph of 20 calls
                replayed), its eager time (CUDA events around 20 wrapper
                calls), its plain twin's time, in turns plain, kernel,
@@ -132,10 +170,11 @@ process where a session has run (whether a session leaves a cost per
 launch behind is not settled: the flow phase times the disparity again
 after its sessions).
 
-The last four lines are: a JSON object of the end-to-end numbers, the
-nvidia-smi line (name, power limit), {"kernels": [...]} (`launches` is
-the count of the slam-ba pass, `launches_by_path` those of every path)
-and {"ok": true, "device": {...}}.
+The last four lines are: a JSON object of the end-to-end numbers (with
+the run's seconds), the nvidia-smi line (name, power limit), {"kernels":
+[...]} (`launches` is the count of the slam-ba pass, `launches_by_path`
+those of every path, the dist phase's per rank) and {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -147,6 +186,7 @@ import glob
 import json
 import math
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -161,11 +201,13 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from slam1_tpu_torch import runtime  # noqa: E402
 from slam1_tpu_torch.config import SlamConfig  # noqa: E402
-from slam1_tpu_torch.models import ba, pipeline, posegraph, vo, \
-    vo_flow  # noqa: E402
+from slam1_tpu_torch.models import ba, pipeline, posegraph, ref_backend, \
+    vo, vo_flow  # noqa: E402
 from slam1_tpu_torch.models.loop_closure import place_query, \
     verify_loop_slate  # noqa: E402
-from slam1_tpu_torch.ops import cuda_kernels, fast, lk, se3  # noqa: E402
+from slam1_tpu_torch.ops import cuda_kernels, detector, epipolar, fast, \
+    hamming, lk, se3, triangulate  # noqa: E402
+from slam1_tpu_torch.ops.camera import StereoCamera  # noqa: E402
 from slam1_tpu_torch.ops.detector import _downsample2  # noqa: E402
 from slam1_tpu_torch.ops.pnp import draw_uniform  # noqa: E402
 from slam1_tpu_torch.utils import kitti, native_loader, \
@@ -195,14 +237,25 @@ FLOW_PNP_OK = 0.6            # the flow VO's pnp_ok share on the arc clip
 CLI_FRAMES = 120             # the first frames of the loop2 clip
 CLI_CROP = (370, 1226)       # KITTI odometry's image size
 CLI_CKPT_EVERY = 64
+MULTIHOST_FRAMES = 8         # `run --multihost` against the plain `run`
 NATIVE_PAIRS = 4             # native loader held to the Python loader
+PYR_SCALE, PYR_LEVELS = 1.2, 8   # the original project's ORB pyramid
+PYR_SLOT_TOL = 0.01          # detect_pyramid slots differing, card vs CPU
+TWO_VIEW_B = 1               # frames 0 -> 1 of the arc clip (see phase)
+TWO_VIEW_ITERS = 256
+REF_PAD, REF_ITERS = 64, 20  # ref_backend segment padding, LM iterations
+DIST_TIMEOUT_S = 600.0       # the spawned ranks' join (and gloo's) limit
+DIST_TRACE_TOL = 1e-2        # sharded BA trace against bundle_adjust
+DIST_PGO_COST_TOL = 5e-2     # sharded PGO cost against posegraph.optimize
 REPO = os.path.dirname(os.path.abspath(__file__))
 # Phases a run may select (--phases), in the order a full run takes
 # them, and what each needs run before it.
-PHASES = ("kernels", "slice", "flow", "slam", "slam-ba", "checkpoint",
-          "global-ba", "async", "cpu-vs-gpu", "cli", "times", "times-slam")
+PHASES = ("kernels", "slice", "pyramid", "two-view", "flow", "slam",
+          "slam-ba", "checkpoint", "global-ba", "ref-backend", "dist",
+          "async", "cpu-vs-gpu", "cli", "times", "times-slam")
 NEEDS = {"slam-ba": ("slam",), "checkpoint": ("slam-ba",),
-         "global-ba": ("slam-ba",), "times": ("kernels",),
+         "global-ba": ("slam-ba",), "ref-backend": ("slam-ba",),
+         "dist": ("slam-ba",), "times": ("kernels",),
          "times-slam": ("slam-ba",)}
 # name: (source, what it replaces, what one "ms" covers)
 KERNELS = {
@@ -1181,7 +1234,7 @@ def phase_flow(cfg, world, lefts, rights, dev, vo_ate, late):
 def slam_torch(*argv, timeout=900):
     """`python -m slam1_tpu_torch.cli argv...` in a subprocess from the
     repo root, as a user runs it: (its last stdout line as JSON, the
-    kernel launch counts it printed on stderr, seconds)."""
+    kernel launch counts it printed on stderr, seconds, its stderr)."""
     t0 = time.perf_counter()
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -1203,7 +1256,7 @@ def slam_torch(*argv, timeout=900):
         seconds=f"{secs:.3f}", launches=launches[-1] if launches else None,
         decoder=decoder[-1] if decoder else None,
         result={k: v for k, v in out.items() if k != "timing"})
-    return out, (launches[-1] if launches else None), secs
+    return out, (launches[-1] if launches else None), secs, r.stderr
 
 
 def phase_cli(world, lefts, rights, tmp):
@@ -1250,7 +1303,7 @@ def phase_cli(world, lefts, rights, tmp):
           "native stereo_frames differ from KittiSequence.frames()")
 
     vo_npy = os.path.join(tmp, "vo.npy")
-    out, vo_launches, _ = slam_torch("run", "--data", root, "--poses",
+    out, vo_launches, _, _ = slam_torch("run", "--data", root, "--poses",
                                      poses_txt, "--vo-only", "--out", vo_npy)
     L = torch.as_tensor(np.stack([a for a, _ in frames])).cuda()
     R = torch.as_tensor(np.stack([b for _, b in frames])).cuda()
@@ -1269,7 +1322,7 @@ def phase_cli(world, lefts, rights, tmp):
     traj = os.path.join(tmp, "traj.npy")
     ckdir = os.path.join(tmp, "ckpt")
     mpath = os.path.join(tmp, "metrics.jsonl")
-    run, counts, run_s = slam_torch(
+    run, counts, run_s, _ = slam_torch(
         "run", "--data", root, "--poses", poses_txt, "--out", traj,
         "--metrics", mpath, "--checkpoint-every", str(CLI_CKPT_EVERY),
         "--checkpoint-dir", ckdir)
@@ -1287,24 +1340,52 @@ def phase_cli(world, lefts, rights, tmp):
           and counts["hamming_top2"] == 2 * f - 1, f"`run` launches {counts}")
     check(rows > 0, "`run --metrics` wrote no row")
 
-    ev, _, _ = slam_torch("eval", traj, poses_txt)
+    ev, _, _, _ = slam_torch("eval", traj, poses_txt)
     check(ev["ate_rmse_m"] == run["ate_rmse_m"],
           f"`eval` ATE {ev['ate_rmse_m']} != `run`'s {run['ate_rmse_m']}")
     ckpts = sorted(glob.glob(os.path.join(ckdir, "*.npz")))
     check(len(ckpts) > 0, "`run --checkpoint-every` wrote no checkpoint")
-    bs, _, _ = slam_torch("ba", "--state", ckpts[-1], "--out",
-                          os.path.join(tmp, "opt_state.npy"))
+    bs, _, _, _ = slam_torch("ba", "--state", ckpts[-1], "--out",
+                             os.path.join(tmp, "opt_state.npy"))
     check(bs["keyframes"] > 0 and math.isfinite(bs["final_cost"]),
           f"`ba --state` line {bs}")
-    bt, _, _ = slam_torch("ba", traj, "--out",
-                          os.path.join(tmp, "opt_traj.npy"))
+    bd, _, _, bd_err = slam_torch("ba", "--state", ckpts[-1], "--distributed",
+                                  "--lm-shards", "1", "--out",
+                                  os.path.join(tmp, "opt_dist.npy"))
+    say("cli-ba-distributed", result=bd,
+        backend_line=[ln for ln in bd_err.splitlines()
+                      if ln.startswith("torch.distributed")])
+    check(bd["keyframes"] == bs["keyframes"]
+          and math.isfinite(bd["final_cost"]) and bd["dropped_obs"] == 0
+          and bd["mesh"] == {"batch": 1, "lm": 1},
+          f"`ba --state --distributed` line {bd}")
+    bt, _, _, _ = slam_torch("ba", traj, "--out",
+                             os.path.join(tmp, "opt_traj.npy"))
     check(bt["frames"] == f and math.isfinite(bt["final_cost"]),
           f"`ba` line {bt}")
+    # `run --multihost` as one process of a world of one: the plain run.
+    plain_npy, multi_npy = (os.path.join(tmp, x) for x in ("p.npy", "m.npy"))
+    slam_torch("run", "--synthetic", str(MULTIHOST_FRAMES), "--out",
+               plain_npy)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    _, _, _, mh_err = slam_torch(
+        "run", "--synthetic", str(MULTIHOST_FRAMES), "--out", multi_npy,
+        "--multihost", "--coordinator", f"127.0.0.1:{port}",
+        "--num-processes", "1", "--process-id", "0")
+    rank_line = [ln for ln in mh_err.splitlines()
+                 if ln.startswith("multihost: process")]
+    same = bool(np.array_equal(np.load(plain_npy), np.load(multi_npy)))
+    say("cli-multihost", rank_line=rank_line, equals_plain_run=same)
+    check(rank_line == ["multihost: process 0/1, device cuda:0"] and same,
+          f"`run --multihost`: rank line {rank_line}, equal poses {same}")
     return counts, dict(cli_frames_per_s=fps, cli_ate_m=run["ate_rmse_m"],
                         cli_loop_closures=run["loop_closures"],
                         cli_decoder=decoder, cli_format=fmt,
                         cli_ba_state_keyframes=bs["keyframes"],
-                        cli_ba_state_final_cost=bs["final_cost"])
+                        cli_ba_state_final_cost=bs["final_cost"],
+                        cli_ba_distributed_final_cost=bd["final_cost"])
 
 
 def time_kernel(name, plain, kern, bound_ms, bound_by, plain_reps=10):
@@ -1439,6 +1520,558 @@ def phase_times(cfg, lefts, rights, world, hamming_inputs):
     return times, fps
 
 
+def pyramid_config():
+    """SlamConfig() with only the original project's ORB pyramid: scale
+    1.2, 8 levels."""
+    cfg = SlamConfig()
+    return cfg.replace(detector=dataclasses.replace(
+        cfg.detector, scale_factor=PYR_SCALE, num_levels=PYR_LEVELS))
+
+
+def phase_pyramid(lefts, rights, world, dev):
+    """The VO path at the 1.2 x 8 pyramid: fast_score over the 8 ragged
+    levels of both images in one launch, hamming_top2 at the pyramid's
+    slot count, detect_pyramid against the port's CPU run, then the VO
+    slice's gates; the launch counts of the VO run."""
+    cfg = pyramid_config()
+    dc = cfg.detector
+    thr, arc = dc.fast_threshold, dc.fast_arc
+    mid = lefts.shape[0] // 2
+    levels = [im.contiguous() for im in detector.pyramid_levels(
+        torch.stack([lefts[mid], rights[mid]]), dc)]
+    check(len(levels) == PYR_LEVELS <= cuda_kernels.FAST_MAX_LEVELS,
+          f"{len(levels)} levels do not fit one fast_score launch")
+    outs = cuda_kernels.fast_score_levels_cuda(levels, thr, arc)
+    fast_err = 0.0
+    for lvl, (im, k) in enumerate(zip(levels, outs)):
+        p = fast.fast_score(im, thr, arc)
+        torch.cuda.synchronize()
+        err = (k - p).abs().max().item()
+        same = bool(torch.equal(k > 0, p > 0))
+        say("pyramid", kernel="fast_score", level=lvl, shape=tuple(im.shape),
+            max_abs_err=err, corners=int((p > 0).sum()), masks_equal=same)
+        check(same and err <= FAST_TOL,
+              f"fast_score 1.2-pyramid level {lvl}: err {err}, masks {same}")
+        fast_err = max(fast_err, err)
+
+    n = dc.max_kp
+    rng = np.random.default_rng(7)
+    da, db = (torch.as_tensor(rng.integers(0, 256, (n, 32), dtype=np.uint8)
+                              ).to(dev) for _ in range(2))
+    ma, mb = (torch.as_tensor(rng.random(n) > 0.2).to(dev) for _ in range(2))
+    uva = torch.as_tensor((rng.random((n, 2)) * [cfg.image.width,
+                                                 cfg.image.height]
+                           ).astype(np.float32)).to(dev)
+    uvb = uva + torch.as_tensor(rng.normal(0, [30.0, 1.5], (n, 2)).astype(
+        np.float32)).to(dev)
+    mm, r = cfg.matcher, cfg.tracking.gate_radius_px
+    for case, kw in (("ungated", {}),
+                     ("epipolar", dict(uv_a=uva, uv_b=uvb,
+                                       dy_tol=mm.epipolar_dy,
+                                       dx_lo=mm.min_disparity,
+                                       dx_hi=mm.max_disparity)),
+                     ("window", dict(uv_a=uva, uv_b=uvb, dy_tol=r, dx_lo=-r,
+                                     dx_hi=r))):
+        outk = cuda_kernels.hamming_top2_cuda(da, db, ma, mb, **kw)
+        outp = cuda_kernels.hamming_top2_plain(da, db, ma, mb, **kw)
+        torch.cuda.synchronize()
+        equal = [bool(torch.equal(x, y)) for x, y in zip(outk, outp)]
+        say("pyramid", kernel="hamming_top2", case=case, shape=(n, n),
+            equal_d1_d2_idx_colbest=equal)
+        check(all(equal), f"hamming_top2 at {n} slots {case}: {equal}")
+    # A frame's device time at this pyramid: one fast_score launch over
+    # the 16 level images, two gated hamming_top2 calls at n x n.
+    gates = [dict(uv_a=uva, uv_b=uvb, dy_tol=mm.epipolar_dy,
+                  dx_lo=mm.min_disparity, dx_hi=mm.max_disparity),
+             dict(uv_a=uva, uv_b=uvb, dy_tol=r, dx_lo=-r, dx_hi=r)]
+    fast_ms = graph_ms(lambda: cuda_kernels.fast_score_levels_cuda(
+        levels, thr, arc))
+    ham_ms = graph_ms(lambda: [cuda_kernels.hamming_top2_cuda(
+        da, db, ma, mb, **kw) for kw in gates])
+    fast_bound = bound_fast_score([im.shape for im in levels])
+    ham_bound = bound_hamming(2, n, n, gated=True)
+    say("pyramid-times", fast_score_ms=fast_ms, fast_score_bound_ms=
+        fast_bound[0], fast_score_bound_by=fast_bound[1],
+        hamming_top2_2_calls_ms=ham_ms, hamming_top2_bound_ms=ham_bound[0],
+        hamming_top2_bound_by=ham_bound[1])
+
+    # detect_pyramid on frame 0, card against the port's CPU run.
+    vh, vw = cfg.image.valid_height, cfg.image.valid_width
+    pair = torch.stack([lefts[0], rights[0]])
+    fk = detector.detect_pyramid(pair, dc, vh, vw)
+    fc = detector.detect_pyramid(pair.cpu(), dc, vh, vw)
+    differ = ((fk.mask.cpu() != fc.mask)
+              | ((fk.xy.cpu() - fc.xy).abs().amax(-1) > 1e-3)
+              | (fk.desc.cpu() != fc.desc).any(-1))
+    n_diff, n_valid = int(differ.sum()), int(fc.mask.sum())
+    level_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+        detector.pyramid_levels(pair, dc),
+        detector.pyramid_levels(pair.cpu(), dc)))
+    say("pyramid", detect_pyramid_slots=tuple(fc.mask.shape),
+        valid_slots=n_valid, slots_differing_from_cpu=n_diff,
+        level_max_abs_diff_from_cpu=level_err)
+    check(fk.mask.shape[1] == n and n_diff <= PYR_SLOT_TOL * n_valid,
+          f"detect_pyramid: {n_diff} of {n_valid} slots differ from the "
+          "CPU run")
+
+    f = lefts.shape[0]
+    cuda_kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    poses, metrics = vo.run_sequence(lefts, rights, world.cam, cfg, seed=SEED)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = cuda_kernels.launch_counts()
+    want = {"fast_score": f, "hamming_top2": 2 * f - 1}
+    ate = ate_rmse(poses, world.poses.cpu().numpy(), align=False)
+    ok_share = float(np.mean([bool(m.pnp_ok) for m in metrics]))
+    state = vo.init_state(lefts[0], rights[0], world.cam, cfg, SEED)
+    state, _ = vo.vo_step(state, lefts[1], rights[1], world.cam, cfg)
+    step_ms = event_ms(lambda: vo.vo_step(state, lefts[2], rights[2],
+                                          world.cam, cfg), reps=5, warm=1)
+    say("pyramid-vo", frames=f, slots=n, seconds=f"{secs:.3f}",
+        launches=counts, launches_per_frame={k: v / f for k, v in
+                                             counts.items()},
+        expected=want, ate_m=ate, pnp_ok_share=ok_share, vo_step_ms=step_ms)
+    check({k: counts[k] for k in want} == want,
+          f"pyramid VO launch counts {counts} != {want}")
+    check(bool(np.isfinite(poses).all()), "pyramid VO poses not finite")
+    check(ok_share >= 0.8, f"pyramid VO pnp_ok share {ok_share} < 0.8")
+    check(ate < 1.0, f"pyramid VO ATE {ate} m >= 1.0 m")
+    return counts, fast_err, dict(
+        pyramid_slots=n, pyramid_ate_m=ate, pyramid_pnp_ok_share=ok_share,
+        pyramid_vo_step_ms=step_ms, pyramid_slots_differing=n_diff,
+        pyramid_fast_score_ms=fast_ms, pyramid_hamming_top2_ms=ham_ms)
+
+
+def rot_deg(R):
+    """The angle of a rotation matrix, in degrees."""
+    c = (np.trace(np.asarray(R, np.float64)) - 1.0) / 2.0
+    return float(np.degrees(np.arccos(np.clip(c, -1.0, 1.0))))
+
+
+def phase_two_view(lefts, world, dev):
+    """recover_pose_2d2d and dlt on the temporal matches of frames 0 ->
+    TWO_VIEW_B at the default detector, on the card and on the CPU with
+    the same draws. Frames 0 -> 1, not 0 -> 3: over three frames only a
+    third of the gated matches fit the true geometry on this clip, so 256
+    hypotheses of 8 rarely hold a clean sample and the rotation error
+    varies by degrees with the draws (`tools/port_two_view_pairs.py`
+    prints both per pair)."""
+    cfg = SlamConfig()
+    dc = cfg.detector
+    vh, vw = cfg.image.valid_height, cfg.image.valid_width
+    cuda_kernels.reset_launch_counts()
+    feats = detector.detect_pyramid(torch.stack([lefts[0], lefts[TWO_VIEW_B]]),
+                                    dc, vh, vw)
+    # The tracker's temporal gate around a zero-motion prediction: the
+    # clip's repeated texture defeats ungated matching over 3 frames.
+    m = hamming.match_windowed(feats.desc[0], feats.desc[1], feats.xy[0],
+                               feats.xy[1], feats.mask[0], feats.mask[1],
+                               radius=cfg.tracking.gate_radius_px)
+    uv1, uv2 = feats.xy[0], feats.xy[1][m.idx.long()]
+    mask = m.mask
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    u = draw_uniform(TWO_VIEW_ITERS, uv1.shape[0], g, "cpu")
+    K = world.cam.K
+    rk = epipolar.recover_pose_2d2d(uv1, uv2, mask, K, iters=TWO_VIEW_ITERS,
+                                    u=u.to(dev))
+    counts = cuda_kernels.launch_counts()
+    call_ms = event_ms(lambda: epipolar.recover_pose_2d2d(
+        uv1, uv2, mask, K, iters=TWO_VIEW_ITERS, u=u.to(dev)), reps=3, warm=1)
+    rc = epipolar.recover_pose_2d2d(uv1.cpu(), uv2.cpu(), mask.cpu(),
+                                    K.cpu(), iters=TWO_VIEW_ITERS, u=u)
+    Tk, Tc = rk.T.cpu().numpy(), rc.T.numpy()
+    gt = world.poses.cpu().numpy().astype(np.float64)
+    T_true = np.linalg.inv(gt[TWO_VIEW_B]) @ gt[0]     # camera 3 <- 0
+    ang_gt = rot_deg(Tc[:3, :3].T @ T_true[:3, :3])
+    t_true = T_true[:3, 3] / np.linalg.norm(T_true[:3, 3])
+    same_mask = bool(torch.equal(rk.inliers.cpu(), rc.inliers))
+    r_err = float(np.abs(Tk[:3, :3] - Tc[:3, :3]).max())
+    t_err = float(np.abs(Tk[:3, 3] - Tc[:3, 3]).max())
+    # dlt of the inliers, both sides with the CPU run's projections.
+    Kc = K.cpu()
+    P1 = Kc @ torch.eye(3, 4)
+    P2 = Kc @ torch.as_tensor(Tc[:3])
+    inl = rc.inliers
+    Xk = triangulate.dlt(P1.to(dev), P2.to(dev), uv1[inl.to(dev)],
+                         uv2[inl.to(dev)]).cpu()
+    Xc = triangulate.dlt(P1, P2, uv1.cpu()[inl], uv2.cpu()[inl])
+    dlt_rel = float(((Xk - Xc).norm(dim=-1) / Xc.norm(dim=-1)).max())
+    say("two-view", frames=(0, TWO_VIEW_B), matches=int(mask.sum()),
+        iters=TWO_VIEW_ITERS, inliers_card=int(rk.num_inliers),
+        inliers_cpu=int(rc.num_inliers), inlier_masks_equal=same_mask,
+        ok=bool(rk.ok), R_max_abs_diff=r_err, t_max_abs_diff=t_err,
+        rotation_err_to_gt_deg=ang_gt,
+        t_dot_gt=float(np.dot(Tc[:3, 3], t_true)),
+        recover_pose_ms=call_ms, dlt_points=int(inl.sum()),
+        dlt_max_rel_diff=dlt_rel, launches=counts)
+    check(bool(rk.ok) and bool(rc.ok), "recover_pose_2d2d not ok")
+    check(same_mask and int(rk.num_inliers) == int(rc.num_inliers),
+          "two-view inlier masks / counts differ between card and CPU")
+    check(r_err <= 1e-4 and t_err <= 1e-4,
+          f"two-view R / t differ from the CPU run: {r_err}, {t_err}")
+    check(ang_gt < 1.0, f"two-view rotation {ang_gt} deg from the truth")
+    check(dlt_rel <= 1e-3, f"dlt points {dlt_rel} relative off the CPU run")
+    return counts, dict(two_view_inliers=int(rc.num_inliers),
+                        two_view_rotation_err_deg=ang_gt,
+                        two_view_recover_pose_ms=call_ms)
+
+
+def loop_segment(sys_):
+    """The run's first accepted loop as a ref_backend segment: (twists
+    frame k -> k+1 between the loop's frames, padded to a multiple of
+    REF_PAD, valid mask, the loop edge's measurement from the earlier
+    frame to the later, (first, last) frame)."""
+    i, j, Z, _ = sys_.loop_edges[0]
+    Z = np.asarray(Z, np.float32)
+    if i > j:
+        i, j, Z = j, i, np.linalg.inv(Z).astype(np.float32)
+    rel = sys_.state.rel.cpu()
+    n = j - i
+    s = -(-n // REF_PAD) * REF_PAD
+    twists = torch.zeros((s, 6))
+    twists[:n] = -rel[i + 1:j + 1]       # rel[f] = log(T_f_{f-1})
+    valid = torch.arange(s) < n
+    return twists, valid, torch.as_tensor(Z), (i, j)
+
+
+def phase_ref_backend(sys_, dev):
+    """optimize_segment on the first closed loop of the run, on the card
+    and on the CPU."""
+    twists, valid, Z, (i, j) = loop_segment(sys_)
+
+    def gap(tw, v):
+        end = ref_backend.recompose(torch.eye(4, device=tw.device), tw, v)[-1]
+        return float((end[:3, 3] - Z.to(tw.device)[:3, 3]).norm())
+
+    before = gap(twists, valid)
+    args = (twists.to(dev), valid.to(dev), Z.to(dev))
+    ref_backend.optimize_segment(*args, iters=1)                  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xk, ck = ref_backend.optimize_segment(*args, iters=REF_ITERS)
+    torch.cuda.synchronize()
+    ms_iter = 1e3 * (time.perf_counter() - t0) / REF_ITERS
+    after = gap(xk, valid.to(dev))
+    t0 = time.perf_counter()
+    xc, cc = ref_backend.optimize_segment(twists, valid, Z, iters=REF_ITERS)
+    cpu_s = time.perf_counter() - t0
+    diff = float((xk.cpu() - xc).abs().max())
+    say("ref-backend", loop_frames=(i, j), segment=int(valid.sum()),
+        padded_to=valid.shape[0], lm_iters=REF_ITERS,
+        endpoint_gap_before_m=before, endpoint_gap_after_m=after,
+        cost_card=float(ck), cost_cpu=float(cc), ms_per_lm_iteration=ms_iter,
+        twists_max_abs_diff_to_cpu=diff, cpu_seconds=f"{cpu_s:.3f}")
+    check(bool(torch.isfinite(xk).all()), "ref_backend twists not finite")
+    check(after * 10.0 <= before,
+          f"endpoint gap {before} -> {after} m: not 10x smaller")
+    check(diff <= 1e-3, f"ref_backend twists {diff} off the CPU run")
+    return dict(ref_backend_ms_per_lm_iteration=ms_iter,
+                ref_backend_gap_before_after_m=[before, after],
+                ref_backend_segment=int(valid.sum()),
+                ref_backend_twists_diff_to_cpu=diff)
+
+
+def global_problem(sys_):
+    """The CLI's global problem of the finished state (no pose priors):
+    (problem, keyframe count, bucket, observation bucket, real
+    observations)."""
+    st = sys_.state
+    n_kf = int(st.kf.n)
+    bucket = min(next((b for b in (128, 512, 2048, 8192) if b >= n_kf),
+                      n_kf), st.kf.xyz.shape[0])
+    n_obs_real = int(torch.sum(st.map.obs_count[:bucket]))
+    obs_bucket = 1 << max(int(np.ceil(np.log2(max(n_obs_real, 1)))), 10)
+    prob, _ = pipeline.build_global_problem(st, bucket, obs_bucket)
+    return prob, n_kf, bucket, obs_bucket, n_obs_real
+
+
+def run_pose_graph(sys_):
+    """The run's pose graph at its odometry-only trajectory, as
+    _run_pgo sizes it (2048 rows, loop edges at MAX_LOOP_EDGES
+    capacity): dict of the sharded solver's CPU arrays and n_live."""
+    st = sys_.state
+    n = sys_.frame_count + 1
+    f = next(b for b in pipeline.PGO_BUCKETS if b >= n)
+    poses = torch.eye(4).repeat(f, 1, 1)
+    poses[:n] = torch.as_tensor(odometry_poses(sys_), dtype=torch.float32)
+    z = torch.eye(4).repeat(f, 1, 1)
+    z[:f - 1] = se3.exp_se3(-st.rel[1:f].cpu())
+    w = torch.zeros(f)
+    w[:f - 1] = st.rel_mask[1:f].cpu().float()
+    cap = pipeline.MAX_LOOP_EDGES
+    le_i, le_j = torch.zeros(cap, dtype=torch.long), torch.zeros(
+        cap, dtype=torch.long)
+    le_z, le_w = torch.eye(4).repeat(cap, 1, 1), torch.zeros(cap)
+    for k, (i, j, Z, wt) in enumerate(sys_.loop_edges[:cap]):
+        le_i[k], le_j[k], le_z[k], le_w[k] = i, j, torch.as_tensor(Z), wt
+    return dict(poses=poses, z=z, w=w, le_i=le_i, le_j=le_j, le_z=le_z,
+                le_w=le_w, n_live=n)
+
+
+def pgo_graph(g):
+    """posegraph.PoseGraph of the same edges (odometry + loop)."""
+    f = g["poses"].shape[0]
+    ei = torch.arange(f - 1)
+    return posegraph.PoseGraph(
+        poses=g["poses"], ei=torch.cat([ei, g["le_i"]]),
+        ej=torch.cat([ei + 1, g["le_j"]]),
+        z=torch.cat([g["z"][:f - 1], g["le_z"]]),
+        w=torch.cat([g["w"][:f - 1], g["le_w"]]))
+
+
+def _dist_rank(rank, world, in_path, init_file, out_path):
+    """One spawned rank of the dist phase: the sharded BA and pose graph
+    of the parent's problem on the card, over gloo (ranks share it)."""
+    from slam1_tpu_torch.parallel import dist_ba, dist_pgo
+    from slam1_tpu_torch.parallel import mesh as mesh_mod
+    data = torch.load(in_path, weights_only=False)
+    mesh_mod.init_multihost(f"file://{init_file}", world, rank, device="cuda",
+                            timeout_s=DIST_TIMEOUT_S)
+    try:
+        mesh = mesh_mod.make_mesh(lm_axis=world, device="cuda")
+        dev = mesh.device
+        cfg = data["cfg"]
+        prob = ba.BAProblem(*[x.to(dev) for x in data["prob"]])
+        cam = StereoCamera(*[x.to(dev) for x in data["cam"]])
+        sharded, _, dropped = dist_ba.partition_problem_device(
+            prob, world, data["obs_bucket"])
+        g = data["graph"]
+        pargs = [g[k] for k in ("poses", "z", "w", "le_i", "le_j", "le_z",
+                                "le_w")]
+        # One-off costs (the first collectives, first-call set-up) out of
+        # the timed runs.
+        dist_ba.distributed_bundle_adjust(
+            sharded, cam, dataclasses.replace(cfg.ba, lm_iters=1), mesh)
+        dist_pgo.optimize_sharded(*pargs, mesh=mesh, iters=1, cg_iters=1,
+                                  n_live=g["n_live"])
+        mesh.comm.update({k: 0 for k in mesh.comm})
+        cuda_kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, cost, trace = dist_ba.distributed_bundle_adjust(
+            sharded, cam, cfg.ba, mesh, return_trace=True)
+        torch.cuda.synchronize()
+        ba_s = time.perf_counter() - t0
+        ba_comm = dict(mesh.comm)
+        mesh.comm.update({k: 0 for k in mesh.comm})
+        t0 = time.perf_counter()
+        poses, pcost = dist_pgo.optimize_sharded(
+            *pargs, mesh=mesh, iters=data["pg_iters"],
+            cg_iters=cfg.ba.cg_iters, n_live=g["n_live"])
+        torch.cuda.synchronize()
+        pgo_s = time.perf_counter() - t0
+        torch.save(dict(
+            poses=out.poses.cpu(), cost=float(cost), trace=trace.cpu(),
+            dropped=int(dropped), ba_s=ba_s, ba_comm=ba_comm,
+            pgo_poses=poses.cpu(), pgo_cost=float(pcost), pgo_s=pgo_s,
+            pgo_comm=dict(mesh.comm), backend=mesh.backend,
+            device=str(dev), launches=cuda_kernels.launch_counts()),
+            f"{out_path}.{rank}")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def spawn_dist_ranks(world, data, tmp):
+    """`world` ranks of _dist_rank on the one card, joined under
+    DIST_TIMEOUT_S; their results by rank. A failed or late rank fails
+    the phase."""
+    import torch.multiprocessing as mp
+    in_path = os.path.join(tmp, "dist_inputs.pt")
+    torch.save(data, in_path)
+    init_file = os.path.join(tmp, "dist_rendezvous")
+    out_path = os.path.join(tmp, "dist_rank")
+    ctx = mp.start_processes(_dist_rank, args=(world, in_path, init_file,
+                                               out_path),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + DIST_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
+            check(time.monotonic() <= deadline,
+                  f"dist ranks did not finish in {DIST_TIMEOUT_S} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+    return [torch.load(f"{out_path}.{r}", weights_only=False)
+            for r in range(world)]
+
+
+def phase_dist(cfg, sys_, world, tmp):
+    """The distributed layer on the finished 600-frame state: the
+    partitioners, the sharded BA at one rank over NCCL (this process)
+    against the single-device BA, at two ranks sharing the card over
+    gloo (spawned) against one rank, and the sharded pose graph at one
+    and two ranks against posegraph.optimize."""
+    from slam1_tpu_torch.parallel import dist_ba, dist_pgo
+    from slam1_tpu_torch.parallel import mesh as mesh_mod
+    gt = world.poses.cpu().numpy()
+    prob, n_kf, bucket, obs_bucket, n_obs = global_problem(sys_)
+    cam = sys_.cam
+
+    # (a) the partitioners at 1 and 2 shards
+    for shards in (1, 2):
+        host, horig = dist_ba.partition_problem(prob, shards)
+        devp, dorig, dropped = dist_ba.partition_problem_device(
+            prob, shards, obs_per_shard=obs_bucket)
+        same = bool(torch.equal(host.points, devp.points)
+                    and torch.equal(horig, dorig))
+        for s in range(shards):
+            k = int((host.w[s] > 0).sum())
+            same &= k == int((devp.w[s] > 0).sum()) and all(
+                torch.equal(getattr(host, name)[s, :k].to(
+                    getattr(devp, name).dtype), getattr(devp, name)[s, :k])
+                for name in ("cam_idx", "lm_idx", "uv", "w", "ur", "wr"))
+        say("dist-partition", shards=shards, observations=n_obs,
+            obs_per_shard=obs_bucket, device_equals_host=same,
+            dropped=int(dropped))
+        check(same and int(dropped) == 0,
+              f"partition_problem_device at {shards} shards: equal {same}, "
+              f"dropped {int(dropped)}")
+
+    # (b) one rank over NCCL, in this process, against bundle_adjust
+    backend = mesh_mod.init_multihost(device="cuda")
+    mesh = mesh_mod.make_mesh(lm_axis=1, device="cuda")
+    sharded, _, _ = dist_ba.partition_problem_device(prob, 1, obs_bucket)
+    iters = cfg.ba.lm_iters
+    g = run_pose_graph(sys_)
+    gd = {k: (v.to(mesh.device) if torch.is_tensor(v) else v)
+          for k, v in g.items()}
+    pargs = [gd[k] for k in ("poses", "z", "w", "le_i", "le_j", "le_z",
+                             "le_w")]
+    # One-off costs (the first collectives, first-call set-up) out of the
+    # timed runs.
+    dist_ba.distributed_bundle_adjust(
+        sharded, cam, dataclasses.replace(cfg.ba, lm_iters=1), mesh)
+    dist_pgo.optimize_sharded(*pargs, mesh=mesh, iters=1, cg_iters=1,
+                              n_live=g["n_live"])
+    mesh.comm.update({k: 0 for k in mesh.comm})
+    cuda_kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out1, cost1, trace1 = dist_ba.distributed_bundle_adjust(
+        sharded, cam, cfg.ba, mesh, return_trace=True)
+    torch.cuda.synchronize()
+    d_ms = 1e3 * (time.perf_counter() - t0) / iters
+    ba_comm = dict(mesh.comm)
+    t0 = time.perf_counter()
+    outs, costs, traces = ba.bundle_adjust(prob, cam, cfg.ba,
+                                           return_trace=True)
+    torch.cuda.synchronize()
+    s_ms = 1e3 * (time.perf_counter() - t0) / iters
+    rows = torch.arange(bucket, device=prob.poses.device) < n_kf
+    frames = sys_.state.kf.frame_of_row[:bucket][rows].long().cpu().numpy()
+
+    def kf_ate(poses):
+        return ate_rmse(poses[rows].cpu().numpy(), gt[frames], align=False)
+
+    ate0, ate1, ate_s = kf_ate(prob.poses), kf_ate(out1.poses), kf_ate(
+        outs.poses)
+    t1, ts = trace1.cpu().numpy(), traces.cost.cpu().numpy()
+    trace_rel = float(np.max(np.abs(t1 - ts) / np.maximum(np.abs(ts), 1.0)))
+    cg_steps = iters * (cfg.ba.cg_iters + 1)
+    say("dist-ba-1", backend=backend, keyframes=n_kf, camera_rows=bucket,
+        observations=n_obs, lm_iters=iters, cost=float(cost1),
+        cost_single=float(costs), trace=t1.tolist(), trace_single=ts.tolist(),
+        trace_max_rel_diff=trace_rel, kf_ate_before_m=ate0,
+        kf_ate_after_m=ate1, kf_ate_single_m=ate_s,
+        ms_per_lm_iteration=d_ms, ms_per_lm_iteration_single=s_ms,
+        all_reduce_calls=ba_comm["all_reduce_calls"],
+        all_reduce_bytes_per_cg_step=6 * 8 * bucket,
+        all_reduce_bytes_total=ba_comm["all_reduce_bytes"],
+        cg_steps=cg_steps, launches=cuda_kernels.launch_counts())
+    check(math.isfinite(float(cost1)) and trace_rel <= DIST_TRACE_TOL,
+          f"distributed BA trace {trace_rel} relative off bundle_adjust")
+    check(ate1 <= 1.05 * ate0, f"distributed BA keyframe ATE {ate0} -> "
+          f"{ate1}")
+
+    # (d) the pose graph at one rank, against posegraph.optimize, at the
+    # live relaxation's Gauss-Newton count
+    pg_it, pg_cg = max(cfg.ba.pg_iters // 5, 3), cfg.ba.cg_iters
+    mesh.comm.update({k: 0 for k in mesh.comm})
+    cuda_kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p1, pc1 = dist_pgo.optimize_sharded(*pargs, mesh=mesh, iters=pg_it,
+                                        cg_iters=pg_cg, n_live=g["n_live"])
+    torch.cuda.synchronize()
+    p_ms = 1e3 * (time.perf_counter() - t0) / pg_it
+    counts1 = cuda_kernels.launch_counts()
+    pgo_comm = dict(mesh.comm)
+    graph = posegraph.PoseGraph(*[x.to(mesh.device) for x in pgo_graph(g)])
+    ps, pcs = posegraph.optimize(graph, iters=pg_it, cg_iters=pg_cg,
+                                 n_live=g["n_live"])
+    torch.distributed.destroy_process_group()
+    n = g["n_live"]
+    ate_odo = ate_rmse(g["poses"][:n].numpy(), gt[:n], align=False)
+    ate_p1 = ate_rmse(p1[:n].cpu().numpy(), gt[:n], align=False)
+    ate_ps = ate_rmse(ps[:n].cpu().numpy(), gt[:n], align=False)
+    want = {"chain_prepare": pg_it, "chain_sweep": pg_it * (pg_cg + 1)}
+    pgo_rel = abs(float(pc1) - float(pcs)) / float(pcs)
+    cg_total = pg_it * pg_cg
+    say("dist-pgo-1", poses=g["poses"].shape[0], live=n,
+        loop_edges=len(sys_.loop_edges), gn_iters=pg_it, cg_iters=pg_cg,
+        cost=float(pc1), cost_single=float(pcs), cost_rel_diff=pgo_rel,
+        ate_odometry_m=ate_odo, ate_m=ate_p1, ate_single_m=ate_ps,
+        ms_per_gn_iteration=p_ms, launches=counts1, expected=want,
+        all_reduce_bytes_per_cg_step=pgo_comm["all_reduce_bytes"] / cg_total,
+        p2p_calls=pgo_comm["p2p_calls"])
+    check({k: counts1[k] for k in want} == want,
+          f"sharded PGO launches {counts1} != {want}")
+    check(pgo_rel <= DIST_PGO_COST_TOL and ate_p1 <= ate_odo,
+          f"sharded PGO cost {float(pc1)} vs {float(pcs)}, ATE {ate_p1} vs "
+          f"odometry {ate_odo}")
+
+    # (c) and (d) at two ranks sharing the card over gloo
+    data = dict(prob=tuple(x.cpu() for x in prob),
+                cam=tuple(x.cpu() for x in cam), cfg=cfg,
+                obs_bucket=obs_bucket, graph=g, pg_iters=pg_it)
+    t0 = time.perf_counter()
+    res = spawn_dist_ranks(2, data, tmp)
+    spawn_s = time.perf_counter() - t0
+    r0 = res[0]
+    cost_rel = abs(r0["cost"] - float(cost1)) / max(abs(float(cost1)), 1.0)
+    pose_diff = float((r0["poses"][rows.cpu()] - out1.poses.cpu()[
+        rows.cpu()])[:, :3, 3].abs().max())
+    pgo2_rel = abs(r0["pgo_cost"] - float(pcs)) / float(pcs)
+    ate_p2 = ate_rmse(r0["pgo_poses"][:n].numpy(), gt[:n], align=False)
+    for r, rr in enumerate(res):
+        say("dist-rank", rank=r, backend=rr["backend"], device=rr["device"],
+            ba_seconds=f"{rr['ba_s']:.3f}", pgo_seconds=f"{rr['pgo_s']:.3f}",
+            dropped=rr["dropped"], launches=rr["launches"],
+            ba_comm=rr["ba_comm"], pgo_comm=rr["pgo_comm"])
+        check(rr["backend"] == "gloo" and rr["dropped"] == 0,
+              f"rank {r}: backend {rr['backend']}, dropped {rr['dropped']}")
+        check({k: rr["launches"][k] for k in want} == want,
+              f"rank {r}: chain launches {rr['launches']} != {want}")
+        check(torch.equal(rr["poses"], r0["poses"]),
+              f"rank {r} ended with other BA poses than rank 0")
+    say("dist-2", seconds=f"{spawn_s:.3f}", ba_cost=r0["cost"],
+        ba_cost_1_rank=float(cost1), ba_cost_rel_diff=cost_rel,
+        ba_max_position_diff_m=pose_diff,
+        ba_ms_per_lm_iteration=1e3 * r0["ba_s"] / iters,
+        pgo_cost=r0["pgo_cost"], pgo_cost_rel_diff_to_single=pgo2_rel,
+        pgo_ate_m=ate_p2, pgo_ms_per_gn_iteration=1e3 * r0["pgo_s"] / pg_it,
+        pgo_all_reduce_bytes_per_cg_step=r0["pgo_comm"]["all_reduce_bytes"]
+        / cg_total, pgo_p2p_bytes_per_cg_step=r0["pgo_comm"]["p2p_bytes"]
+        / cg_total)
+    check(cost_rel <= 1e-3 and pose_diff <= 1e-3,
+          f"2-rank BA off the 1-rank BA: cost {cost_rel}, poses {pose_diff} m")
+    check(pgo2_rel <= DIST_PGO_COST_TOL and ate_p2 <= ate_odo,
+          f"2-rank PGO cost {r0['pgo_cost']} vs {float(pcs)}, ATE {ate_p2}")
+    by_path = {"dist_1_rank": counts1}
+    by_path.update({f"dist_rank{r}": rr["launches"] for r, rr in
+                    enumerate(res)})
+    return by_path, dict(
+        dist_ba_ms_per_lm_iteration=d_ms, dist_ba_trace_max_rel_diff=trace_rel,
+        dist_ba_2_rank_cost_rel_diff=cost_rel,
+        dist_ba_all_reduce_bytes_per_cg_step=6 * 8 * bucket,
+        dist_pgo_ms_per_gn_iteration=p_ms,
+        dist_pgo_2_rank_ms_per_gn_iteration=1e3 * r0["pgo_s"] / pg_it,
+        dist_pgo_cost_rel_diff=pgo_rel, dist_pgo_ate_m=ate_p1)
+
+
 def selected_phases(arg):
     """The phases --phases names (all when it names none), with what
     each of them needs."""
@@ -1496,6 +2129,19 @@ def main(argv=None):
     if "slice" in phases:
         by_path["vo"], ate, ok_share = phase_slice(cfg, world, lefts, rights,
                                                    dev)
+    phase_s = {}
+    if "pyramid" in phases:
+        t0 = time.perf_counter()
+        by_path["pyramid"], pyr_err, pyr = phase_pyramid(lefts, rights, world,
+                                                          dev)
+        phase_s["pyramid"] = time.perf_counter() - t0
+        errs["fast_score"] = max(errs.get("fast_score", 0.0), pyr_err)
+        numbers.update(pyr)
+    if "two-view" in phases:
+        t0 = time.perf_counter()
+        by_path["two_view"], two_view = phase_two_view(lefts, world, dev)
+        numbers.update(two_view)
+        phase_s["two-view"] = time.perf_counter() - t0
     if "flow" in phases:
         by_path["flow"], flow = phase_flow(cfg, world, lefts, rights, dev, ate,
                                            late)
@@ -1520,6 +2166,17 @@ def main(argv=None):
                                                 srights, ckpt, post_ba))
     if "global-ba" in phases:
         numbers.update(phase_global_ba(bcfg, sys_, sworld))
+    if "ref-backend" in phases:
+        t0 = time.perf_counter()
+        numbers.update(phase_ref_backend(sys_, dev))
+        phase_s["ref-backend"] = time.perf_counter() - t0
+    if "dist" in phases:
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            dist_paths, dist_numbers = phase_dist(bcfg, sys_, sworld, tmp)
+        by_path.update(dist_paths)
+        numbers.update(dist_numbers)
+        phase_s["dist"] = time.perf_counter() - t0
     if "async" in phases:
         numbers.update(phase_async(sworld, slefts, srights))
     if "cpu-vs-gpu" in phases:
@@ -1565,6 +2222,7 @@ def main(argv=None):
                       "pnp_ok_share": ok_share, **numbers,
                       "syncs_per_step": {"vo_step": vo_syncs,
                                          "slam_step": slam_syncs},
+                      "phase_seconds": phase_s,
                       "seconds": time.perf_counter() - t_start}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,15 +1,22 @@
 """Command-line interface of the PyTorch/CUDA port: `slam-torch
 run|ba|eval` (counterpart of `slam1_tpu/cli.py`).
 
-  run    — VO or full SLAM over a KITTI sequence dir or --synthetic
-  ba     — offline pose-graph / global bundle-adjustment pass
+  run    — VO or full SLAM over a KITTI sequence dir or --synthetic;
+           `--multihost [--coordinator H:P --num-processes N
+           --process-id R]` brings up the torch.distributed process
+           group first (torchrun's environment when no coordinator is
+           given) and prints this process's rank and device
+  ba     — offline pose-graph / global bundle-adjustment pass;
+           `--state ckpt --distributed [--lm-shards S]` runs the
+           landmark-sharded BA of `parallel/dist_ba.py` over the ranks
+           of the process group: N ranks under torchrun, or a world of
+           one when run plainly; S must divide N
   eval   — ATE/RPE of an estimated trajectory vs ground truth
 
 Every command that computes runs on `--device` (default `cuda`, which
 raises where there is no card: a run meant for the card never carries on
-silently on the CPU). The distributed options are parsed and raise
-NotImplementedError: the distributed layer is not ported yet. There is
-no `bench` command until the port has a bench.
+silently on the CPU). There is no `bench` command until the port has a
+benchmark.
 """
 
 from __future__ import annotations
@@ -19,21 +26,6 @@ import json
 import sys
 
 import numpy as np
-
-DISTRIBUTED = ("the distributed layer (parallel/: multi-host meshes, "
-               "sharded BA) is not ported to slam1_tpu_torch yet")
-
-
-def _refuse_distributed(args):
-    flags = {"--multihost": getattr(args, "multihost", False),
-             "--coordinator": getattr(args, "coordinator", None),
-             "--num-processes": getattr(args, "num_processes", None),
-             "--process-id": getattr(args, "process_id", None),
-             "--distributed": getattr(args, "distributed", False),
-             "--lm-shards": getattr(args, "lm_shards", 0)}
-    given = [k for k, v in flags.items() if v not in (None, False, 0)]
-    if given:
-        raise NotImplementedError(f"{', '.join(given)}: {DISTRIBUTED}")
 
 
 def _config(args):
@@ -60,8 +52,19 @@ def _cmd_run(args):
     from slam1_tpu_torch.utils import evalmetrics
     from slam1_tpu_torch.utils.metrics import MetricsLogger, StageTimers
 
-    _refuse_distributed(args)
     dev = runtime.device(args.device)
+    own_group = False
+    if args.multihost:
+        import torch.distributed as dist
+
+        from slam1_tpu_torch.parallel import mesh as mesh_mod
+        own_group = not dist.is_initialized()
+        mesh_mod.init_multihost(args.coordinator, args.num_processes,
+                                args.process_id, device=args.device)
+        rank, world = dist.get_rank(), dist.get_world_size()
+        dev = mesh_mod.rank_device(args.device, rank)
+        print(f"multihost: process {rank}/{world}, device {dev}",
+              file=sys.stderr, flush=True)
     cfg = _config(args)
     if args.checkpoint_every:
         cfg = cfg.replace(runtime=dataclasses.replace(
@@ -153,6 +156,8 @@ def _cmd_run(args):
         if decoder is not None:
             result["decoder"] = decoder
         print(json.dumps(result, default=float))
+    if own_group:
+        dist.destroy_process_group()
     return 0
 
 
@@ -175,18 +180,28 @@ def _cmd_ba(args):
       - trajectory .npy: pose-graph relaxation over odometry edges;
       - --state checkpoint.npz: global bundle adjustment over all
         keyframes and landmarks, the checkpoint's odometry chain and
-        loop closures as pose priors."""
+        loop closures as pose priors; with --distributed the
+        landmark-sharded BA (no priors) over the process group's ranks,
+        rank 0 writing the result."""
     import torch
 
     from slam1_tpu_torch import runtime
 
-    _refuse_distributed(args)
     dev = runtime.device(args.device)
     if args.state:
         import dataclasses
 
         from slam1_tpu_torch.models import pipeline
         from slam1_tpu_torch.ops.camera import StereoCamera
+        mesh = own_group = None
+        if args.distributed:
+            import torch.distributed as dist
+
+            from slam1_tpu_torch.parallel import mesh as mesh_mod
+            own_group = not dist.is_initialized()
+            mesh = mesh_mod.make_mesh(lm_axis=args.lm_shards or None,
+                                      device=args.device)
+            dev = mesh.device
         cfg = _config(args)
         if args.iters is not None:   # --iters sets the LM iterations
             cfg = dataclasses.replace(
@@ -205,13 +220,23 @@ def _cmd_ba(args):
         # padding; see pipeline.build_global_problem).
         n_obs_real = int(torch.sum(st.map.obs_count[:bucket]))
         obs_bucket = 1 << max(int(np.ceil(np.log2(max(n_obs_real, 1)))), 10)
-        loop_rows = sys_.loop_edge_rows() if sys_.loop_edges else None
-        sys_.state, cost = pipeline.global_ba_step(
-            st, sys_.cam, cfg, n_kf=bucket, obs_bucket=obs_bucket,
-            loop_rows=loop_rows)
-        np.save(args.out, sys_.poses())
-        _launch_line(dev)
-        print(json.dumps({"keyframes": n_kf, "final_cost": float(cost)}))
+        extra = {}
+        if mesh is not None:
+            sys_.state, cost, dropped = _distributed_ba(
+                st, sys_.cam, cfg, mesh, n_kf, bucket, obs_bucket)
+            extra = {"mesh": dict(mesh.shape), "dropped_obs": dropped}
+        else:
+            loop_rows = sys_.loop_edge_rows() if sys_.loop_edges else None
+            sys_.state, cost = pipeline.global_ba_step(
+                st, sys_.cam, cfg, n_kf=bucket, obs_bucket=obs_bucket,
+                loop_rows=loop_rows)
+        if mesh is None or mesh.rank == 0:
+            np.save(args.out, sys_.poses())
+            _launch_line(dev)
+            print(json.dumps({"keyframes": n_kf, "final_cost": float(cost),
+                              **extra}))
+        if own_group:
+            dist.destroy_process_group()
         return 0
 
     from slam1_tpu_torch.models import posegraph
@@ -232,6 +257,44 @@ def _cmd_ba(args):
     return 0
 
 
+def _distributed_ba(st, cam, cfg, mesh, n_kf: int, bucket: int,
+                    obs_bucket: int):
+    """The landmark-sharded BA of the checkpoint's global problem (no
+    pose priors) over the mesh's "lm" ranks, written back into the
+    state: (state, final cost, observations the partitioner dropped)."""
+    import torch
+
+    from slam1_tpu_torch.models import pipeline
+    from slam1_tpu_torch.parallel.dist_ba import (
+        distributed_bundle_adjust, partition_problem_device)
+    prob, frames = pipeline.build_global_problem(st, bucket, obs_bucket)
+    # Every shard may hold the whole observation bucket: landmark
+    # blocks are insertion-ordered and spatially clustered, so per-shard
+    # counts can be far from uniform.
+    sharded, orig, n_dropped = partition_problem_device(
+        prob, mesh.shape["lm"], obs_per_shard=obs_bucket)
+    out, cost = distributed_bundle_adjust(sharded, cam, cfg.ba, mesh)
+    dropped = int(n_dropped)
+    if dropped:
+        print(f"warning: {dropped} observations dropped by the "
+              f"partitioner (raise obs_per_shard)", file=sys.stderr)
+    # Row validity: padding keyframe rows' frames are clipped to 0 and
+    # must not write traj[0]; partitioner pad rows (orig >= the map's
+    # capacity) must not write the last landmark.
+    rows = torch.arange(bucket, device=frames.device)
+    ok = (rows < n_kf) & (st.kf.frame_of_row[:bucket] >= 0)
+    traj = st.traj.clone()
+    traj[frames[ok]] = out.poses[ok]
+    kf_poses = st.kf.poses.clone()
+    kf_poses[rows[ok]] = out.poses[ok]
+    lm_rows = orig.reshape(-1).long()
+    keep = lm_rows < st.map.xyz.shape[0]
+    xyz = st.map.xyz.clone()
+    xyz[lm_rows[keep]] = out.points.reshape(-1, 3)[keep]
+    return (st._replace(traj=traj, map=st.map._replace(xyz=xyz),
+                        kf=st.kf._replace(poses=kf_poses)), cost, dropped)
+
+
 def _device_arg(p):
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default: cuda; raises "
@@ -242,7 +305,7 @@ def main(argv=None):
     p = argparse.ArgumentParser(
         prog="slam-torch",
         description="stereo SLAM, PyTorch/CUDA port (no `bench` command "
-                    "yet: the port has no bench)")
+                    "yet: it waits for the port's benchmark)")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     pr = sub.add_parser("run", help="run VO / full SLAM")
@@ -268,13 +331,18 @@ def main(argv=None):
     pr.add_argument("--checkpoint-dir", default="checkpoints")
     _device_arg(pr)
     pr.add_argument("--multihost", action="store_true",
-                    help="not ported: raises NotImplementedError")
+                    help="bring up the torch.distributed process group "
+                         "before running (torchrun's environment, or "
+                         "--coordinator with --num-processes and "
+                         "--process-id)")
     pr.add_argument("--coordinator", default=None,
-                    help="not ported: raises NotImplementedError")
+                    help="rendezvous address host:port (or a tcp:// or "
+                         "file:// URL) for --multihost")
     pr.add_argument("--num-processes", type=int, default=None,
-                    help="not ported: raises NotImplementedError")
+                    help="world size for --multihost --coordinator")
     pr.add_argument("--process-id", type=int, default=None,
-                    help="not ported: raises NotImplementedError")
+                    help="this process's rank for --multihost "
+                         "--coordinator")
     pr.set_defaults(fn=_cmd_run)
 
     pe = sub.add_parser("eval", help="ATE/RPE of est vs gt")
@@ -296,9 +364,13 @@ def main(argv=None):
                          "(--state mode); defaults: 10 / cfg.ba.lm_iters")
     _device_arg(pb)
     pb.add_argument("--distributed", action="store_true",
-                    help="not ported: raises NotImplementedError")
+                    help="landmark-sharded Schur BA over the ranks of "
+                         "the process group (--state mode; launch N ranks "
+                         "with torchrun, or run plainly for one)")
     pb.add_argument("--lm-shards", type=int, default=0,
-                    help="not ported: raises NotImplementedError")
+                    help="landmark shards for --distributed; must divide "
+                         "the world size (default: 4, 2 or 1, the "
+                         "largest that divides it)")
     pb.set_defaults(fn=_cmd_ba)
 
     args = p.parse_args(argv)

@@ -4,7 +4,9 @@ oriented rBRIEF descriptors, with fixed output capacity (counterpart of
 
 Every function takes a batch of images (B,H,W) — the stereo frontend
 detects left and right in one pass — and returns `Features` with a
-leading batch dimension. The score maps come from
+leading batch dimension. Pyramids with a scale factor other than 2
+resize the full image per level with the reference's antialiased linear
+filter (`resize_linear`). The score maps come from
 `dispatch.fast_score` / `dispatch.fast_score_levels` (the CUDA kernel
 for CUDA tensors; `detect_pyramid` scores all its levels in one launch).
 Patch
@@ -18,6 +20,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 
+import numpy as np
 import torch
 
 from slam1_tpu_torch.config import DetectorConfig
@@ -152,24 +155,78 @@ def _downsample2(img, pairwise: bool = False):
     return block_mean2(img, pairwise)
 
 
+@functools.lru_cache(maxsize=64)
+def _resize_weights(n_in: int, n_out: int, device):
+    """(n_in, n_out) float32 weights of a linear resize with a triangle
+    antialiasing filter, as `jax.image.resize(..., "linear",
+    antialias=True)` builds them (`scale_and_translate`), rounded as
+    XLA:CPU's compiled program rounds them at the test canvas's shapes:
+    the division by the kernel's width is a product with its reciprocal,
+    the weights' sample position one fused multiply-add (computed here
+    in float64 and rounded once) and the normalising column sums, in row
+    order, take it unfused. Made once per shape and device."""
+    f32 = np.float32
+    inv = f32(1.0 / (n_out / n_in))          # the scale is a host float
+    ks = max(inv, f32(1.0))                  # widened kernel (downsampling)
+    a = np.arange(n_out, dtype=f32) + f32(0.5)
+
+    def triangle(sample):
+        x = np.abs(sample[None, :] - np.arange(n_in, dtype=f32)[:, None])
+        return np.maximum(f32(0.0), f32(1.0) - x * (f32(1.0) / ks))
+
+    sample = (a.astype(np.float64) * np.float64(inv) - 0.5).astype(f32)
+    wts = triangle(sample)
+    tot = np.zeros(n_out, f32)
+    for row in triangle(a * inv - f32(0.5)):
+        tot += row
+    wts = np.where(np.abs(tot) > 1000.0 * np.finfo(f32).eps,
+                   wts / np.where(tot != 0, tot, f32(1.0)), f32(0.0))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    wts = np.where(inside[None, :], wts, f32(0.0)).astype(f32)
+    return torch.as_tensor(wts, device=device)
+
+
+def resize_linear(img, nh: int, nw: int):
+    """(B,H,W) -> (B,nh,nw): the reference's `jax.image.resize(img, (nh,
+    nw), "linear", antialias=True)` as two products with the separable
+    weight matrices, rows first (float32 throughout: the runtime keeps
+    TF32 off)."""
+    _, h, w = img.shape
+    wh = _resize_weights(h, nh, img.device)
+    ww = _resize_weights(w, nw, img.device)
+    return (wh.T @ img) @ ww
+
+
+def pyramid_levels(img, cfg: DetectorConfig):
+    """The images `detect_pyramid` detects on, level 0 first: for a
+    scale factor of 2 each level is the 2x2 mean of the one before; for
+    any other factor s level l is the full image resized to
+    (max(16, round(H / s^l)), max(16, round(W / s^l)))."""
+    _, h, w = img.shape
+    levels = [img]
+    pow2 = abs(cfg.scale_factor - 2.0) < 1e-9
+    for lvl in range(1, cfg.num_levels):
+        if pow2:
+            levels.append(_downsample2(levels[-1], pairwise=lvl > 1))
+        else:
+            s = cfg.scale_factor ** lvl
+            levels.append(resize_linear(img, max(16, round(h / s)),
+                                        max(16, round(w / s))))
+    return levels
+
+
 def detect_pyramid(img, cfg: DetectorConfig, valid_h=None,
                    valid_w=None) -> Features:
     """Multi-scale detect + describe on a (B,H,W) batch: level l is the
-    image average-pooled by 2**l, detected with a grid shrunk by the
-    same factor and described on the downsampled image; coordinates map
-    back to full resolution (x_full = s*x + (s-1)/2). Multi-level output
-    is padded to a multiple of 128 slots with masked entries, as in the
-    reference, so slot indices agree."""
+    image downsampled by s**l (`pyramid_levels`), detected with a grid
+    shrunk by the same factor and described on the downsampled image;
+    coordinates map back to full resolution (x_full = s*x + (s-1)/2).
+    Multi-level output is padded to a multiple of 128 slots with masked
+    entries, as in the reference, so slot indices agree."""
     _, h, w = img.shape
     valid_h = h if valid_h is None else valid_h
     valid_w = w if valid_w is None else valid_w
-    if abs(cfg.scale_factor - 2.0) >= 1e-9 and cfg.num_levels > 1:
-        raise NotImplementedError(
-            "only scale_factor=2 pyramids are ported (the reference's "
-            "jax.image.resize branch is not)")
-    levels = [img]
-    for lvl in range(1, cfg.num_levels):
-        levels.append(_downsample2(levels[-1], pairwise=lvl > 1))
+    levels = pyramid_levels(img, cfg)
     raws = dispatch.fast_score_levels(levels, cfg.fast_threshold,
                                       cfg.fast_arc)
     feats = []

@@ -1,4 +1,12 @@
-"""Small closed-form solvers (counterpart of `slam1_tpu/ops/lsq.py:92-151`).
+"""Nonlinear least squares and small closed-form solvers (counterpart
+of `slam1_tpu/ops/lsq.py`).
+
+`gauss_newton` and `levenberg_marquardt` minimise ||w * r(x)||^2 for a
+caller's residual function over a fixed number of iterations (a plain
+loop where the reference scans), with the Jacobian of the residual by
+forward mode (`torch.func.jacfwd`, as the reference takes `jax.jacfwd`):
+the residual function must be functional (no in-place ops, no reads of
+a tensor's value on the host). Neither reads a value back to the host.
 
 The 3x3 adjugate inverse and the 6x6 blockwise Schur inverse are kept
 instead of `torch.linalg.solve`, so the numbers follow the reference's
@@ -8,7 +16,80 @@ elementwise work.
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
+
+
+def weighted_normal_eqs(J, r, w):
+    """H = J^T W J, g = J^T W r for (M,P) Jacobian, (M,) residual/weights."""
+    Jw = J * w[:, None]
+    return J.T @ Jw, Jw.T @ r
+
+
+def _jacobian(residual_fn: Callable, x):
+    """(M,P) Jacobian of residual_fn(x)[0] at x (forward mode), in x's
+    dtype: PyTorch's forward mode makes float64 tangents for some ops on
+    0-d float32 values (a power of an element, a clamp)."""
+    return torch.func.jacfwd(lambda z: residual_fn(z)[0])(x).to(x.dtype)
+
+
+def _finite(dx):
+    """A non-finite step (a singular system, every residual masked) is
+    no step."""
+    return torch.where(torch.isfinite(dx), dx, torch.zeros_like(dx))
+
+
+def _solve(A, b):
+    """A^-1 b without the error check (and so without a read-back); a
+    singular A gives non-finite values, which `_finite` zeroes."""
+    return torch.linalg.solve_ex(A, b[:, None])[0][:, 0]
+
+
+def gauss_newton(residual_fn: Callable, x0, iters: int = 10,
+                 damping: float = 1e-6):
+    """Minimise ||w * r(x)||^2 with fixed-iteration damped Gauss-Newton.
+
+    residual_fn(x) -> (r (M,), w (M,)); w may encode validity masks.
+    Returns (x, final cost ())."""
+    eye = torch.eye(x0.shape[-1], dtype=x0.dtype, device=x0.device)
+    x = x0
+    for _ in range(iters):
+        r, w = residual_fn(x)
+        H, g = weighted_normal_eqs(_jacobian(residual_fn, x), r, w)
+        x = x - _finite(_solve(H + damping * eye, g))
+    r, w = residual_fn(x)
+    return x, torch.sum(w * r * r)
+
+
+def levenberg_marquardt(residual_fn: Callable, x0, iters: int = 15,
+                        lambda0: float = 1e-3, lambda_up: float = 4.0,
+                        lambda_down: float = 2.0):
+    """Levenberg-Marquardt with multiplicative damping and accept/reject
+    steps; the residual contract of gauss_newton. Fixed iteration count:
+    a rejected step only grows lambda. Returns (x, final cost ())."""
+    eye = torch.eye(x0.shape[-1], dtype=x0.dtype, device=x0.device)
+
+    def cost(x):
+        r, w = residual_fn(x)
+        return torch.sum(w * r * r)
+
+    x = x0
+    lam = torch.full((), lambda0, dtype=x0.dtype, device=x0.device)
+    c = cost(x0)
+    for _ in range(iters):
+        r, w = residual_fn(x)
+        H, g = weighted_normal_eqs(_jacobian(residual_fn, x), r, w)
+        dx = _finite(_solve(H + lam * (torch.diag(torch.diag(H))
+                                       + 1e-9 * eye), g))
+        x_new = x - dx
+        c_new = cost(x_new)
+        accept = c_new < c
+        x = torch.where(accept, x_new, x)
+        c = torch.where(accept, c_new, c)
+        lam = torch.clamp(torch.where(accept, lam / lambda_down,
+                                      lam * lambda_up), 1e-10, 1e8)
+    return x, c
 
 
 def huber_weights(r2, delta: float):

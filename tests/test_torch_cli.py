@@ -265,19 +265,6 @@ def test_ba_state_and_trajectory(world, tmp_path, capsys):
                                np.load(tmp_path / "j.npy"), atol=1e-4)
 
 
-@pytest.mark.parametrize("argv", [
-    ["run", "--synthetic", "4", "--tiny", "--multihost"],
-    ["run", "--synthetic", "4", "--tiny", "--coordinator", "h:1"],
-    ["run", "--synthetic", "4", "--tiny", "--num-processes", "2"],
-    ["run", "--synthetic", "4", "--tiny", "--process-id", "1"],
-    ["ba", "--state", "x.npz", "--distributed"],
-    ["ba", "--state", "x.npz", "--lm-shards", "2"],
-])
-def test_distributed_flags_raise(argv):
-    with pytest.raises(NotImplementedError, match="distributed layer"):
-        cli.main(argv + ["--device", "cpu"])
-
-
 def test_default_device_is_the_card(capsys):
     """Without --device the CLI runs on the card; where there is none it
     raises instead of running on the CPU."""
