@@ -3,8 +3,9 @@ VO step (also at the 1.2 x 8 ORB pyramid), two-view geometry, the flow
 VO, the SLAM system with local BA off, the SLAM system at the default
 config (local BA on, checkpoints, asynchronous drain) followed by
 resume, global BA with pose priors, the reference backend and the
-distributed layer, and the `slam-torch` command line on a KITTI-layout
-sequence.
+distributed layer, the `slam-torch` command line on a KITTI-layout
+sequence, the port's benchmark (`slam-torch bench`) and its measurement
+tools (`tools/port_*.py`).
 
     python3 chip_smoke.py [--phases kernels,slice,flow,...]
 
@@ -12,7 +13,7 @@ With no argument every phase runs; `--phases` runs the named ones and
 what they need (slam-ba needs slam; checkpoint, global-ba, ref-backend,
 dist and times-slam need slam-ba; times needs kernels), and leaves null
 in the last lines what it did not measure. `--phases pyramid,two-view`
-runs without the 600-frame clip.
+runs without the 600-frame clip; `--phases bench,tools` too.
 
 Run from the repo root on a machine with one CUDA card (sm_90a: H100).
 It imports torch, numpy and `slam1_tpu_torch` only — never jax. Phases,
@@ -83,13 +84,16 @@ exits non-zero and never prints the final `ok` line:
                Checks: one BA cost per cadence window, all finite; the
                launch counts by the same formulas (BA launches no
                hand-written kernel); loop edges, pnp_ok and ATE as in
-               `slam`; a second pass gives the same ATEs; a warm
+               `slam`; a second pass from scratch to frame 320 saves a
+               snapshot equal to the first pass's, leaf by leaf (and the
+               `checkpoint` phase holds the rest of the clip); a warm
                slam_step and a warm local_ba_step make no host sync.
                Prints frames/s, ms per local_ba_step and the ATEs beside
                the BA-off run's.
   7. checkpoint — `SlamSystem.resume` from the frame-320 snapshot, frames
                321-599, finalize: final poses within 1e-3 m of the
-               straight run's.
+               straight run's, ATEs before and after finalize within
+               1e-6 m of its.
   8. global-ba — `global_ba_step` on the finished state with the
                keyframe count's bucket, the observation bucket the CLI
                picks, the run's loop edges as priors and the trace:
@@ -115,7 +119,8 @@ exits non-zero and never prints the final `ok` line:
                at two ranks spawned on the one card over gloo (joined
                under a time limit) against one rank. Prints ms per LM /
                GN iteration and all_reduce bytes per CG step.
-  9. async   — the first 200 frames at `SlamConfig()` unchanged
+  9. async   — the first 100 frames at `SlamConfig()` unchanged (the
+               bench phase runs all 600 at this config)
                (poll_lag_s=0.05): no metrics row lost, poses finite,
                pnp_ok >= 0.8, the fetch worker gone with the system.
   flow     — the flow VO (`models/vo_flow.py`: FAST corners through the
@@ -142,16 +147,34 @@ exits non-zero and never prints the final `ok` line:
                decoder does not build), decoded back (the decoder is
                printed; the native prefetcher held equal to the Python
                loader on 4 pairs), then in subprocesses as a user runs
-               them: `slam-torch run --vo-only` (equal to vo.run_sequence
-               in process), `run` at SlamConfig() with checkpoints and
-               metrics (120 frames, ATE < 1 m, fast_score F and
-               hamming_top2 2F-1 launches, frames/s), `eval` (the same
-               ATE), `ba --state` on its checkpoint, `ba --state
-               --distributed --lm-shards 1` (finite cost, nothing
-               dropped), `ba` on its trajectory (finite costs), and
-               `run --multihost --coordinator 127.0.0.1:<free port>
-               --num-processes 1 --process-id 0 --synthetic 8` (its rank
-               line, the plain run's poses).
+               them: `slam-torch run` at SlamConfig() with checkpoints
+               and metrics, alone (120 frames, ATE < 1 m, fast_score F
+               and hamming_top2 2F-1 launches, frames/s); then, started
+               together, `run --vo-only` (equal to vo.run_sequence in
+               process), `eval` (the same ATE), `ba --state` on its
+               checkpoint, `ba --state --distributed --lm-shards 1`
+               (finite cost, nothing dropped), `ba` on its trajectory
+               (finite costs), and `run --synthetic 8` plainly and with
+               `--multihost --coordinator 127.0.0.1:<free port>
+               --num-processes 1 --process-id 0` (its rank line, the
+               plain run's poses).
+  bench    — `slam-torch bench` in a subprocess, as a user runs it (VO
+               on the arc clip, then SLAM at `SlamConfig()` unchanged on
+               the full 600-frame loop2 clip, a warm and a timed pass):
+               its last line has exactly the root bench.py's keys,
+               positive SLAM and VO frames/s, data synthetic-loop2-600,
+               ATE < 1.1 m and >= 2 loop closures (the JAX package's
+               asynchronous spread is 0.53-1.01 m), fast_score 1339 and
+               hamming_top2 2675 launches (1 + 138 VO frames + 2 x 600
+               SLAM frames, two per frame for Hamming).
+  tools    — each `tools/port_*.py` in its own process at a small depth:
+               port_global_ba_scale over 200 frames with its checkpoint
+               (~100 keyframes, bucket 128); then, started together,
+               port_dist_ba_scale on it at 1 rank (NCCL) and 2 ranks
+               sharing the card (gloo), port_loop_grid at one hit and
+               port_multihost_smoke (two processes); then port_roofline
+               and port_profile_stage (5 calls a stage) alone. Each exits 0 with its own
+               checks held; the records' keys and backends are checked.
  11. times   — per kernel: its device time (a CUDA graph of 20 calls
                replayed), its eager time (CUDA events around 20 wrapper
                calls), its plain twin's time, in turns plain, kernel,
@@ -212,6 +235,9 @@ from slam1_tpu_torch.ops.detector import _downsample2  # noqa: E402
 from slam1_tpu_torch.ops.pnp import draw_uniform  # noqa: E402
 from slam1_tpu_torch.utils import kitti, native_loader, \
     synthetic  # noqa: E402
+from slam1_tpu_torch.utils.bounds import bound_ba_matvec, \
+    bound_chain_prepare, bound_chain_sweep, bound_fast_score, \
+    bound_hamming  # noqa: E402
 from slam1_tpu_torch.utils.evalmetrics import ate_rmse  # noqa: E402
 from slam1_tpu_torch.utils.timing import device_busy_ms, device_launches, \
     event_ms, graph_ms  # noqa: E402
@@ -231,7 +257,7 @@ CHAIN_TOL = 1e-4             # max |kernel - twin| / max |twin|
 SAME_ATE_TOL = 1e-6          # m, between two runs of the same clip
 CKPT_FRAME = 320             # a block boundary of the slam-ba pass
 RESUME_TOL = 1e-3            # m, resumed run against the straight run
-ASYNC_FRAMES = 200
+ASYNC_FRAMES = 100           # the bench runs 600 at the same config
 BA_TOL = 1e-4                # m, bundle_adjust on CPU against CUDA
 FLOW_PNP_OK = 0.6            # the flow VO's pnp_ok share on the arc clip
 CLI_FRAMES = 120             # the first frames of the loop2 clip
@@ -247,12 +273,23 @@ REF_PAD, REF_ITERS = 64, 20  # ref_backend segment padding, LM iterations
 DIST_TIMEOUT_S = 600.0       # the spawned ranks' join (and gloo's) limit
 DIST_TRACE_TOL = 1e-2        # sharded BA trace against bundle_adjust
 DIST_PGO_COST_TOL = 5e-2     # sharded PGO cost against posegraph.optimize
+# The root bench.py's JSON keys, which `slam-torch bench` prints; its
+# ATE and loop bounds follow the JAX package's own spread under the
+# asynchronous drain, 0.53-1.01 m (PROFILE_r05.md:50).
+BENCH_KEYS = ("metric", "value", "unit", "data", "vs_baseline",
+              "ate_rmse_m", "ref_ate_rmse_m", "loop_closures",
+              "ref_loop_closures", "vo_frames_per_s_per_chip",
+              "vo_vs_baseline")
+BENCH_ATE_M = 1.1
+BENCH_LOOPS = 2
+TOOLS_FRAMES = 200           # port_global_ba_scale's clip in phase tools
 REPO = os.path.dirname(os.path.abspath(__file__))
 # Phases a run may select (--phases), in the order a full run takes
 # them, and what each needs run before it.
 PHASES = ("kernels", "slice", "pyramid", "two-view", "flow", "slam",
           "slam-ba", "checkpoint", "global-ba", "ref-backend", "dist",
-          "async", "cpu-vs-gpu", "cli", "times", "times-slam")
+          "async", "cpu-vs-gpu", "cli", "bench", "tools", "times",
+          "times-slam")
 NEEDS = {"slam-ba": ("slam",), "checkpoint": ("slam-ba",),
          "global-ba": ("slam-ba",), "ref-backend": ("slam-ba",),
          "dist": ("slam-ba",), "times": ("kernels",),
@@ -276,60 +313,6 @@ KERNELS = {
                     "slam1_tpu/models/posegraph.py:74",
                     "one launch, 2048 poses, 601 live"),
 }
-# Published peaks of one H100 SXM (NVIDIA's data sheet, dense): device
-# memory, int8 tensor-core operations (the 1-bit MMA is held to the
-# int8 rate), float32 outside the tensor cores.
-PEAK_BYTES_S = 3.35e12
-PEAK_INT8_OPS = 1979e12
-PEAK_F32_FLOPS = 67e12
-
-
-def bound(n_bytes, ops, peak_ops):
-    """(bound in ms, "bytes" or "operations"): the least time the card
-    could take to move n_bytes once or to do `ops` at `peak_ops`."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, ops / peak_ops
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-
-
-def bound_fast_score(shapes):
-    """Each image read and its score written once (8 bytes a pixel). The
-    float32 operations the score itself needs per pixel, however the arc
-    test is made: 16 differences, 32 threshold excesses (diff - t and
-    -diff - t), 32 clamps at 0, 32 additions into the two sums and one
-    maximum (113); the arc test works on predicates and is not counted."""
-    px = sum(b * h * w for b, h, w in shapes)
-    return bound(8 * px, 113 * px, PEAK_F32_FLOPS)
-
-
-def bound_hamming(problems, n, m, gated):
-    """2 N M 256 one-bit multiply-adds per problem; descriptors (32 B),
-    masks (1 B) and gate coordinates (8 B) read once, three int32 per
-    row and one per column written."""
-    per_item = 32 + 1 + (8 if gated else 0)
-    n_bytes = problems * ((n + m) * per_item + 4 * (3 * n + m))
-    return bound(n_bytes, problems * 2 * n * m * 256, PEAK_INT8_OPS)
-
-
-def bound_chain_prepare(f, n_live):
-    """JjInv and Ji of the live rows read, the prepared value
-    (CHAIN_LEVELS, 2, F, 6, 6) written; two 6x6 products (2 x 36 x 11
-    operations) per live row and level."""
-    levels = cuda_kernels.CHAIN_LEVELS
-    return bound(4 * (2 * 36 * n_live + levels * 72 * f),
-                 levels * 2 * 36 * 11 * n_live, PEAK_F32_FLOPS)
-
-
-def bound_chain_sweep(f, n_live):
-    """The function x = M^-1 v as chain_sweep_plain states it: JjInv and
-    Ji of the live rows (72 floats a row) read, v and winv read and x
-    written for all F rows (13 floats a row); four 6x6 matrix-vector
-    products (66 operations each) per live row. What a design reads
-    besides (prepared blocks) is its own cost, not part of the bound."""
-    return bound(4 * (72 * n_live + 13 * f), 4 * 66 * n_live,
-                 PEAK_F32_FLOPS)
-
-
 class CheckFailed(RuntimeError):
     pass
 
@@ -801,9 +784,10 @@ def phase_slam(cfg, world, lefts, rights, dev):
 
 
 def phase_slam_ba(cfg, world, lefts, rights, off, tmp, late):
-    """This slice's path: the clip at the default config (local BA on),
-    two passes, a checkpoint at CKPT_FRAME in each (a checkpoint consumes
-    its poll's verification at once, so it is part of the run). Its
+    """This slice's path: the clip at the default config (local BA on)
+    with a checkpoint at CKPT_FRAME (a checkpoint consumes its poll's
+    verification at once, so it is part of the run), then a second pass
+    to the checkpoint, whose snapshot must equal the first's. Its
     profiler session goes into `late`."""
     f = lefts.shape[0]
     gt = world.poses.cpu().numpy()
@@ -837,24 +821,27 @@ def phase_slam_ba(cfg, world, lefts, rights, off, tmp, late):
     check(bool(np.isfinite(costs).all()), "a local BA cost is not finite")
     check_slam("slam-ba", n, counts, post)
 
-    # Every scatter-add of BA sums in float64: a second pass over the
-    # same clip gives the same poses.
-    sys2, pre2, post2, counts2, (_, t_loop2, _, _) = run_slam(
-        cfg, world, lefts, rights, ckpt_path=os.path.join(tmp, "ckpt2.npz"))
-    ate_pre2 = ate_rmse(pre2, gt, align=False)
-    ate_post2 = ate_rmse(post2, gt, align=False)
+    # Every scatter-add of BA sums in float64: a second pass from scratch
+    # reaches the snapshot of frame CKPT_FRAME with the same state, to
+    # the bit; the checkpoint phase resumes from it and holds the rest
+    # of the clip to this pass's ATEs.
+    path2 = os.path.join(tmp, "ckpt2.npz")
+    k = CKPT_FRAME + 1
+    sys2, _, _, _, (_, t_loop2, _, _) = run_slam(
+        cfg, world, lefts[:k], rights[:k], ckpt_path=path2)
     costs2 = torch.stack(sys2.ba_costs).cpu().numpy()
-    moved = np.nonzero(costs2 != costs)[0]
-    say("slam-ba-repeat", slam_frames_per_s=(f - 1) / t_loop2,
-        first_window_with_another_cost=(int(moved[0]) if len(moved)
-                                        else None),
-        ate_before_finalize_m=ate_pre2, ate_after_finalize_m=ate_post2,
-        max_abs_pose_diff=float(np.abs(post - post2).max()),
-        loop_edges=len(sys2.loop_edges), launches_equal=counts2 == counts)
-    check(abs(ate_pre2 - n["ate_pre"]) <= SAME_ATE_TOL
-          and abs(ate_post2 - n["ate_post"]) <= SAME_ATE_TOL,
-          f"two runs differ: ATE {n['ate_pre']}/{n['ate_post']} vs "
-          f"{ate_pre2}/{ate_post2}")
+    moved = np.nonzero(costs2 != costs[:len(costs2)])[0]
+    with np.load(path) as a, np.load(path2) as b:
+        leaves = sorted(a.files)
+        differ = (["the leaf names"] if leaves != sorted(b.files) else
+                  [x for x in leaves if not np.array_equal(a[x], b[x])])
+    say("slam-ba-repeat", frames=k, slam_frames_per_s=(k - 1) / t_loop2,
+        windows=len(costs2), first_window_with_another_cost=(
+            int(moved[0]) if len(moved) else None),
+        snapshot_leaves=len(leaves), snapshot_leaves_differing=differ)
+    check(not differ and not len(moved),
+          f"two passes differ at the frame-{CKPT_FRAME} snapshot: leaves "
+          f"{differ}, BA windows {moved.tolist()}")
     del sys2
 
     # One warm windowed BA on the finished state: host syncs and time.
@@ -878,16 +865,18 @@ def phase_slam_ba(cfg, world, lefts, rights, off, tmp, late):
     late.append(profiled)
     return sys_, post, counts, path, dict(
         slam_ba_frames_per_s=fps,
-        slam_ba_frames_per_s_second_run=(f - 1) / t_loop2,
+        slam_ba_frames_per_s_second_run=(k - 1) / t_loop2,
         slam_ba_ate_odometry_m=n["ate_odo"], slam_ba_ate_before_m=n["ate_pre"],
         slam_ba_ate_after_m=n["ate_post"], slam_ba_loop_edges=len(n["edges"]),
         slam_ba_windows=len(costs), local_ba_step_ms=ba_ms,
         local_ba_step_syncs=syncs, checkpoint_save_s=t_ckpt)
 
 
-def phase_checkpoint(cfg, world, lefts, rights, path, straight):
+def phase_checkpoint(cfg, world, lefts, rights, path, straight,
+                     straight_ates):
     """Resume from the snapshot of frame CKPT_FRAME and run the rest of
-    the clip: the final poses against the straight run's."""
+    the clip: the final poses against the straight run's, and the ATEs
+    before and after finalize equal to its (`straight_ates`)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sys_ = pipeline.SlamSystem.resume(path, world.cam.to("cpu"), cfg)
@@ -896,27 +885,24 @@ def phase_checkpoint(cfg, world, lefts, rights, path, straight):
     check(sys_.state.traj.is_cuda and sys_.frame_count == CKPT_FRAME,
           "resume: the state is not on the card or not at the snapshot")
     run_blocks(sys_, lefts, rights, CKPT_FRAME + 1)
+    pre = sys_.poses()
     post = sys_.finalize()
+    gt = world.poses.cpu().numpy()
+    ates = (ate_rmse(pre, gt, align=False), ate_rmse(post, gt, align=False))
     diff = float(np.abs(post[:, :3, 3] - straight[:, :3, 3]).max())
     say("checkpoint", resumed_at=CKPT_FRAME, load_seconds=f"{t_load:.3f}",
         frames_after=lefts.shape[0] - 1 - CKPT_FRAME,
         max_abs_position_diff_m=diff, loop_edges=len(sys_.loop_edges),
-        local_ba_windows_after=len(sys_.ba_costs))
+        local_ba_windows_after=len(sys_.ba_costs),
+        ate_before_after_finalize_m=ates,
+        straight_ate_before_after_finalize_m=straight_ates)
     check(post.shape == straight.shape and diff <= RESUME_TOL,
           f"resumed run is {diff} m off the straight run")
+    check(all(abs(a - b) <= SAME_ATE_TOL
+              for a, b in zip(ates, straight_ates)),
+          f"resumed run's ATEs {ates} differ from the straight run's "
+          f"{straight_ates}")
     return dict(checkpoint_load_s=t_load, resume_max_diff_m=diff)
-
-
-def bound_ba_matvec(o, c, l, e):
-    """One product of the reduced camera system with x (C,6): the
-    coupling blocks W (O,6,3) and both index vectors read once, Hll^-1
-    (L,3,3), Hcc (C,6,6) and x read and the result written once, the
-    priors' two Jacobians (E,6,6), weights and indices read once; 72
-    operations per observation (two 6x3 products), 18 per landmark, 72
-    per camera, 288 per prior edge."""
-    n_bytes = (o * (18 * 4 + 2 * 8) + l * 36 + c * (36 + 6 + 6) * 4
-               + e * (2 * 36 * 4 + 4 + 2 * 8))
-    return bound(n_bytes, 72 * o + 18 * l + 72 * c + 288 * e, PEAK_F32_FLOPS)
 
 
 def phase_global_ba(cfg, sys_, world):
@@ -1231,32 +1217,60 @@ def phase_flow(cfg, world, lefts, rights, dev, vo_ate, late):
         flow_lk_track_ms=lk_ms)
 
 
+def run_together(cmds, timeout=900):
+    """`python cmd...` from the repo root for each cmd of `cmds`, all
+    started together: (exit code, stdout, stderr, seconds) of each, in
+    order. The others are killed when one runs past `timeout`."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [REPO] + [p for p in [env.get("PYTHONPATH")] if p])
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, *cmd], cwd=REPO, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for cmd in cmds]
+    out = []
+    try:
+        for p in procs:
+            so, se = p.communicate(
+                timeout=max(timeout - (time.perf_counter() - t0), 1.0))
+            out.append((p.returncode, so, se, time.perf_counter() - t0))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return out
+
+
 def slam_torch(*argv, timeout=900):
     """`python -m slam1_tpu_torch.cli argv...` in a subprocess from the
     repo root, as a user runs it: (its last stdout line as JSON, the
     kernel launch counts it printed on stderr, seconds, its stderr)."""
-    t0 = time.perf_counter()
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        [REPO] + [p for p in [env.get("PYTHONPATH")] if p])
-    r = subprocess.run([sys.executable, "-m", "slam1_tpu_torch.cli",
-                        *argv], cwd=REPO, env=env, capture_output=True,
-                       text=True, timeout=timeout)
-    secs = time.perf_counter() - t0
-    check(r.returncode == 0, f"slam-torch {' '.join(argv)} exited "
-          f"{r.returncode}: {r.stderr[-3000:]}")
+    return slam_torch_together([argv], timeout)[0]
+
+
+def slam_torch_together(argvs, timeout=900):
+    """slam_torch for each argv of `argvs`, all started together (for
+    calls whose times are not reported): their results in order."""
+    return [_cli_result(argv, *res) for argv, res in zip(argvs, run_together(
+        [("-m", "slam1_tpu_torch.cli", *argv) for argv in argvs], timeout))]
+
+
+def _cli_result(argv, rc, stdout, stderr, secs):
+    check(rc == 0, f"slam-torch {' '.join(argv)} exited {rc}: "
+          f"{stderr[-3000:]}")
     launches = [json.loads(line)["kernel_launches"]
-                for line in r.stderr.splitlines()
+                for line in stderr.splitlines()
                 if line.startswith('{"kernel_launches"')]
-    decoder = [line.split(": ", 1)[1] for line in r.stderr.splitlines()
+    decoder = [line.split(": ", 1)[1] for line in stderr.splitlines()
                if line.startswith("decoder: ")]
-    out = json.loads(r.stdout.strip().splitlines()[-1])
-    say("cli-call", args=" ".join(argv[:1] + tuple(
+    out = json.loads(stdout.strip().splitlines()[-1])
+    say("cli-call", args=" ".join(tuple(argv[:1]) + tuple(
         a for a in argv[1:] if a.startswith("--"))),
         seconds=f"{secs:.3f}", launches=launches[-1] if launches else None,
         decoder=decoder[-1] if decoder else None,
         result={k: v for k, v in out.items() if k != "timing"})
-    return out, (launches[-1] if launches else None), secs, r.stderr
+    return out, (launches[-1] if launches else None), secs, stderr
 
 
 def phase_cli(world, lefts, rights, tmp):
@@ -1264,8 +1278,9 @@ def phase_cli(world, lefts, rights, tmp):
     CLI_FRAMES of the loop2 clip cropped to KITTI's image size, written
     as 8-bit grayscale PNG (P5 PGM where the native decoder does not
     build: a machine may have neither cv2 nor PIL), then
-    `slam-torch run --vo-only`, `run` (SLAM, checkpoints, metrics),
-    `eval`, `ba --state` and `ba` in subprocesses."""
+    `slam-torch run` (SLAM, checkpoints, metrics) in a subprocess, then
+    `run --vo-only`, `eval`, `ba --state`, `ba` and `run --multihost`
+    in subprocesses started together."""
     cfg = SlamConfig()
     f = CLI_FRAMES
     h, w = CLI_CROP
@@ -1302,23 +1317,8 @@ def phase_cli(world, lefts, rights, tmp):
     check(native_equal in (None, True),
           "native stereo_frames differ from KittiSequence.frames()")
 
-    vo_npy = os.path.join(tmp, "vo.npy")
-    out, vo_launches, _, _ = slam_torch("run", "--data", root, "--poses",
-                                     poses_txt, "--vo-only", "--out", vo_npy)
-    L = torch.as_tensor(np.stack([a for a, _ in frames])).cuda()
-    R = torch.as_tensor(np.stack([b for _, b in frames])).cuda()
-    ref, _ = vo.run_sequence(L, R, seq.cam, cfg, seed=0)
-    del L, R
-    same = bool(np.array_equal(np.load(vo_npy), ref))
-    say("cli-vo-only", frames=out["frames"], equals_in_process=same,
-        max_abs_diff=float(np.abs(np.load(vo_npy) - ref).max()),
-        ate_rmse_m=out["ate_rmse_m"], decoder=out.get("decoder"))
-    check(same, "`run --vo-only` differs from vo.run_sequence in process")
-    check(vo_launches is not None and vo_launches == {
-        **{k: 0 for k in vo_launches},
-                          "fast_score": f, "hamming_top2": 2 * f - 1},
-          f"`run --vo-only` launches {vo_launches}")
-
+    # `run` alone (its frames/s is reported), then every other call
+    # together (they are checked, not timed).
     traj = os.path.join(tmp, "traj.npy")
     ckdir = os.path.join(tmp, "ckpt")
     mpath = os.path.join(tmp, "metrics.jsonl")
@@ -1339,19 +1339,49 @@ def phase_cli(world, lefts, rights, tmp):
     check(counts is not None and counts["fast_score"] == f
           and counts["hamming_top2"] == 2 * f - 1, f"`run` launches {counts}")
     check(rows > 0, "`run --metrics` wrote no row")
-
-    ev, _, _, _ = slam_torch("eval", traj, poses_txt)
-    check(ev["ate_rmse_m"] == run["ate_rmse_m"],
-          f"`eval` ATE {ev['ate_rmse_m']} != `run`'s {run['ate_rmse_m']}")
     ckpts = sorted(glob.glob(os.path.join(ckdir, "*.npz")))
     check(len(ckpts) > 0, "`run --checkpoint-every` wrote no checkpoint")
-    bs, _, _, _ = slam_torch("ba", "--state", ckpts[-1], "--out",
-                             os.path.join(tmp, "opt_state.npy"))
+
+    vo_npy = os.path.join(tmp, "vo.npy")
+    # `run --multihost` as one process of a world of one: the plain run.
+    plain_npy, multi_npy = (os.path.join(tmp, x) for x in ("p.npy", "m.npy"))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ((out, vo_launches, _, _), (ev, _, _, _), (bs, _, _, _),
+     (bd, _, _, bd_err), (bt, _, _, _), _, (_, _, _, mh_err)) = \
+        slam_torch_together([
+            ("run", "--data", root, "--poses", poses_txt, "--vo-only",
+             "--out", vo_npy),
+            ("eval", traj, poses_txt),
+            ("ba", "--state", ckpts[-1], "--out",
+             os.path.join(tmp, "opt_state.npy")),
+            ("ba", "--state", ckpts[-1], "--distributed", "--lm-shards", "1",
+             "--out", os.path.join(tmp, "opt_dist.npy")),
+            ("ba", traj, "--out", os.path.join(tmp, "opt_traj.npy")),
+            ("run", "--synthetic", str(MULTIHOST_FRAMES), "--out",
+             plain_npy),
+            ("run", "--synthetic", str(MULTIHOST_FRAMES), "--out",
+             multi_npy, "--multihost", "--coordinator",
+             f"127.0.0.1:{port}", "--num-processes", "1",
+             "--process-id", "0")])
+    L = torch.as_tensor(np.stack([a for a, _ in frames])).cuda()
+    R = torch.as_tensor(np.stack([b for _, b in frames])).cuda()
+    ref, _ = vo.run_sequence(L, R, seq.cam, cfg, seed=0)
+    del L, R
+    same = bool(np.array_equal(np.load(vo_npy), ref))
+    say("cli-vo-only", frames=out["frames"], equals_in_process=same,
+        max_abs_diff=float(np.abs(np.load(vo_npy) - ref).max()),
+        ate_rmse_m=out["ate_rmse_m"], decoder=out.get("decoder"))
+    check(same, "`run --vo-only` differs from vo.run_sequence in process")
+    check(vo_launches is not None and vo_launches == {
+        **{k: 0 for k in vo_launches},
+                          "fast_score": f, "hamming_top2": 2 * f - 1},
+          f"`run --vo-only` launches {vo_launches}")
+    check(ev["ate_rmse_m"] == run["ate_rmse_m"],
+          f"`eval` ATE {ev['ate_rmse_m']} != `run`'s {run['ate_rmse_m']}")
     check(bs["keyframes"] > 0 and math.isfinite(bs["final_cost"]),
           f"`ba --state` line {bs}")
-    bd, _, _, bd_err = slam_torch("ba", "--state", ckpts[-1], "--distributed",
-                                  "--lm-shards", "1", "--out",
-                                  os.path.join(tmp, "opt_dist.npy"))
     say("cli-ba-distributed", result=bd,
         backend_line=[ln for ln in bd_err.splitlines()
                       if ln.startswith("torch.distributed")])
@@ -1359,21 +1389,8 @@ def phase_cli(world, lefts, rights, tmp):
           and math.isfinite(bd["final_cost"]) and bd["dropped_obs"] == 0
           and bd["mesh"] == {"batch": 1, "lm": 1},
           f"`ba --state --distributed` line {bd}")
-    bt, _, _, _ = slam_torch("ba", traj, "--out",
-                             os.path.join(tmp, "opt_traj.npy"))
     check(bt["frames"] == f and math.isfinite(bt["final_cost"]),
           f"`ba` line {bt}")
-    # `run --multihost` as one process of a world of one: the plain run.
-    plain_npy, multi_npy = (os.path.join(tmp, x) for x in ("p.npy", "m.npy"))
-    slam_torch("run", "--synthetic", str(MULTIHOST_FRAMES), "--out",
-               plain_npy)
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    _, _, _, mh_err = slam_torch(
-        "run", "--synthetic", str(MULTIHOST_FRAMES), "--out", multi_npy,
-        "--multihost", "--coordinator", f"127.0.0.1:{port}",
-        "--num-processes", "1", "--process-id", "0")
     rank_line = [ln for ln in mh_err.splitlines()
                  if ln.startswith("multihost: process")]
     same = bool(np.array_equal(np.load(plain_npy), np.load(multi_npy)))
@@ -1386,6 +1403,129 @@ def phase_cli(world, lefts, rights, tmp):
                         cli_ba_state_keyframes=bs["keyframes"],
                         cli_ba_state_final_cost=bs["final_cost"],
                         cli_ba_distributed_final_cost=bd["final_cost"])
+
+
+def phase_bench():
+    """`slam-torch bench` as a user runs it: its last line has the root
+    bench.py's keys, a positive SLAM and VO rate, the 600-frame loop2
+    clip, and at `SlamConfig()` unchanged (asynchronous drain) an ATE
+    under BENCH_ATE_M with at least BENCH_LOOPS loop closures. Its
+    launches: fast_score once and hamming_top2 twice per VO or SLAM
+    frame (one per bootstrap), over the VO clip's warm and timed blocks
+    and both SLAM passes."""
+    from slam1_tpu_torch import bench
+    line, counts, secs, err = slam_torch("bench", timeout=900)
+    steps = bench.N_FRAMES - 1
+    vo_frames = steps * (max(bench.VO_STEPS // steps, 1) + 1)
+    f = bench.SLAM_FRAMES
+    want = {"fast_score": 1 + vo_frames + 2 * f,
+            "hamming_top2": 1 + 2 * vo_frames + 2 * (2 * f - 1)}
+    say("bench", seconds=f"{secs:.3f}", line=line, launches=counts,
+        expected=want, stderr=[ln for ln in err.splitlines()
+                               if ln.startswith("bench:")])
+    check(tuple(line) == BENCH_KEYS, f"bench keys {list(line)}")
+    check(line["value"] is not None and line["value"] > 0
+          and line["vo_frames_per_s_per_chip"] is not None
+          and line["vo_frames_per_s_per_chip"] > 0,
+          f"bench rates {line['value']}, {line['vo_frames_per_s_per_chip']}")
+    check(line["data"] == f"synthetic-loop2-{f}", f"bench data {line['data']}")
+    check(line["ate_rmse_m"] is not None
+          and math.isfinite(line["ate_rmse_m"])
+          and line["ate_rmse_m"] < BENCH_ATE_M,
+          f"bench ATE {line['ate_rmse_m']} m, bound {BENCH_ATE_M}")
+    check(line["loop_closures"] >= BENCH_LOOPS,
+          f"bench loop closures {line['loop_closures']} < {BENCH_LOOPS}")
+    check(counts is not None
+          and {k: counts[k] for k in want} == want
+          and counts["hamming_top2_batched"] > 0
+          and counts["chain_sweep"] > 0,
+          f"bench launches {counts}, expected {want}")
+    return counts, dict(bench_slam_frames_per_s=line["value"],
+                        bench_vo_frames_per_s=line["vo_frames_per_s_per_chip"],
+                        bench_ate_m=line["ate_rmse_m"],
+                        bench_loop_closures=line["loop_closures"],
+                        bench_vs_baseline=line["vs_baseline"],
+                        bench_ref_ate_m=line["ref_ate_rmse_m"],
+                        bench_seconds=secs)
+
+
+def run_tools(calls, timeout=600):
+    """`python tools/<script> argv...` for each (script, argv) of
+    `calls`, all started together: for each its last stdout line as
+    JSON and its seconds. Each must exit 0: each tool checks its own
+    results."""
+    out = []
+    for (script, argv), (rc, so, se, secs) in zip(calls, run_together(
+            [(os.path.join("tools", script), *argv)
+             for script, argv in calls], timeout)):
+        check(rc == 0, f"{script} {' '.join(argv)} exited {rc}: "
+              f"{se[-3000:]}")
+        out.append((json.loads(so.strip().splitlines()[-1]), secs))
+    return out
+
+
+def phase_tools(tmp):
+    """Each measurement tool over the port in its own process at a small
+    depth: the global-BA scale run on TOOLS_FRAMES frames with its
+    checkpoint; then, started together (they check results and time
+    nothing that is reported), the distributed BA on it at one rank
+    (NCCL) and at two ranks sharing the card (gloo), the loop grid at
+    one hit and the two-process smoke; then, one at a time, the roofline
+    and the per-stage profile."""
+    ckpt = os.path.join(tmp, f"gba{TOOLS_FRAMES}.npz")
+    times_s = {}
+    ((gba, times_s["global_ba_scale"]),) = run_tools([(
+        "port_global_ba_scale.py",
+        ["--frames", str(TOOLS_FRAMES), "--ckpt", ckpt])])
+    say("tools-global-ba-scale", seconds=f"{times_s['global_ba_scale']:.3f}",
+        record=gba)
+    check(gba["backend"] == "cuda" and gba["frames"] == TOOLS_FRAMES
+          and gba["keyframes"] > 0 and gba["bucket"] >= gba["keyframes"]
+          and math.isfinite(gba["cost_after"])
+          and gba["cost_after"] <= gba["cost_before"],
+          f"port_global_ba_scale record {gba}")
+    t0 = time.perf_counter()
+    (d1, _), (d2, _), (grid, _), (mh, _) = run_tools([
+        ("port_dist_ba_scale.py", ["--ckpt", ckpt, "--ranks", "1"]),
+        ("port_dist_ba_scale.py", ["--ckpt", ckpt, "--ranks", "2"]),
+        ("port_loop_grid.py", ["--ckpt", ckpt, "--frames", str(TOOLS_FRAMES),
+                               "--hits", str(TOOLS_FRAMES - 1),
+                               "--span", "2"]),
+        ("port_multihost_smoke.py", [])])
+    times_s["dist_grid_multihost_together"] = time.perf_counter() - t0
+    for ranks, backend, rec in ((1, "nccl", d1), (2, "gloo", d2)):
+        say("tools-dist-ba-scale", ranks=ranks, record=rec)
+        check(rec["shards"] == ranks and rec["backend"] == backend
+              and rec["n_dropped"] == 0 and rec["rel_cost_parity"] < 5e-2
+              and rec["keyframes"] == gba["keyframes"],
+              f"port_dist_ba_scale at {ranks} ranks: {rec}")
+    say("tools-loop-grid", record=grid)
+    check(len(grid["hits"]) == 1 and grid["hits"][0]["cands"],
+          f"port_loop_grid record {grid}")
+    say("tools-multihost-smoke", record=mh)
+    check(mh["ok"] and mh["processes"] == 2 and all(
+        c["backend"] == "gloo" and c["ba_parity_terr"] < 5e-3
+        for c in mh["children"]), f"port_multihost_smoke record {mh}")
+    ((roof, times_s["roofline"]),) = run_tools([("port_roofline.py", [])])
+    say("tools-roofline", seconds=f"{times_s['roofline']:.3f}", record=roof)
+    check(roof["backend"] == "cuda" and len(roof["kernels"]) == 4 and all(
+        math.isfinite(k["time_us"]) and k["time_us"] > 0
+        for k in roof["kernels"]), f"port_roofline record {roof}")
+    ((prof, times_s["profile_stage"]),) = run_tools([
+        ("port_profile_stage.py", ["--reps", "5"])])
+    say("tools-profile-stage", seconds=f"{times_s['profile_stage']:.3f}",
+        record=prof)
+    check(all(math.isfinite(v) and v > 0
+              for v in prof["stages_ms"].values()),
+          f"port_profile_stage record {prof}")
+    return dict(tools_seconds=times_s,
+                tools_global_ba_keyframes=gba["keyframes"],
+                tools_global_ba_wall_s=gba["global_ba_wall_s"],
+                tools_dist_ba_parity_1_2_ranks=[d1["rel_cost_parity"],
+                                                d2["rel_cost_parity"]],
+                tools_roofline_pct_of_bound={
+                    k["kernel"]: k["pct_of_peak"] for k in roof["kernels"]},
+                tools_vo_step_ms=prof["stages_ms"]["vo_step (full)"])
 
 
 def time_kernel(name, plain, kern, bound_ms, bound_by, plain_reps=10):
@@ -1457,7 +1597,8 @@ def phase_times_slam(cfg, sys_, world):
                                                  CHAIN_LIVE),
         lambda: cuda_kernels.chain_prepare_cuda(cargs[0], cargs[1],
                                                 CHAIN_LIVE),
-        *bound_chain_prepare(CHAIN_F, CHAIN_LIVE))
+        *bound_chain_prepare(CHAIN_F, CHAIN_LIVE,
+                             cuda_kernels.CHAIN_LEVELS))
     times["chain_sweep"] = time_kernel(
         "chain_sweep",
         lambda: cuda_kernels.chain_sweep_plain(*cargs, CHAIN_LIVE),
@@ -2162,8 +2303,10 @@ def main(argv=None):
                 bcfg, sworld, slefts, srights, slam, tmp, late)
             numbers.update(slam_ba)
             if "checkpoint" in phases:
-                numbers.update(phase_checkpoint(bcfg, sworld, slefts,
-                                                srights, ckpt, post_ba))
+                numbers.update(phase_checkpoint(
+                    bcfg, sworld, slefts, srights, ckpt, post_ba,
+                    (slam_ba["slam_ba_ate_before_m"],
+                     slam_ba["slam_ba_ate_after_m"])))
     if "global-ba" in phases:
         numbers.update(phase_global_ba(bcfg, sys_, sworld))
     if "ref-backend" in phases:
@@ -2187,6 +2330,16 @@ def main(argv=None):
             by_path["cli"], cli_numbers = phase_cli(sworld, slefts, srights,
                                                     tmp)
         numbers.update(cli_numbers)
+    if "bench" in phases:
+        t0 = time.perf_counter()
+        by_path["bench"], bench_numbers = phase_bench()
+        numbers.update(bench_numbers)
+        phase_s["bench"] = time.perf_counter() - t0
+    if "tools" in phases:
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            numbers.update(phase_tools(tmp))
+        phase_s["tools"] = time.perf_counter() - t0
     if "times" in phases:
         new_times, fps = phase_times(cfg, lefts, rights, world,
                                      hamming_inputs)

@@ -1,5 +1,5 @@
 """Command-line interface of the PyTorch/CUDA port: `slam-torch
-run|ba|eval` (counterpart of `slam1_tpu/cli.py`).
+run|ba|eval|bench` (counterpart of `slam1_tpu/cli.py`).
 
   run    — VO or full SLAM over a KITTI sequence dir or --synthetic;
            `--multihost [--coordinator H:P --num-processes N
@@ -12,11 +12,13 @@ run|ba|eval` (counterpart of `slam1_tpu/cli.py`).
            of the process group: N ranks under torchrun, or a world of
            one when run plainly; S must divide N
   eval   — ATE/RPE of an estimated trajectory vs ground truth
+  bench  — the port's benchmark (`slam1_tpu_torch/bench.py`): SLAM and
+           VO frames/s, ATE and loop closures on the synthetic clips;
+           one JSON line with the root `bench.py`'s keys
 
 Every command that computes runs on `--device` (default `cuda`, which
 raises where there is no card: a run meant for the card never carries on
-silently on the CPU). There is no `bench` command until the port has a
-benchmark.
+silently on the CPU).
 """
 
 from __future__ import annotations
@@ -295,6 +297,13 @@ def _distributed_ba(st, cam, cfg, mesh, n_kf: int, bucket: int,
                         kf=st.kf._replace(poses=kf_poses)), cost, dropped)
 
 
+def _cmd_bench(args):
+    from slam1_tpu_torch import bench, runtime
+    rc = bench.main(device=args.device, tiny=args.tiny)
+    _launch_line(runtime.device(args.device))
+    return rc
+
+
 def _device_arg(p):
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default: cuda; raises "
@@ -304,8 +313,7 @@ def _device_arg(p):
 def main(argv=None):
     p = argparse.ArgumentParser(
         prog="slam-torch",
-        description="stereo SLAM, PyTorch/CUDA port (no `bench` command "
-                    "yet: it waits for the port's benchmark)")
+        description="stereo SLAM, PyTorch/CUDA port")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     pr = sub.add_parser("run", help="run VO / full SLAM")
@@ -372,6 +380,13 @@ def main(argv=None):
                          "the world size (default: 4, 2 or 1, the "
                          "largest that divides it)")
     pb.set_defaults(fn=_cmd_ba)
+
+    pn = sub.add_parser("bench", help="SLAM and VO frames/s, ATE and loop "
+                                      "closures on the synthetic clips")
+    pn.add_argument("--tiny", action="store_true",
+                    help="tiny config and short clips (CPU tests)")
+    _device_arg(pn)
+    pn.set_defaults(fn=_cmd_bench)
 
     args = p.parse_args(argv)
     return args.fn(args)

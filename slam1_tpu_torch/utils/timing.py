@@ -6,9 +6,13 @@ CUDA graph and replays it, so the host is out of the way and the time is
 what the card needs. Both warm up first and synchronise around the
 measurement. `device_busy_ms` sums the device-side durations that
 `torch.profiler` records, for code a CUDA graph cannot capture.
+`call_ms` is `event_ms` on a card and the host clock on the CPU, for
+tools that also run on the CPU.
 """
 
 from __future__ import annotations
+
+import time
 
 import torch
 
@@ -30,6 +34,19 @@ def event_ms(fn, reps: int = 20, warm: int = 3) -> float:
     for _ in range(warm):
         fn()
     return _between_events(fn, reps) / reps
+
+
+def call_ms(fn, device, reps: int = 20, warm: int = 3) -> float:
+    """Mean time of fn() in ms over `reps` calls on `device`: CUDA
+    events on a card (`event_ms`), the host clock on the CPU."""
+    if torch.device(device).type == "cuda":
+        return event_ms(fn, reps, warm)
+    for _ in range(warm):
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return 1e3 * (time.perf_counter() - t0) / reps
 
 
 def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:

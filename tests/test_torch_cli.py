@@ -272,5 +272,5 @@ def test_default_device_is_the_card(capsys):
         pytest.skip("a card is present: the default run would use it")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["run", "--synthetic", "4", "--tiny"])
-    with pytest.raises(SystemExit):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["bench"])

@@ -95,8 +95,18 @@ def _case_cli(mesh_mod, inputs):
     return {"rc": rc, "stdout": buf.getvalue()}
 
 
+def _case_dist_ba_scale(mesh_mod, inputs):
+    """tools/port_dist_ba_scale.py's comparison in the rank's process
+    group: rank 0's record."""
+    from tools import port_dist_ba_scale
+    rec = port_dist_ba_scale.run(inputs["ckpt"], device="cpu", tiny=True,
+                                 lm_iters=inputs["lm_iters"],
+                                 cg_iters=inputs["cg_iters"])
+    return {"record": rec}
+
+
 CASES = {"ba": _case_ba, "pgo": _case_pgo, "mesh": _case_mesh,
-         "cli": _case_cli}
+         "cli": _case_cli, "dist_ba_scale": _case_dist_ba_scale}
 
 
 def _rank_main(rank, world, cases, in_path, init_file, out_dir):
