@@ -10,9 +10,9 @@ tools (`tools/port_*.py`).
     python3 chip_smoke.py [--phases kernels,slice,flow,...]
 
 With no argument every phase runs; `--phases` runs the named ones and
-what they need (slam-ba needs slam; checkpoint, global-ba, ref-backend,
-dist and times-slam need slam-ba; times needs kernels), and leaves null
-in the last lines what it did not measure. `--phases pyramid,two-view`
+what they need (slam-ba and graphs need slam; checkpoint, global-ba,
+ref-backend, dist and times-slam need slam-ba; times needs kernels), and
+leaves null in the last lines what it did not measure. `--phases pyramid,two-view`
 runs without the 600-frame clip; `--phases bench,tools` too.
 
 Run from the repo root on a machine with one CUDA card (sm_90a: H100).
@@ -78,6 +78,22 @@ exits non-zero and never prints the final `ok` line:
                relaxation can raise it by centimetres), and pnp_ok >=
                0.8; chain_sweep is held against its twin on the
                chain operands of the finished run's pose graph.
+  graphs   — the graphed steps against eager ones on the card: vo_block
+               (one replay of a CUDA graph of vo_step per frame) against
+               a loop of vo_step on the arc clip from the same generator
+               seed (poses, metrics, final state and generator equal to
+               the bit), and SlamSystem's replays against
+               graphs=False over the 600-frame clip at slam-ba's config
+               (BoW training at frame 30, culls every 32 frames, local
+               BA write-backs, the ring's wrap at 256, live PGOs,
+               finalize: poses, the whole state, metrics rows, loop
+               edges and events, BA costs equal to the bit); equal
+               launch counts; 0 host syncs in a warm replay. Prints ms
+               per warm vo_step and slam_step, eager and graphed (CUDA
+               events and host clock; the device-busy shares from
+               torch.profiler with the late sessions), capture seconds,
+               graph nodes and pool bytes. The other phases' VO and SLAM
+               runs replay graphs too (the card's default).
   6. slam-ba — the same clip at `SlamConfig()` with only
                bow.poll_lag_s=0 (so two passes can be compared): local
                BA every 5 keyframes, a checkpoint saved at frame 320.
@@ -287,23 +303,23 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # Phases a run may select (--phases), in the order a full run takes
 # them, and what each needs run before it.
 PHASES = ("kernels", "slice", "pyramid", "two-view", "flow", "slam",
-          "slam-ba", "checkpoint", "global-ba", "ref-backend", "dist",
-          "async", "cpu-vs-gpu", "cli", "bench", "tools", "times",
+          "graphs", "slam-ba", "checkpoint", "global-ba", "ref-backend",
+          "dist", "async", "cpu-vs-gpu", "cli", "bench", "tools", "times",
           "times-slam")
-NEEDS = {"slam-ba": ("slam",), "checkpoint": ("slam-ba",),
-         "global-ba": ("slam-ba",), "ref-backend": ("slam-ba",),
+NEEDS = {"slam-ba": ("slam",), "graphs": ("slam",),
+         "checkpoint": ("slam-ba",), "global-ba": ("slam-ba",), "ref-backend": ("slam-ba",),
          "dist": ("slam-ba",), "times": ("kernels",),
          "times-slam": ("slam-ba",)}
 # name: (source, what it replaces, what one "ms" covers)
 KERNELS = {
     "fast_score": ("slam1_tpu_torch/csrc/fast_score.cu",
-                   "slam1_tpu/ops/pallas_kernels.py:229",
+                   "slam1_tpu/ops/pallas_kernels.py:231",
                    "one frame: 1 launch, 2 images x 3 pyramid levels"),
     "hamming_top2": ("slam1_tpu_torch/csrc/hamming_top2.cu",
-                     "slam1_tpu/ops/pallas_kernels.py:100",
+                     "slam1_tpu/ops/pallas_kernels.py:102",
                      "one frame: 2 gated launches of 2688 x 2688"),
     "hamming_top2_batched": ("slam1_tpu_torch/csrc/hamming_top2.cu",
-                             "slam1_tpu/ops/pallas_kernels.py:100",
+                             "slam1_tpu/ops/pallas_kernels.py:102",
                              "one slate: 1 launch of 8 x 1024 x 1024"),
     # not TPU kernels: the XLA scans of the reference's chain solve
     "chain_prepare": ("slam1_tpu_torch/csrc/chain_sweep.cu",
@@ -1101,6 +1117,189 @@ def phase_slam_cpu_vs_gpu(cfg, world, lefts, rights, dev):
     check(slam_syncs <= vo_syncs,
           f"slam_step syncs {slam_syncs} > vo_step's {vo_syncs}")
     return vo_syncs, slam_syncs
+
+
+GRAPH_REPS = 20              # warm steps per timing of a step
+
+
+def bits(t):
+    """A tensor's bits: float tensors viewed as integers, so that equal
+    NaNs compare equal."""
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64,
+            torch.float16: torch.int16, torch.bfloat16: torch.int16}
+    return t.contiguous().view(ints[t.dtype]) if t.dtype in ints else t
+
+
+def tree_diff(a, b, path="state"):
+    """The paths of the leaves where two trees (tuples, NamedTuples,
+    tensors, numbers, numpy arrays) differ, to the bit."""
+    if isinstance(a, (tuple, list)):
+        if len(a) != len(b):
+            return [path]
+        names = getattr(a, "_fields", range(len(a)))
+        return [d for n, x, y in zip(names, a, b)
+                for d in tree_diff(x, y, f"{path}.{n}")]
+    if isinstance(a, torch.Tensor):
+        same = (a.shape == b.shape and a.dtype == b.dtype
+                and torch.equal(bits(a), bits(b)))
+    elif isinstance(a, np.ndarray):
+        same = a.shape == b.shape and a.tobytes() == b.tobytes()
+    else:
+        same = a == b
+    return [] if same else [path]
+
+
+def host_ms(fn, reps=GRAPH_REPS, warm=2):
+    """Mean host-clock ms of fn() over `reps` calls ending in a
+    synchronize."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def step_times(tag, eager, graphed, late):
+    """ms per warm step, eager and graphed (CUDA events and host clock),
+    and the host syncs of one warm graph replay; the device-busy shares
+    (torch.profiler) go into `late`."""
+    out = {}
+    for which, fn in (("eager", eager), ("graph", graphed),
+                      ("graph", graphed), ("eager", eager)):
+        out.setdefault(f"{which}_events_ms", []).append(
+            event_ms(fn, reps=GRAPH_REPS, warm=2))
+        out.setdefault(f"{which}_host_ms", []).append(host_ms(fn))
+    out = {k: float(np.mean(v)) for k, v in out.items()}
+    out["graph_replay_syncs"], where = count_syncs(graphed)
+    check(out["graph_replay_syncs"] == 0,
+          f"a warm {tag} replay made host syncs: {where}")
+
+    def profiled():
+        busy = {w: device_busy_ms(fn) for w, fn in (("eager", eager),
+                                                     ("graph", graphed))}
+        shares = {f"{tag}_{w}_device_busy_ms": b for w, b in busy.items()}
+        shares.update({f"{tag}_{w}_device_busy_share":
+                       b / out[f"{w}_events_ms"] for w, b in busy.items()})
+        say(f"graphs-{tag}-profile", **shares)
+        return shares
+    late.append(profiled)
+    return out
+
+
+def phase_graphs(cfg, world, lefts, rights, bcfg, sworld, slefts, srights,
+                 late):
+    """The graphed steps against eager ones on the card: vo_block (one
+    graph replay per frame) against a loop of vo_step on the arc clip,
+    and SlamSystem's graph replays against graphs=False over the
+    600-frame loop2 clip at `bcfg` (BoW training, culls, local BA
+    write-backs, the ring's wrap, live PGOs, finalize). Everything must
+    be equal to the bit, launch counts included."""
+    cam, f = world.cam, lefts.shape[0]
+    n = cfg.detector.max_kp
+
+    # VO: the same generator seed on both sides.
+    cuda_kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    es = vo.init_state(lefts[0], rights[0], cam, cfg, SEED)
+    poses_e, ms_e = [], []
+    for i in range(1, f):
+        es, m = vo.vo_step(es, lefts[i], rights[i], cam, cfg)
+        poses_e.append(es.T_w_cam)
+        ms_e.append(m)
+    torch.cuda.synchronize()
+    t_eager = time.perf_counter() - t0
+    counts_e = cuda_kernels.launch_counts()
+    cuda_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    gs = vo.init_state(lefts[0], rights[0], cam, cfg, SEED)
+    gs, poses_g, ms_g = vo.vo_block(gs, lefts[1:], rights[1:], cam, cfg)
+    torch.cuda.synchronize()
+    t_graph = time.perf_counter() - t0
+    counts_g = cuda_kernels.launch_counts()
+    eager = (torch.stack(poses_e),
+             vo.VOMetrics(*[torch.stack(v) for v in zip(*ms_e)]),
+             es.T_w_cam, es.prev_obs, es.xi_vel, es.generator.get_state(),
+             es.frame)
+    graphed = (poses_g, ms_g, gs.T_w_cam, gs.prev_obs, gs.xi_vel,
+               gs.generator.get_state(), gs.frame)
+    vo_diff = tree_diff(eager, graphed, "vo")
+    graph = gs.graph
+    k = cfg.tracking.ransac_iters
+    carry = (gs.T_w_cam, gs.prev_obs, gs.xi_vel)
+    vo_u = draw_uniform(k, n, gs.generator, lefts.device)
+    vo_t = step_times(
+        "vo_step",
+        lambda: vo.vo_step(es, lefts[5], rights[5], cam, cfg),
+        lambda: graph(carry, lefts[5], rights[5], vo_u), late)
+    say("graphs-vo", frames=f, differing=vo_diff, launches_eager=counts_e,
+        launches_graph=counts_g, eager_loop_frames_per_s=(f - 1) / t_eager,
+        vo_block_frames_per_s=(f - 1) / t_graph, **graph.stats(), **vo_t)
+    check(not vo_diff, f"vo_block differs from the vo_step loop: {vo_diff}")
+    check(counts_e == counts_g,
+          f"VO launch counts: eager {counts_e}, graphed {counts_g}")
+    vo_stats = graph.stats()
+
+    # SLAM: SlamSystem graphed against graphs=False.
+    runs = {}
+    for name, graphs in (("graph", True), ("eager", False)):
+        sys_ = pipeline.SlamSystem(sworld.cam, bcfg, seed=SEED,
+                                   bow_train_frame=30, graphs=graphs)
+        cuda_kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sys_.process(slefts[0], srights[0])
+        run_blocks(sys_, slefts, srights, 1)
+        torch.cuda.synchronize()
+        t_loop = time.perf_counter() - t0
+        post = sys_.finalize()
+        runs[name] = (sys_, post, cuda_kernels.launch_counts(), t_loop)
+    (gsys, gpost, gcounts, gt_loop), (esys, epost, ecounts, et_loop) = (
+        runs["graph"], runs["eager"])
+    check(gsys.step_graph is not None and esys.step_graph is None,
+          "graphs=True did not capture, or graphs=False did")
+    sf = slefts.shape[0]
+
+    def result(sys_, post):
+        return (post, sys_.state, sys_.metrics, sys_.loop_edges,
+                torch.stack(sys_.ba_costs), sys_.n_slates,
+                [dataclasses.astuple(e) for e in sys_.loop_events])
+    slam_diff = tree_diff(result(esys, epost), result(gsys, gpost), "slam")
+    sg = gsys.step_graph
+    # finalize's relaxation replaced four leaves: load them once, so the
+    # timed replays copy nothing.
+    gsys.state = sg.load(gsys.state)
+    d = pipeline.DrawSource(SEED + 2, slefts.device)
+    slam_u = d.step(bcfg.tracking.ransac_iters, n)
+    slam_t = step_times(
+        "slam_step",
+        lambda: pipeline.slam_step(esys.state, slefts[7], srights[7],
+                                   esys.cam, bcfg, d),
+        lambda: sg(gsys.state, slefts[7], srights[7], slam_u), late)
+    say("graphs-slam", frames=sf, differing=slam_diff,
+        launches_eager=ecounts, launches_graph=gcounts,
+        eager_frames_per_s=(sf - 1) / et_loop,
+        graph_frames_per_s=(sf - 1) / gt_loop,
+        loop_edges=len(gsys.loop_edges), local_ba_windows=len(gsys.ba_costs),
+        **sg.stats(), **slam_t)
+    check(not slam_diff, f"SlamSystem's graph replays differ from its "
+          f"eager steps: {slam_diff}")
+    check(ecounts == gcounts,
+          f"SLAM launch counts: eager {ecounts}, graphed {gcounts}")
+    check(len(gsys.loop_edges) >= 2 and sg.loaded > 0,
+          "the graphed pass closed < 2 loops or loaded no write-back")
+    out = {f"vo_step_{k}": v for k, v in vo_t.items()}
+    out.update({f"slam_step_{k}": v for k, v in slam_t.items()})
+    for tag, st in (("vo_step", vo_stats), ("slam_step", sg.stats())):
+        out.update({f"{tag}_graph_{k}": st[k]
+                    for k in ("capture_seconds", "nodes", "pool_bytes")})
+    out.update(graphs_vo_frames_per_s=(f - 1) / t_graph,
+               graphs_slam_frames_per_s=(sf - 1) / gt_loop,
+               graphs_slam_eager_frames_per_s=(sf - 1) / et_loop)
+    return out
 
 
 def flow_stage(cfg, lefts, rights):
@@ -2297,6 +2496,11 @@ def main(argv=None):
         del sys_off
         keep_worst(errs, rel_errs, {k: (e, run_graph_errs[1][k])
                                     for k, e in run_graph_errs[0].items()})
+    if "graphs" in phases:
+        t0 = time.perf_counter()
+        numbers.update(phase_graphs(cfg, world, lefts, rights, bcfg, sworld,
+                                    slefts, srights, late))
+        phase_s["graphs"] = time.perf_counter() - t0
     if "slam-ba" in phases:
         with tempfile.TemporaryDirectory() as tmp:
             sys_, post_ba, by_path["slam_ba"], ckpt, slam_ba = phase_slam_ba(

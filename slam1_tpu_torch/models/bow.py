@@ -96,18 +96,22 @@ def histogram(desc, mask, vocab):
     return h / torch.clamp(torch.sum(h, dim=-1, keepdim=True), min=1.0)
 
 
-def _set_row(table, row: int, gate, value):
-    """table[row] = value where the 0-d bool `gate` holds, else kept."""
-    table[row] = torch.where(gate, value, table[row])
+def _set_row(table, row, gate, value):
+    """table[row] = value where the 0-d bool `gate` holds, else kept;
+    `row` is a (1,) index tensor."""
+    table.index_copy_(0, row, torch.where(gate, value[None],
+                                          table.index_select(0, row)))
 
 
-def add_frame(state: BowState, u, frame_idx: int, desc, mask,
+def add_frame(state: BowState, u, frame_idx, desc, mask,
               is_kf=True) -> BowState:
     """Insert this frame's histogram + descriptor sample into DB row
-    `frame_idx`, gated on keyframe status (u: (N,) draws)."""
+    `frame_idx` (an int or 0-d tensor, clamped into the table on the
+    device), gated on keyframe status (u: (N,) draws)."""
     dev = desc.device
     ok = scalar(is_kf, torch.bool, dev)
-    row = min(int(frame_idx), state.db.shape[0] - 1)
+    row = torch.clamp(scalar(frame_idx, torch.int64, dev), 0,
+                      state.db.shape[0] - 1).reshape(1)
     s = state.frame_desc.shape[1]
     n = mask.shape[0]
     pick = gumbel_top(u, mask, min(s, n))
@@ -145,13 +149,14 @@ def backfill_chunk(state: BowState, start: int, chunk: int) -> BowState:
     return state
 
 
-def query_topk(state: BowState, frame_idx: int, desc, mask,
+def query_topk(state: BowState, frame_idx, desc, mask,
                cfg: BowConfig, k: int = 3, min_sep: int = 8
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chi^2 scan against all frames at least `query_exclude` older,
     returning the k best candidates separated by more than `min_sep`
     frames, best first: (frames (k,) int32, -1 where nothing is
-    eligible; dists (k,) float32, -1 there)."""
+    eligible; dists (k,) float32, -1 there). `frame_idx` is an int or a
+    0-d tensor."""
     h = histogram(desc, mask, state.vocab)
     diff2 = (state.db - h[None, :]) ** 2
     denom = state.db + h[None, :] + 1e-10
@@ -174,7 +179,7 @@ def query_topk(state: BowState, frame_idx: int, desc, mask,
             torch.where(found, vals, -1.0).to(torch.float32))
 
 
-def query(state: BowState, frame_idx: int, desc, mask,
+def query(state: BowState, frame_idx, desc, mask,
           cfg: BowConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """Best-match variant of query_topk."""
     frames, dists = query_topk(state, frame_idx, desc, mask, cfg, k=1)

@@ -267,11 +267,13 @@ def insert(state: MapState, xyz_world, desc, mask, frame_idx, uv,
     return state._replace(cursor=cursor), landmark_of.to(torch.int32)
 
 
-def cull(state: MapState, frame, min_obs, max_age) -> MapState:
+def cull(state: MapState, frame, min_obs, max_age, gate=True) -> MapState:
     """Invalidate landmarks observed fewer than `min_obs` times and not
-    seen for more than `max_age` frames (a later merge revives them)."""
+    seen for more than `max_age` frames (a later merge revives them),
+    where `gate` (a bool or 0-d bool tensor: the cull's cadence, decided
+    on the device) holds."""
     stale = (state.valid & (state.count < min_obs)
-             & (frame - state.last_frame > max_age))
+             & (frame - state.last_frame > max_age) & gate)
     state.valid[:] = state.valid & ~stale
     return state
 
@@ -308,10 +310,12 @@ def init_kf_store(max_frames: int, k: int, desc_bytes: int = 32,
 
 
 def kf_insert(store: KeyframeStore, obs: StereoObservations, pose,
-              k: int, frame: int = 0, is_kf=True) -> KeyframeStore:
+              k: int, frame=0, is_kf=True) -> KeyframeStore:
     """Keep the k strongest valid stereo observations of this frame
     (score 1 + FAST response; invalid slots score -1, ties to the lowest
-    index) in keyframe row `store.n`, when `is_kf` (0-d bool) holds."""
+    index) in keyframe row `store.n`, when `is_kf` (0-d bool) holds.
+    `frame` is an int or a 0-d tensor; its row of `row_of_frame` is
+    clamped into the table on the device."""
     n = obs.mask.shape[0]
     dev = obs.mask.device
     scores = torch.where(obs.mask, 1.0 + obs.score.to(torch.float32),
@@ -338,7 +342,8 @@ def kf_insert(store: KeyframeStore, obs: StereoObservations, pose,
     put(store.mask, sel_mask)
     put(store.poses, pose)
     put(store.frame_of_row, scalar(frame, torch.int32, dev))
-    frow = min(max(int(frame), 0), cap - 1)
-    store.row_of_frame[frow] = torch.where(
-        gate, row[0].to(torch.int32), store.row_of_frame[frow])
+    frow = torch.clamp(scalar(frame, torch.int64, dev), 0, cap - 1)
+    frow = frow.reshape(1)
+    store.row_of_frame.index_copy_(0, frow, torch.where(
+        gate, row.to(torch.int32), store.row_of_frame.index_select(0, frow)))
     return store._replace(n=store.n + gate.to(torch.int32))

@@ -23,8 +23,18 @@ offline pass over all keyframes, with the pose graph as priors.
 State tables are updated in place by `slam_step` (the reference donates
 its state); the backend steps (`local_ba_step`, `global_ba_step`,
 `_pgo_step`) replace the tensors they change. The state's `frame` is a
-host integer. Random draws come from a `DrawSource`; the default draws
-from seeded `torch.Generator`s.
+0-d int32 tensor on the state's device, as in the reference: culling,
+the trajectory write and the ring row are decided on the device, so the
+step's host code is the same at every frame. Random draws come from a
+`DrawSource`, drawn before the step; the default draws from seeded
+`torch.Generator`s.
+
+On CUDA tensors `SlamSystem` runs each frame after the bootstrap as one
+replay of a captured CUDA graph of `_step_core` (`utils/graphs.py`),
+as the reference runs one compiled program per frame; on the CPU, and
+with `SlamSystem(..., graphs=False)`, the same function runs eagerly.
+`SlamSystem.frame_count` is the host mirror of `frame` that steers the
+host's cadences.
 """
 
 from __future__ import annotations
@@ -49,12 +59,13 @@ from slam1_tpu_torch.models.frontend import stereo_frontend
 from slam1_tpu_torch.models.loop_closure import place_query, \
     verify_loop_slate
 from slam1_tpu_torch.models.tracker import chain_pose, temporal_track
-from slam1_tpu_torch.ops import se3
+from slam1_tpu_torch.ops import dispatch, se3
 from slam1_tpu_torch.ops.camera import StereoCamera
 from slam1_tpu_torch.ops.pnp import uniform
 from slam1_tpu_torch.runtime import default_device
 from slam1_tpu_torch.types import StereoObservations
 from slam1_tpu_torch.utils import checkpoint as ckpt_mod
+from slam1_tpu_torch.utils.graphs import StepGraph
 
 MAX_LOOP_EDGES = 128
 KF_FEATURES = 1024          # per-keyframe snapshot (top-K by corner score)
@@ -130,7 +141,7 @@ class SlamState(NamedTuple):
     T_w_cam: torch.Tensor
     prev_obs: StereoObservations
     xi_vel: torch.Tensor
-    frame: int                    # host integer
+    frame: torch.Tensor           # () int32
     map: mapping.MapState
     kf: mapping.KeyframeStore
     bow: bow_mod.BowState
@@ -182,7 +193,7 @@ def _init_state(left, right, cam, cfg: SlamConfig,
         T_w_cam=torch.eye(4, dtype=dt, device=dev),
         prev_obs=obs,
         xi_vel=torch.zeros(6, dtype=dt, device=dev),
-        frame=0,
+        frame=torch.zeros((), dtype=torch.int32, device=dev),
         map=mapping.init_map(cfg.mapping, device=dev),
         kf=mapping.init_kf_store(mf, KF_FEATURES, device=dev),
         bow=bow_mod.init_bow(cfg.bow, mf, device=dev),
@@ -221,8 +232,26 @@ def _inherit_landmarks(match_idx, inherit, prev_lm):
     return torch.where(win >= 0, prev_lm[torch.clamp(win, min=0)], -1)
 
 
+def _put_row(table, idx, ok, value):
+    """table[idx] = value where the 0-d bool `ok` holds, else kept; `idx`
+    is a 0-d tensor, clamped into the table. Decided on the device."""
+    i = torch.clamp(idx.long(), 0, table.shape[0] - 1).reshape(1)
+    table.index_copy_(0, i, torch.where(ok, value[None],
+                                        table.index_select(0, i)))
+
+
+def _pose_at(traj, frame):
+    """traj[clip(frame, 0, F - 1)] for an int or 0-d tensor `frame`,
+    gathered on the device (the reference's clamped index)."""
+    f = mapping.scalar(frame, torch.int64, traj.device)
+    return traj.index_select(
+        0, torch.clamp(f, 0, traj.shape[0] - 1).reshape(1))[0]
+
+
 def _step_core(state: SlamState, left, right, cam: StereoCamera,
                cfg: SlamConfig, u: StepDraws):
+    """One frame on the device of its inputs; nothing is read back to
+    the host, so the function can be captured as a CUDA graph."""
     feats, obs = stereo_frontend(left, right, cam, cfg)
     track = temporal_track(state.prev_obs, feats, cam, cfg,
                            xi_prior=state.xi_vel, u=u.pnp)
@@ -251,11 +280,11 @@ def _step_core(state: SlamState, left, right, cam: StereoCamera,
         mcfg, uv_r_u=obs.uv_r[:, 0], obs_row=kf_row, known_row=cur_lm)
     new_prev_lm = torch.where(lm_of >= 0, lm_of, cur_lm)
 
-    # Landmark culling at a fixed cadence.
-    if (mcfg.cull_min_obs > 0 and mcfg.cull_every > 0
-            and frame % mcfg.cull_every == 0):
+    # Landmark culling at a fixed cadence, under a mask on the device.
+    if mcfg.cull_min_obs > 0 and mcfg.cull_every > 0:
         new_map = mapping.cull(new_map, frame, mcfg.cull_min_obs,
-                               mcfg.cull_max_age)
+                               mcfg.cull_max_age,
+                               gate=(frame % mcfg.cull_every) == 0)
 
     kf = mapping.kf_insert(state.kf, obs, T_w, KF_FEATURES, frame=frame,
                            is_kf=is_kf)
@@ -269,10 +298,11 @@ def _step_core(state: SlamState, left, right, cam: StereoCamera,
                                       cfg.bow, k=4)
     loop_hit = (cands[0] >= 0) & (chi2s[0] < cfg.bow.chi2_accept)
 
-    if frame < state.traj.shape[0]:     # past the end: dropped, as in JAX
-        state.traj[frame] = T_w
-        state.rel[frame] = xi_used
-        state.rel_mask[frame].fill_(True)
+    # Past the end of the trajectory the write is dropped, as in JAX.
+    inside = frame < state.traj.shape[0]
+    _put_row(state.traj, frame, inside, T_w)
+    _put_row(state.rel, frame, inside, xi_used)
+    _put_row(state.rel_mask, frame, inside, inside)
 
     dt = left.dtype
     out_row = torch.stack([
@@ -280,12 +310,12 @@ def _step_core(state: SlamState, left, right, cam: StereoCamera,
         is_kf.to(dt), kf.n.to(dt),
         torch.sum(obs.mask).to(dt),
         track.pnp.num_inliers.to(dt), track.pnp.mean_err.to(dt),
-        track.pnp.ok.to(dt), torch.full((), frame, dtype=dt,
-                                        device=left.device),
+        track.pnp.ok.to(dt), frame.to(dt),
         cands[1].to(dt), chi2s[1].to(dt),
         cands[2].to(dt), chi2s[2].to(dt),
         cands[3].to(dt), chi2s[3].to(dt)])
-    state.rows[frame % ROW_RING] = out_row
+    state.rows.index_copy_(0, (frame % ROW_RING).long().reshape(1),
+                           out_row[None])
     new_state = SlamState(
         T_w_cam=T_w, prev_obs=obs, xi_vel=xi_used, frame=frame,
         map=new_map, kf=kf, bow=bw, traj=state.traj, rel=state.rel,
@@ -303,11 +333,22 @@ def slam_step(state: SlamState, left, right, cam: StereoCamera,
     return _step_core(state, left, right, cam, cfg, u)
 
 
+def _graphed_step(cam: StereoCamera, cfg: SlamConfig):
+    """_step_core as a StepGraph's function: (state, left, right, draws)
+    -> (state, packed row)."""
+    def step(state, left, right, u):
+        new_state, row, _ = _step_core(state, left, right, cam, cfg, u)
+        return new_state, row
+    return step
+
+
 def slam_step_block(state: SlamState, lefts, rights, cam: StereoCamera,
                     cfg: SlamConfig, draws: DrawSource):
-    """K frames as a loop over slam_step (the reference scans them in
-    one program only to spread a remote TPU's per-program cost).
-    Returns (state, rows (K, ROW_W))."""
+    """K frames as an eager loop over slam_step. Returns (state, rows
+    (K, ROW_W)). The reference scans them in one program only to spread
+    a remote TPU's per-program cost; on the card `SlamSystem.
+    process_block` replays a captured graph of the step once per frame
+    instead, which leaves the host no per-launch work."""
     rows = []
     for i in range(lefts.shape[0]):
         state, row, _ = slam_step(state, lefts[i], rights[i], cam, cfg, draws)
@@ -406,7 +447,7 @@ def local_ba_step(state: SlamState, cam: StereoCamera, cfg: SlamConfig,
     xyz_new = _set_rows(state.map.xyz, uniq, uniq_ok, out.points)
     traj = _set_rows(state.traj, frames, fr_ok, out.poses)
     kf_poses = _set_rows(state.kf.poses, rows, row_ok, out.poses)
-    t_w = traj[min(max(state.frame, 0), f_cap - 1)]
+    t_w = _pose_at(traj, state.frame)
 
     # Re-derive the odometry twists of every edge touching a pose this
     # window changed (frames [lo, hi]; edge f couples f-1 and f, hence
@@ -515,7 +556,7 @@ def global_ba_step(state: SlamState, cam: StereoCamera, cfg: SlamConfig,
     kf_poses = torch.cat([
         torch.where(ok[:, None, None], out.poses, state.kf.poses[:n_kf]),
         state.kf.poses[n_kf:]])
-    t_w = traj[min(max(state.frame, 0), traj.shape[0] - 1)]
+    t_w = _pose_at(traj, state.frame)
     new_state = state._replace(
         traj=traj, kf=state.kf._replace(poses=kf_poses),
         map=state.map._replace(xyz=out.points), T_w_cam=t_w)
@@ -525,12 +566,13 @@ def global_ba_step(state: SlamState, cam: StereoCamera, cfg: SlamConfig,
 
 
 def _pgo_step(traj, rel, rel_mask, kf_frames, le_i, le_j, le_z, le_w,
-              frame: int, map_xyz, map_last, map_valid,
+              frame, map_xyz, map_last, map_valid,
               bucket: int, iters: int, cg_iters: int, n_live: int):
     """Pose-graph relaxation over the first `bucket` poses, then
     landmark re-anchoring: each map point rides the pose correction of
     its last-observation frame. `n_live`: poses [0, n_live) carry the
-    odometry; later rows of the bucket only ride along."""
+    odometry; later rows of the bucket only ride along. `frame` (an int
+    or 0-d tensor) picks the returned current pose."""
     traj_old = traj
     t = traj[:bucket]
     ei = torch.arange(bucket - 1, device=traj.device)
@@ -547,7 +589,7 @@ def _pgo_step(traj, rel, rel_mask, kf_frames, le_i, le_j, le_z, le_w,
     opt = torch.where(torch.isfinite(opt).all(), opt, t)
     traj = traj.clone()
     traj[:bucket] = opt
-    t_w = traj[min(max(frame, 0), traj.shape[0] - 1)]
+    t_w = _pose_at(traj, frame)
     new_kf_poses = traj[torch.clamp(kf_frames.long(), 0, traj.shape[0] - 1)]
     f_lm = torch.clamp(map_last.long(), 0, traj.shape[0] - 1)
     d = traj[f_lm] @ se3.inverse(traj_old[f_lm])            # (CAP,4,4)
@@ -589,11 +631,18 @@ class SlamSystem:
     landed, so the backend (loop detection, local BA, PGO) lags the
     camera loop by a bounded number of frames and never stalls it.
     `draws` replaces the default DrawSource (seeded with `seed`).
+
+    On CUDA tensors every frame after the bootstrap is one replay of a
+    CUDA graph of the step, captured at frame 1 (`step_graph`);
+    `graphs=False` runs the step eagerly instead, for comparisons. On
+    CPU tensors the step always runs eagerly. Backend write-backs
+    (local BA, PGO, BoW training, finalize) replace state tensors; the
+    next replay copies them into the graph's state (`StepGraph.load`).
     """
 
     def __init__(self, cam: StereoCamera, cfg: Optional[SlamConfig] = None,
                  seed: int = 0, bow_train_frame: int = 30,
-                 draws: Optional[DrawSource] = None):
+                 draws: Optional[DrawSource] = None, graphs: bool = True):
         self.cam = cam
         self.cfg = cfg or SlamConfig()
         if self.cfg.bow.poll_max_pending > ROW_RING:
@@ -604,6 +653,8 @@ class SlamSystem:
         self.bow_train_frame = bow_train_frame
         self.draws = draws or DrawSource(seed, cam.fx.device)
         self.state: Optional[SlamState] = None
+        self.graphs = graphs
+        self.step_graph: Optional[StepGraph] = None
         self.loop_edges: list = []       # (i, j, Z (4,4) np, weight)
         self.loop_events: list = []
         self.metrics: list = []          # drained StepOutputs
@@ -648,10 +699,26 @@ class SlamSystem:
             return None
         if (self.frame_count - self._last_drained) + 1 > ROW_RING:
             self._poll(force=True)       # never let the ring wrap
-        self.state, out_row, _ = slam_step(self.state, left, right,
-                                           self.cam, cfg, self.draws)
+        out_row = self._step(left, right)
+        if self.step_graph is not None:  # the next replay overwrites it
+            out_row = out_row.clone()
         self._after_frames(1)
         return out_row
+
+    def _step(self, left, right):
+        """One frame after the bootstrap: its draws, then the step (a
+        graph replay on the card) -> the packed row."""
+        u = self.draws.step(self.cfg.tracking.ransac_iters,
+                            self.state.prev_obs.mask.shape[0])
+        if self.graphs and dispatch.use_cuda(left):
+            if self.step_graph is None:
+                self.step_graph = StepGraph(
+                    _graphed_step(self.cam, self.cfg), "slam_step")
+            self.state, row = self.step_graph(self.state, left, right, u)
+            return row
+        self.state, row, _ = _step_core(self.state, left, right, self.cam,
+                                        self.cfg, u)
+        return row
 
     def process_block(self, lefts, rights):
         """Process a (K,H,W) block of frames (bootstrap frame 0 with
@@ -665,8 +732,8 @@ class SlamSystem:
         # that would overwrite undrained rows.
         if (self.frame_count - self._last_drained) + k > ROW_RING:
             self._poll(force=True)
-        self.state, _ = slam_step_block(self.state, lefts, rights, self.cam,
-                                        self.cfg, self.draws)
+        for i in range(k):
+            self._step(lefts[i], rights[i])
         self._after_frames(k)
 
     def _crossed(self, every: int, k: int) -> bool:
@@ -1090,7 +1157,7 @@ class SlamSystem:
                cfg: Optional[SlamConfig] = None,
                device=None) -> "SlamSystem":
         """Restore a system from a checkpoint onto `device` (default: the
-        card when there is one); the camera is moved there."""
+        card; raises where there is none); the camera is moved there."""
         cfg = cfg or SlamConfig()
         device = default_device(device)
         cam = cam.to(device)

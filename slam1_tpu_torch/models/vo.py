@@ -6,11 +6,21 @@
 CUDA tensors the FAST and Hamming stages launch the hand-written
 kernels. The state carries a `torch.Generator` for RANSAC in place of
 the reference's PRNG key; tests may pass each frame's draws instead.
+
+`vo_step` runs eagerly. On CUDA tensors `vo_block` runs each frame as
+one replay of a captured CUDA graph of the step (`utils/graphs.py`), as
+the reference runs one compiled program per frame: the RANSAC draws are
+made from the state's generator before the replay (the same numbers, in
+the same order, as `vo_step` draws), and the returned state lives in
+the graph's buffers, so a state handed to `vo_block` on the card is
+consumed by it (the reference donates it). The returned state carries
+the graph, which the next vo_block call with the same camera and config
+replays.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -18,8 +28,11 @@ import torch
 from slam1_tpu_torch.config import SlamConfig
 from slam1_tpu_torch.models.frontend import stereo_frontend
 from slam1_tpu_torch.models.tracker import chain_pose, temporal_track
+from slam1_tpu_torch.ops import dispatch
 from slam1_tpu_torch.ops.camera import StereoCamera
+from slam1_tpu_torch.ops.pnp import draw_uniform
 from slam1_tpu_torch.types import StereoObservations
+from slam1_tpu_torch.utils.graphs import StepGraph
 
 
 class VOState(NamedTuple):
@@ -28,6 +41,7 @@ class VOState(NamedTuple):
     xi_vel: torch.Tensor           # (6,) last relative twist (motion prior)
     generator: torch.Generator     # RANSAC sampling stream
     frame: int
+    graph: Optional[StepGraph] = None  # vo_block's graph on the card
 
 
 class VOMetrics(NamedTuple):
@@ -64,7 +78,8 @@ def vo_step(state: VOState, left, right, cam: StereoCamera,
                            else state.generator, u=u)
     T_w, xi_used = chain_pose(state.T_w_cam, track.pnp, state.xi_vel)
     new_state = VOState(T_w_cam=T_w, prev_obs=obs, xi_vel=xi_used,
-                        generator=state.generator, frame=state.frame + 1)
+                        generator=state.generator, frame=state.frame + 1,
+                        graph=state.graph)
     metrics = VOMetrics(
         num_stereo=torch.sum(obs.mask),
         num_temporal=track.num_candidates,
@@ -75,10 +90,32 @@ def vo_step(state: VOState, left, right, cam: StereoCamera,
     return new_state, metrics
 
 
+def _graphed_step(cam: StereoCamera, cfg: SlamConfig):
+    """vo_step as a StepGraph's function: ((T_w_cam, prev_obs, xi_vel),
+    left, right, draws) -> (the same three, metrics)."""
+    def step(carry, left, right, u):
+        s, m = vo_step(VOState(*carry, generator=None, frame=0), left,
+                       right, cam, cfg, u=u)
+        return (s.T_w_cam, s.prev_obs, s.xi_vel), m
+    return step
+
+
+def _step_graph(state: VOState, cam: StereoCamera, cfg: SlamConfig):
+    """The graph vo_block replays: the state's own, or a new one where
+    the state has none or one made for another camera or config."""
+    g = state.graph
+    if g is not None and g.key[0] is cam and g.key[1] == cfg:
+        return g
+    return StepGraph(_graphed_step(cam, cfg), "vo_step", key=(cam, cfg))
+
+
 def vo_block(state: VOState, lefts, rights, cam: StereoCamera,
              cfg: SlamConfig, draws=None):
-    """K frames of VO as a loop over vo_step. Returns
-    (state, poses (K,4,4), metrics stacked over K)."""
+    """K frames of VO. Returns (state, poses (K,4,4), metrics stacked
+    over K). On CUDA tensors one graph replay per frame into poses and
+    metrics allocated once per call; on the CPU a loop over vo_step."""
+    if dispatch.use_cuda(lefts):
+        return _vo_block_graphed(state, lefts, rights, cam, cfg, draws)
     poses, ms = [], []
     for i in range(lefts.shape[0]):
         state, m = vo_step(state, lefts[i], rights[i], cam, cfg,
@@ -87,6 +124,31 @@ def vo_block(state: VOState, lefts, rights, cam: StereoCamera,
         ms.append(m)
     return state, torch.stack(poses), VOMetrics(
         *[torch.stack(v) for v in zip(*ms)])
+
+
+def _vo_block_graphed(state, lefts, rights, cam, cfg, draws):
+    k = lefts.shape[0]
+    n = state.prev_obs.mask.shape[0]
+    graph = _step_graph(state, cam, cfg)
+    carry = (state.T_w_cam, state.prev_obs, state.xi_vel)
+    poses = torch.empty((k, 4, 4), dtype=lefts.dtype, device=lefts.device)
+    cols = None
+    for i in range(k):
+        u = (draws[i].to(device=lefts.device, dtype=lefts.dtype)
+             if draws is not None else
+             draw_uniform(cfg.tracking.ransac_iters, n, state.generator,
+                          lefts.device))
+        carry, m = graph(carry, lefts[i], rights[i], u)
+        if cols is None:
+            cols = [torch.empty((k,) + v.shape, dtype=v.dtype,
+                                device=v.device) for v in m]
+        # Both live in the graph's buffers until the next replay.
+        poses[i].copy_(carry[0])
+        for col, v in zip(cols, m):
+            col[i].copy_(v)
+    return (VOState(*carry, generator=state.generator,
+                    frame=state.frame + k, graph=graph), poses,
+            VOMetrics(*cols))
 
 
 def run_sequence(lefts, rights, cam: StereoCamera, cfg: SlamConfig,

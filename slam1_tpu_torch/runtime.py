@@ -16,14 +16,18 @@ torch.backends.cudnn.allow_tf32 = False
 
 
 def default_device(device=None) -> torch.device:
-    """`device` when one is given; else the card when there is one, else
-    the CPU. What `device=None` means in every function of the port that
-    makes tensors from nothing (cameras, synthetic worlds, empty maps and
-    stores, converted numpy states): on a machine with a card the system
-    runs there unless the caller asks for the CPU."""
+    """`device` when one is given, else the card. What `device=None`
+    means in every function of the port that makes tensors from nothing
+    (cameras, synthetic worlds, empty maps and stores, converted numpy
+    states). Raises where there is no card, as `device` does: a run
+    meant for the card never carries on silently on the CPU, and a CPU
+    caller says so (`device="cpu"`)."""
     if device is not None:
         return torch.device(device)
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError('device=None means the card, and CUDA is not '
+                           'available: pass device="cpu" for the CPU')
+    return torch.device("cuda")
 
 
 def device(name: str) -> torch.device:

@@ -17,22 +17,9 @@ from typing import Any
 import numpy as np
 import torch
 
+from slam1_tpu_torch.utils.tree import flatten, unflatten
+
 SCHEMA_VERSION = 1
-
-
-def _flatten(tree) -> list:
-    if isinstance(tree, tuple):
-        return [leaf for child in tree for leaf in _flatten(child)]
-    return [tree]
-
-
-def _unflatten(like, leaves):
-    """`like`'s structure filled from the iterator `leaves`."""
-    if isinstance(like, tuple):
-        children = [_unflatten(child, leaves) for child in like]
-        return type(like)(*children) if hasattr(like, "_fields") \
-            else tuple(children)
-    return next(leaves)
 
 
 def _header(data) -> dict:
@@ -40,7 +27,7 @@ def _header(data) -> dict:
 
 
 def save(path: str, tree: Any, meta: dict | None = None) -> None:
-    leaves = _flatten(tree)
+    leaves = flatten(tree)
     arrays = {f"leaf_{i}": (x.detach().cpu().numpy()
                             if isinstance(x, torch.Tensor) else np.asarray(x))
               for i, x in enumerate(leaves)}
@@ -62,7 +49,7 @@ def load(path: str, like: Any) -> Any:
         if header["version"] != SCHEMA_VERSION:
             raise ValueError(f"checkpoint schema {header['version']} != "
                              f"{SCHEMA_VERSION}")
-        leaves_like = _flatten(like)
+        leaves_like = flatten(like)
         n = header["n_leaves"]
         if n != len(leaves_like):
             raise ValueError(
@@ -79,7 +66,7 @@ def load(path: str, like: Any) -> Any:
                     f"leaf {i}: {tuple(t.shape)} {t.dtype} in the file vs "
                     f"{tuple(ref.shape)} {ref.dtype} expected")
             leaves.append(t.to(ref.device))
-    return _unflatten(like, iter(leaves))
+    return unflatten(like, iter(leaves))
 
 
 def load_meta(path: str) -> dict:

@@ -1,0 +1,209 @@
+"""Per-frame steps as captured CUDA graphs (the counterpart of the
+reference's jitted `vo_step` / `slam_step`, one compiled device program
+per frame with the state donated).
+
+A `StepGraph` wraps a step function `fn(state, *inputs) -> (state,
+out)` whose state and inputs are trees (tuples, NamedTuples) of CUDA
+tensors. Its first call runs `fn` eagerly on a side stream, on a copy
+of the state that becomes the graph's static state: that call is the
+warm-up (it builds the kernels, the per-device caches and cuBLAS's
+workspace on the stream the capture uses) and the frame's real step.
+Then one call of `fn` is captured under `torch.cuda.graph`, followed by
+copies of every new state leaf back into its static leaf. Each later
+call replays the graph once:
+
+  - `load(state)` copies into the static state only the leaves whose
+    tensor is not the static one: after a write-back from outside the
+    step (local BA, PGO, BoW training, a checkpoint load) the next replay
+    reads the new values, and leaves the step updates in place cost
+    nothing;
+  - the frame's inputs (images, draws) are copied into their static
+    buffers and the graph is launched on the current stream.
+
+The returned state is the static state itself, so a state handed to a
+step is consumed by it, as the reference's donation consumes it. `out`
+lives in the graph's memory pool and is overwritten by the next replay:
+a caller that keeps it past that copies it.
+
+A replay makes no call of the kernel wrappers, whose launch counters
+count in Python (`ops/cuda_kernels.py`). The graph records how many
+launches of each kernel it captured and adds them to the counters at
+each replay, so the counts equal an eager run's.
+
+A capture that fails, or a call whose state or inputs differ in
+structure, shape, dtype or device from the captured ones, raises;
+nothing falls back to eager execution.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import time
+
+import torch
+
+from slam1_tpu_torch.ops import cuda_kernels
+from slam1_tpu_torch.utils.tree import flatten, unflatten
+
+
+def _check_tensors(tree):
+    """Raise unless every leaf of the tree is a tensor."""
+    for leaf in flatten(tree):
+        if not isinstance(leaf, torch.Tensor):
+            raise TypeError(f"a step graph's leaves are tensors, got "
+                            f"{type(leaf).__name__}")
+
+
+def load_leaves(static: list, leaves: list) -> int:
+    """Copy leaves[i] into static[i] where it is not that tensor; returns
+    how many were copied. Raises where the trees differ in their leaf
+    count, or a leaf in shape, dtype or device."""
+    copied = 0
+    for s, x in zip(static, leaves, strict=True):
+        if x is s:
+            continue
+        if x.shape != s.shape or x.dtype != s.dtype or x.device != s.device:
+            raise ValueError(f"leaf {tuple(x.shape)} {x.dtype} on "
+                             f"{x.device} does not fit the captured "
+                             f"{tuple(s.shape)} {s.dtype} on {s.device}")
+        s.copy_(x)
+        copied += 1
+    return copied
+
+
+def _write_back(static: list, leaves: list):
+    """Copy the step's new state leaves into the static state. A new
+    leaf that shares memory with a static leaf (but is not it) is cloned
+    first, so that no copy reads a leaf another copy has written."""
+    storages = {s.untyped_storage().data_ptr() for s in static}
+    pending = []
+    for s, x in zip(static, leaves, strict=True):
+        if x is s:
+            continue
+        if x.shape != s.shape or x.dtype != s.dtype:
+            raise ValueError(f"the step changed a state leaf from "
+                             f"{tuple(s.shape)} {s.dtype} to "
+                             f"{tuple(x.shape)} {x.dtype}")
+        if x.untyped_storage().data_ptr() in storages:
+            x = x.clone()
+        pending.append((s, x))
+    for s, x in pending:
+        s.copy_(x)
+
+
+def graph_nodes(graph: torch.cuda.CUDAGraph) -> int:
+    """Nodes of a graph captured with keep_graph=True (the driver's
+    cuGraphGetNodes)."""
+    n = ctypes.c_size_t(0)
+    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
+    if err:
+        raise RuntimeError(f"cuGraphGetNodes: CUDA driver error {err}")
+    return n.value
+
+
+class StepGraph:
+    """One step function captured as a CUDA graph at its first call and
+    replayed at every later one (see the module docstring). `name`
+    labels errors and measurements; `key` says what the caller made the
+    graph for, to compare before reusing it."""
+
+    def __init__(self, fn, name: str, key=None):
+        self.fn = fn
+        self.name = name
+        self.key = key
+        self.graph = None
+        self._state_like = None      # the static state tree
+        self._state = None           # its leaves
+        self._inputs = None          # static input leaves
+        self._out = None             # the captured call's `out`
+        self.launches = {}           # kernel launches one replay makes
+        self.capture_seconds = None  # warm-up step + capture, host clock
+        self.pool_bytes = None       # memory the capture reserved
+        self.nodes = None            # nodes of the captured graph
+        self.replays = 0
+        self.loaded = 0              # state leaves copied by load()
+
+    def __call__(self, state, *inputs):
+        """(state, out) of one step: the captured graph replayed, or at
+        the first call the warm-up step followed by the capture."""
+        if self.graph is None:
+            return self._capture(state, inputs)
+        self.load(state)
+        self.replay(*inputs)
+        return self._state_like, self._out
+
+    def load(self, state):
+        """Make the static state hold `state`: copy each leaf that is not
+        the static tensor itself. Returns the static state."""
+        self.loaded += load_leaves(self._state, flatten(state))
+        return self._state_like
+
+    def replay(self, *inputs):
+        """Copy one frame's inputs into the static buffers and launch the
+        graph on the current stream."""
+        load_leaves(self._inputs, flatten(inputs))
+        self.graph.replay()
+        self.replays += 1
+        for name, n in self.launches.items():
+            cuda_kernels._COUNTED[name].launches += n
+
+    def _capture(self, state, inputs):
+        _check_tensors((state, inputs))
+        leaves = flatten(state) + flatten(inputs)
+        dev = leaves[0].device
+        if dev.type != "cuda" or any(x.device != dev for x in leaves):
+            raise ValueError(f"{self.name}: a step graph takes CUDA tensors "
+                             f"on one device")
+        t0 = time.perf_counter()
+        main = torch.cuda.current_stream(dev)
+        # The static buffers are made on the stream that replays into
+        # them; the warm-up and the capture run on a side stream.
+        static = [x.clone() for x in flatten(state)]
+        static_in = [x.clone() for x in flatten(inputs)]
+        state_like = unflatten(state, iter(static))
+        inputs_like = unflatten(inputs, iter(static_in))
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            new, out = self.fn(state_like, *inputs_like)
+            _write_back(static, flatten(new))
+        side.synchronize()
+        counts = cuda_kernels.launch_counts()
+        # torch.cuda.graph empties the allocator's cache as it starts:
+        # emptied here first, what the capture reserves is its pool.
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        # Kept after the capture so that its nodes can be counted.
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        try:
+            with torch.cuda.graph(graph, stream=side,
+                                  capture_error_mode="thread_local"):
+                g_new, g_out = self.fn(state_like, *inputs_like)
+                _write_back(static, flatten(g_new))
+        except Exception as e:
+            raise RuntimeError(f"{self.name}: CUDA graph capture failed: "
+                               f"{e}") from e
+        finally:
+            captured = cuda_kernels.launch_counts()
+            for name, fn in cuda_kernels._COUNTED.items():
+                fn.launches = counts[name]
+        self.nodes = graph_nodes(graph)
+        graph.instantiate()
+        main.wait_stream(side)
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self.launches = {k: captured[k] - counts[k] for k in counts
+                         if captured[k] != counts[k]}
+        self.graph = graph
+        self._state_like, self._state = state_like, static
+        self._inputs, self._out = static_in, g_out
+        torch.cuda.synchronize(dev)
+        self.capture_seconds = time.perf_counter() - t0
+        return state_like, out
+
+    def stats(self) -> dict:
+        """What a measurement reports of the graph."""
+        return dict(capture_seconds=self.capture_seconds,
+                    nodes=self.nodes, pool_bytes=self.pool_bytes,
+                    launches_per_replay=self.launches,
+                    replays=self.replays, leaves_loaded=self.loaded)

@@ -89,12 +89,12 @@ def bow_state(b_np, device=None) -> BowState:
 
 def slam_state(s_np, device=None) -> SlamState:
     """The reference's SlamState without its PRNG key (the port's draws
-    come from a DrawSource); `frame` becomes a host integer."""
+    come from a DrawSource)."""
     return SlamState(
         T_w_cam=tensor(s_np.T_w_cam, device),
         prev_obs=observations(s_np.prev_obs, device),
         xi_vel=tensor(s_np.xi_vel, device),
-        frame=int(np.asarray(s_np.frame)),
+        frame=tensor(s_np.frame, device),
         map=map_state(s_np.map, device), kf=kf_store(s_np.kf, device),
         bow=bow_state(s_np.bow, device),
         traj=tensor(s_np.traj, device), rel=tensor(s_np.rel, device),

@@ -17,6 +17,7 @@ import torch
 from slam1_tpu_torch.config import tiny_config
 from slam1_tpu_torch.models import pipeline
 from slam1_tpu_torch.utils import checkpoint, synthetic
+from slam1_tpu_torch.utils.tree import flatten
 from torch_threads import one_torch_thread  # noqa: F401
 
 N_FRAMES = 36
@@ -48,7 +49,7 @@ def test_tree_round_trip(tmp_path):
     back = checkpoint.load(path, like)
     assert type(back[0]) is type(tree[0]) and back[1] == 7
     assert isinstance(back[1], int)
-    for a, b in zip(checkpoint._flatten(back), checkpoint._flatten(tree)):
+    for a, b in zip(flatten(back), flatten(tree)):
         if isinstance(b, torch.Tensor):
             assert a.dtype == b.dtype and torch.equal(a, b)
     assert checkpoint.load_meta(path) == {"note": "x", "edges": [[1, 2.5]]}

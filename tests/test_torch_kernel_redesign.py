@@ -305,8 +305,12 @@ def test_column_strips_fill_the_card_and_fit_the_kernel(n, m, problems):
 def test_constructors_default_to_the_card_when_there_is_one(monkeypatch):
     assert runtime.default_device("cpu") == torch.device("cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert runtime.default_device() == torch.device("cpu")
-    assert StereoCamera.kitti_default().fx.device.type == "cpu"
+    # No card: device=None raises; nothing falls back to the CPU.
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        runtime.default_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        StereoCamera.kitti_default()
+    assert StereoCamera.kitti_default(device="cpu").fx.device.type == "cpu"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert runtime.default_device() == torch.device("cuda")
     assert runtime.default_device("cpu") == torch.device("cpu")

@@ -125,11 +125,12 @@ def main(argv=None) -> int:
     z = torch.zeros(64, dtype=torch.int32, device=dev)
     le = (z, z, torch.eye(4, device=dev).repeat(64, 1, 1),
           torch.zeros(64, device=dev))
+    n_live = int(st2.frame) + 1
     timeit("pgo_step (bucket=512)", lambda: pipeline._pgo_step(
         st2.traj, st2.rel, st2.rel_mask, st2.kf.frame_of_row, *le,
         st2.frame, st2.map.xyz, st2.map.last_frame, st2.map.valid,
         bucket=512, iters=max(cfg.ba.pg_iters // 5, 3),
-        cg_iters=cfg.ba.cg_iters, n_live=st2.frame + 1),
+        cg_iters=cfg.ba.cg_iters, n_live=n_live),
         reps=max(reps // 4, 1))
     print(json.dumps({"device": (torch.cuda.get_device_name(dev)
                                  if dev.type == "cuda" else "cpu"),
