@@ -82,15 +82,20 @@ exits non-zero and never prints the final `ok` line:
                (one replay of a CUDA graph of vo_step per frame) against
                a loop of vo_step on the arc clip from the same generator
                seed (poses, metrics, final state and generator equal to
-               the bit), and SlamSystem's replays against
+               the bit), and SlamSystem's replays (the step, and the
+               backend's local BA, loop slates and place queries, each
+               a graph over the step graph's state) against
                graphs=False over the 600-frame clip at slam-ba's config
                (BoW training at frame 30, culls every 32 frames, local
                BA write-backs, the ring's wrap at 256, live PGOs,
                finalize: poses, the whole state, metrics rows, loop
                edges and events, BA costs equal to the bit); equal
-               launch counts; 0 host syncs in a warm replay. Prints ms
-               per warm vo_step and slam_step, eager and graphed (CUDA
-               events and host clock; the device-busy shares from
+               launch counts; one backend replay per local BA window
+               and slate after the first; 0 host syncs in a warm
+               replay of every graph. Prints ms per warm vo_step,
+               slam_step, local BA window, slate and place query (at
+               the final keyframe count's bucket), eager and graphed
+               (CUDA events and host clock; the device-busy shares from
                torch.profiler with the late sessions), capture seconds,
                graph nodes and pool bytes. The other phases' VO and SLAM
                runs replay graphs too (the card's default).
@@ -1189,14 +1194,66 @@ def step_times(tag, eager, graphed, late):
     return out
 
 
+def backend_times(cfg, esys, gsys, late):
+    """The backend graphs of the graphed SLAM pass (`gsys`) against
+    eager calls of the same functions on the eager pass's state: ms per
+    call (CUDA events and host clock), the host syncs of a warm replay
+    (0), the device-busy shares (into `late`) and each graph's stats.
+    Inputs: local BA's window ending at the middle keyframe, a slate of
+    the run's loop edges padded to SLATE_B, the newest keyframe's place
+    query at its row bucket."""
+    graphs = gsys.backend_graphs
+    st = gsys.state
+    dev = st.traj.device
+    kf_n = int(st.kf.n)
+
+    def i64(v):
+        return torch.full((), v, dtype=torch.int64, device=dev)
+    pairs = [(j, i) for i, j, _, _ in gsys.loop_edges][:SLATE_B]
+    hfs = [a for a, _ in pairs] + [0] * (SLATE_B - len(pairs))
+    cs = [c for _, c in pairs] + [-1] * (SLATE_B - len(pairs))
+    u = gsys.draws.slate(hfs, cs, 0, pipeline.LOOP_RANSAC_ITERS,
+                         pipeline.KF_FEATURES)
+    n_rows = next(b for b in (128, 512, 1024, 2048, 8192) if b >= kf_n)
+    q_frame = int(st.kf.frame_of_row[kf_n - 1])
+    place = f"place_query[{n_rows}]"
+    calls = {
+        "local_ba": (pipeline._graphed_local_ba(esys.cam, cfg),
+                     (i64(kf_n // 2),)),
+        "slate": (pipeline._graphed_slate(esys.cam, cfg),
+                  (u, torch.tensor(cs, device=dev),
+                   torch.tensor(hfs, device=dev))),
+        place: (pipeline._graphed_place_query(cfg, n_rows),
+                (i64(kf_n - 1), i64(q_frame - cfg.bow.query_exclude))),
+    }
+    check(set(calls) <= set(graphs),
+          f"the graphed pass made the backend graphs {sorted(graphs)}, "
+          f"not {sorted(calls)}")
+    replays = {name: g.replays for name, g in graphs.items()}
+    out = {}
+    for name, (fn, args) in calls.items():
+        g, tag = graphs[name], name.split("[")[0]
+        t = step_times(
+            tag, lambda fn=fn, args=args: fn(esys.state, *args),
+            lambda g=g, args=args: g(gsys.state, *args), late)
+        stats = g.stats()
+        say(f"graphs-{tag}", graph=name, replays_in_pass=replays[name],
+            **stats, **t)
+        out.update({f"{tag}_{k}": v for k, v in t.items()})
+        out.update({f"{tag}_graph_{k}": stats[k]
+                    for k in ("capture_seconds", "nodes", "pool_bytes")})
+    return replays, out
+
+
 def phase_graphs(cfg, world, lefts, rights, bcfg, sworld, slefts, srights,
                  late):
     """The graphed steps against eager ones on the card: vo_block (one
     graph replay per frame) against a loop of vo_step on the arc clip,
-    and SlamSystem's graph replays against graphs=False over the
-    600-frame loop2 clip at `bcfg` (BoW training, culls, local BA
-    write-backs, the ring's wrap, live PGOs, finalize). Everything must
-    be equal to the bit, launch counts included."""
+    and SlamSystem's graph replays (the step, and local BA, the slates
+    and the place queries over the step graph's state) against
+    graphs=False over the 600-frame loop2 clip at `bcfg` (BoW training,
+    culls, local BA write-backs, the ring's wrap, live PGOs, finalize).
+    Everything must be equal to the bit, launch counts included."""
     cam, f = world.cam, lefts.shape[0]
     n = cfg.detector.max_kp
 
@@ -1291,7 +1348,15 @@ def phase_graphs(cfg, world, lefts, rights, bcfg, sworld, slefts, srights,
           f"SLAM launch counts: eager {ecounts}, graphed {gcounts}")
     check(len(gsys.loop_edges) >= 2 and sg.loaded > 0,
           "the graphed pass closed < 2 loops or loaded no write-back")
-    out = {f"vo_step_{k}": v for k, v in vo_t.items()}
+    replays, backend_t = backend_times(bcfg, esys, gsys, late)
+    # Each backend graph's first call is its warm-up: one replay per
+    # later local BA window and slate.
+    check(replays["local_ba"] == len(gsys.ba_costs) - 1
+          and replays["slate"] == gsys.n_slates - 1,
+          f"backend replays {replays}, windows {len(gsys.ba_costs)}, "
+          f"slates {gsys.n_slates}")
+    out = dict(backend_t)
+    out.update({f"vo_step_{k}": v for k, v in vo_t.items()})
     out.update({f"slam_step_{k}": v for k, v in slam_t.items()})
     for tag, st in (("vo_step", vo_stats), ("slam_step", sg.stats())):
         out.update({f"{tag}_graph_{k}": st[k]

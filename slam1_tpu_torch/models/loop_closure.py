@@ -17,7 +17,7 @@ from typing import NamedTuple
 import torch
 
 from slam1_tpu_torch.config import SlamConfig
-from slam1_tpu_torch.models.mapping import KeyframeStore
+from slam1_tpu_torch.models.mapping import KeyframeStore, scalar
 from slam1_tpu_torch.ops import hamming
 from slam1_tpu_torch.ops.brief import unpack_bits_pm1
 from slam1_tpu_torch.ops.camera import StereoCamera
@@ -94,22 +94,25 @@ def verify_loop_pair(u, store: KeyframeStore, cand_frame: int,
     return LoopPairResult(*[v[0] for v in res])
 
 
-def place_query(store: KeyframeStore, q_row: int, max_frame: int,
-                n_rows: int, k: int = 4, thresh: int = 48,
-                nms_frames: int = 50):
+def place_query(store: KeyframeStore, q_row, max_frame, n_rows: int,
+                k: int = 4, thresh: int = 48, nms_frames: int = 50):
     """Brute-force place recognition: score every stored keyframe row
     below `n_rows` by how many of the query keyframe's descriptors have
     a match within Hamming distance `thresh` in its snapshot; return the
     top-k candidate frames (NMS-separated by >= nms_frames, frames
     newer than `max_frame` excluded) and their scores.
 
+    `q_row` and `max_frame` are ints or 0-d tensors on the store's
+    device; nothing is read back to the host, so with tensors the
+    function can be captured as a CUDA graph (one per `n_rows`).
     The +-1 product is exact in bf16 with a float32 sum (and in float32
     on the CPU); it runs PLACE_CHUNK keyframes at a time.
     """
     dev = store.desc.device
     mm_dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
-    qa = unpack_bits_pm1(store.desc[q_row]).to(mm_dtype)     # (N,256)
-    q_mask = store.mask[q_row]
+    q = scalar(q_row, torch.int64, dev).reshape(1)
+    qa = unpack_bits_pm1(store.desc.index_select(0, q)[0]).to(mm_dtype)
+    q_mask = store.mask.index_select(0, q)[0]                 # (N,)
     bits = qa.shape[1]
     K = store.desc.shape[1]
     scores = []
@@ -125,7 +128,7 @@ def place_query(store: KeyframeStore, q_row: int, max_frame: int,
                                 .to(torch.float32), dim=0))
     scores = torch.cat(scores)
     fo = store.frame_of_row[:n_rows].long()
-    valid = (fo >= 0) & (fo <= max_frame)
+    valid = (fo >= 0) & (fo <= scalar(max_frame, torch.int64, dev))
     scores = torch.where(valid, scores, torch.full_like(scores, -1.0))
 
     cands, cscores = [], []

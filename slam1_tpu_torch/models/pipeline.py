@@ -31,8 +31,12 @@ step's host code is the same at every frame. Random draws come from a
 
 On CUDA tensors `SlamSystem` runs each frame after the bootstrap as one
 replay of a captured CUDA graph of `_step_core` (`utils/graphs.py`),
-as the reference runs one compiled program per frame; on the CPU, and
-with `SlamSystem(..., graphs=False)`, the same function runs eagerly.
+as the reference runs one compiled program per frame, and each call of
+`local_ba_step`, of a loop slate (`verify_loop_slate` +
+`_pack_slate_result`) and of `place_query` as one replay of a graph
+captured over the step graph's state, as the reference jits each of
+them; on the CPU, and with `SlamSystem(..., graphs=False)`, the same
+functions run eagerly.
 `SlamSystem.frame_count` is the host mirror of `frame` that steers the
 host's cadences.
 """
@@ -66,6 +70,7 @@ from slam1_tpu_torch.runtime import default_device
 from slam1_tpu_torch.types import StereoObservations
 from slam1_tpu_torch.utils import checkpoint as ckpt_mod
 from slam1_tpu_torch.utils.graphs import StepGraph
+from slam1_tpu_torch.utils.tree import flatten, unflatten
 
 MAX_LOOP_EDGES = 128
 KF_FEATURES = 1024          # per-keyframe snapshot (top-K by corner score)
@@ -609,6 +614,36 @@ def _pack_slate_result(res) -> torch.Tensor:
                      res.ok.to(dt)], dim=-1)], dim=-1)
 
 
+def _graphed_local_ba(cam: StereoCamera, cfg: SlamConfig):
+    """local_ba_step as a backend graph's function: (state, end_kf, a 0-d
+    int64 tensor) -> (state, cost)."""
+    def step(state, end_kf):
+        return local_ba_step(state, cam, cfg, end_kf=end_kf)
+    return step
+
+
+def _graphed_slate(cam: StereoCamera, cfg: SlamConfig):
+    """verify_loop_slate + _pack_slate_result as a backend graph's
+    function: (state, u, cand_frames, hit_frames) -> (state, (K,19))."""
+    def step(state, u, cand_frames, hit_frames):
+        res = verify_loop_slate(u, state.kf, cand_frames, hit_frames, cam,
+                                cfg)
+        return state, _pack_slate_result(res)
+    return step
+
+
+def _graphed_place_query(cfg: SlamConfig, n_rows: int):
+    """place_query at the `n_rows` bucket as a backend graph's function:
+    (state, q_row, max_frame, 0-d int64 tensors) -> (state, (cands,
+    scores))."""
+    b = cfg.bow
+    def step(state, q_row, max_frame):
+        return state, place_query(state.kf, q_row, max_frame, n_rows,
+                                  k=b.place_topk, thresh=b.place_thresh,
+                                  nms_frames=b.place_nms_frames)
+    return step
+
+
 @dataclasses.dataclass
 class LoopEvent:
     frame: int
@@ -633,11 +668,14 @@ class SlamSystem:
     `draws` replaces the default DrawSource (seeded with `seed`).
 
     On CUDA tensors every frame after the bootstrap is one replay of a
-    CUDA graph of the step, captured at frame 1 (`step_graph`);
-    `graphs=False` runs the step eagerly instead, for comparisons. On
-    CPU tensors the step always runs eagerly. Backend write-backs
-    (local BA, PGO, BoW training, finalize) replace state tensors; the
-    next replay copies them into the graph's state (`StepGraph.load`).
+    CUDA graph of the step, captured at frame 1 (`step_graph`), and the
+    backend's local BA, loop slate and place query (one graph per row
+    bucket) each replay a graph captured over the step graph's static
+    state at their first call (`backend_graphs`); `graphs=False` runs
+    them all eagerly instead, for comparisons. On CPU tensors everything
+    runs eagerly. Write-backs of the eager backend (live PGO, BoW
+    training, finalize) replace state tensors; the next replay copies
+    them into the graphs' state (`StepGraph.load`).
     """
 
     def __init__(self, cam: StereoCamera, cfg: Optional[SlamConfig] = None,
@@ -655,6 +693,7 @@ class SlamSystem:
         self.state: Optional[SlamState] = None
         self.graphs = graphs
         self.step_graph: Optional[StepGraph] = None
+        self.backend_graphs: dict = {}   # name -> StepGraph over step_graph
         self.loop_edges: list = []       # (i, j, Z (4,4) np, weight)
         self.loop_events: list = []
         self.metrics: list = []          # drained StepOutputs
@@ -719,6 +758,28 @@ class SlamSystem:
         self.state, row, _ = _step_core(self.state, left, right, self.cam,
                                         self.cfg, u)
         return row
+
+    def _backend(self, name: str, fn, *inputs):
+        """One backend program `fn(state, *inputs) -> (state, out)` on
+        self.state -> out. Once the step runs as a graph, the program is
+        the graph `name` over the step graph's static state (captured at
+        its first call, replayed after), and `out` is copied out of the
+        graphs' pool; before that, and with graphs=False, it runs
+        eagerly."""
+        if self.step_graph is None:
+            self.state, out = fn(self.state, *inputs)
+            return out
+        graph = self.backend_graphs.get(name)
+        if graph is None:
+            graph = self.backend_graphs[name] = StepGraph(
+                fn, name, over=self.step_graph)
+        self.state, out = graph(self.state, *inputs)
+        return unflatten(out, iter([x.clone() for x in flatten(out)]))
+
+    def _device_int(self, v: int) -> torch.Tensor:
+        """A 0-d int64 input of a backend program, filled on the device."""
+        return torch.full((), v, dtype=torch.int64,
+                          device=self.state.traj.device)
 
     def process_block(self, lefts, rights):
         """Process a (K,H,W) block of frames (bootstrap frame 0 with
@@ -869,8 +930,9 @@ class SlamSystem:
         if cfg.ba.local_every:
             while kf_n - self._kf_at_last_ba >= cfg.ba.local_every:
                 self._kf_at_last_ba += cfg.ba.local_every
-                self.state, cost = local_ba_step(
-                    self.state, self.cam, cfg, end_kf=self._kf_at_last_ba)
+                cost = self._backend(
+                    "local_ba", _graphed_local_ba(self.cam, cfg),
+                    self._device_int(self._kf_at_last_ba))
                 self.ba_costs.append(cost)   # stays on the device
 
     def _place_pairs(self, q_row, q_frame, max_frame, kf_n):
@@ -880,10 +942,9 @@ class SlamSystem:
         n_rows = next((b for b in (128, 512, 1024, 2048, 8192)
                        if b >= kf_n and b <= cap), cap)
         t0 = time.perf_counter()
-        cands, scores = place_query(
-            self.state.kf, q_row, max_frame, n_rows,
-            k=cfg.bow.place_topk, thresh=cfg.bow.place_thresh,
-            nms_frames=cfg.bow.place_nms_frames)
+        cands, scores = self._backend(
+            f"place_query[{n_rows}]", _graphed_place_query(cfg, n_rows),
+            self._device_int(q_row), self._device_int(max_frame))
         cands, scores = cands.cpu().numpy(), scores.cpu().numpy()
         self.stage_seconds["place_query"].append(time.perf_counter() - t0)
         return [(q_frame, int(c), float(s))
@@ -951,12 +1012,11 @@ class SlamSystem:
         dev = self.state.kf.xyz.device
         u = self.draws.slate(hfs, cs, salt, LOOP_RANSAC_ITERS,
                              self.state.kf.xyz.shape[1])
-        res = verify_loop_slate(u, self.state.kf,
-                                torch.tensor(cs, device=dev),
-                                torch.tensor(hfs, device=dev),
-                                self.cam, self.cfg)
+        packed = self._backend(
+            "slate", _graphed_slate(self.cam, self.cfg), u,
+            torch.tensor(cs, device=dev), torch.tensor(hfs, device=dev))
         self.n_slates += 1
-        self._verifying.append((rows, _pack_slate_result(res), depth))
+        self._verifying.append((rows, packed, depth))
 
     def _retry_rows(self, frame, cand, chi2, a_frame):
         """Near-miss retry slate: the adjacent candidate keyframes against

@@ -30,6 +30,15 @@ count in Python (`ops/cuda_kernels.py`). The graph records how many
 launches of each kernel it captured and adds them to the counters at
 each replay, so the counts equal an eager run's.
 
+A graph may be captured over another graph's static state (`over`):
+the SLAM backend's programs (local BA, the loop slate, the place query)
+read the step graph's static state as their state input and write
+their new leaves back into it in place, so that no state is cloned and
+the next step replay copies nothing. Such a graph shares the memory
+pool of the graph it runs over: the graphs replay one at a time on one
+stream, and what a replay returns is valid until the next replay of
+any graph of the pool, so a caller copies it first.
+
 A capture that fails, or a call whose state or inputs differ in
 structure, shape, dtype or device from the captured ones, raises;
 nothing falls back to eager execution.
@@ -108,10 +117,12 @@ class StepGraph:
     labels errors and measurements; `key` says what the caller made the
     graph for, to compare before reusing it."""
 
-    def __init__(self, fn, name: str, key=None):
+    def __init__(self, fn, name: str, key=None,
+                 over: "StepGraph | None" = None):
         self.fn = fn
         self.name = name
         self.key = key
+        self.over = over             # the graph whose static state it uses
         self.graph = None
         self._state_like = None      # the static state tree
         self._state = None           # its leaves
@@ -139,6 +150,23 @@ class StepGraph:
         self.loaded += load_leaves(self._state, flatten(state))
         return self._state_like
 
+    def _bind(self, state, inputs):
+        """The static state (a clone of `state`, or the state of the graph
+        this one runs over, loaded with `state`) and static inputs (clones
+        of `inputs`) that the capture reads and the replays refill."""
+        if self.over is None:
+            self._state = [x.clone() for x in flatten(state)]
+            self._state_like = unflatten(state, iter(self._state))
+        else:
+            if self.over.graph is None:
+                raise ValueError(f"{self.name}: the graph it runs over, "
+                                 f"{self.over.name}, is not captured yet")
+            self.over.load(state)
+            self._state = self.over._state
+            self._state_like = self.over._state_like
+        self._inputs = [x.clone() for x in flatten(inputs)]
+        return unflatten(inputs, iter(self._inputs))
+
     def replay(self, *inputs):
         """Copy one frame's inputs into the static buffers and launch the
         graph on the current stream."""
@@ -159,10 +187,8 @@ class StepGraph:
         main = torch.cuda.current_stream(dev)
         # The static buffers are made on the stream that replays into
         # them; the warm-up and the capture run on a side stream.
-        static = [x.clone() for x in flatten(state)]
-        static_in = [x.clone() for x in flatten(inputs)]
-        state_like = unflatten(state, iter(static))
-        inputs_like = unflatten(inputs, iter(static_in))
+        inputs_like = self._bind(state, inputs)
+        static, state_like = self._state, self._state_like
         side = torch.cuda.Stream(dev)
         side.wait_stream(main)
         with torch.cuda.stream(side):
@@ -176,8 +202,9 @@ class StepGraph:
         reserved = torch.cuda.memory_reserved(dev)
         # Kept after the capture so that its nodes can be counted.
         graph = torch.cuda.CUDAGraph(keep_graph=True)
+        pool = None if self.over is None else self.over.graph.pool()
         try:
-            with torch.cuda.graph(graph, stream=side,
+            with torch.cuda.graph(graph, pool=pool, stream=side,
                                   capture_error_mode="thread_local"):
                 g_new, g_out = self.fn(state_like, *inputs_like)
                 _write_back(static, flatten(g_new))
@@ -195,8 +222,7 @@ class StepGraph:
         self.launches = {k: captured[k] - counts[k] for k in counts
                          if captured[k] != counts[k]}
         self.graph = graph
-        self._state_like, self._state = state_like, static
-        self._inputs, self._out = static_in, g_out
+        self._out = g_out
         torch.cuda.synchronize(dev)
         self.capture_seconds = time.perf_counter() - t0
         return state_like, out

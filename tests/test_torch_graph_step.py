@@ -24,14 +24,12 @@ there is a card.
 """
 
 import dataclasses
-import types
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from slam1_tpu.config import tiny_config as jtiny
 from slam1_tpu.models import pipeline as jpipe
@@ -42,6 +40,8 @@ from slam1_tpu_torch.models import vo
 from slam1_tpu_torch.ops import pnp
 from slam1_tpu_torch.utils import checkpoint, graphs, interop, synthetic, \
     tree
+from torch_graph_helpers import HostReads, same_bits
+from torch_graph_helpers import emulated_graphs  # noqa: F401
 from torch_threads import one_torch_thread  # noqa: F401
 
 N_FRAMES = 36
@@ -199,24 +199,6 @@ def test_vo_step_with_outside_draws_equals_its_own_draws():
 
 # ------------------------------------------------------------ host reads
 
-_HOST_OPS = ("_local_scalar_dense", "nonzero", "masked_select", "unique",
-             "bincount", "histc", "lift_fresh", "repeat_interleave")
-
-
-class _HostReads(TorchDispatchMode):
-    """Records every operation that reads a value on the host or makes
-    a tensor from host data: none may run inside a captured graph."""
-
-    def __init__(self):
-        super().__init__()
-        self.ops = []
-
-    def __torch_dispatch__(self, func, types_, args=(), kwargs=None):
-        if any(op in str(func) for op in _HOST_OPS):
-            self.ops.append(str(func))
-        return func(*args, **(kwargs or {}))
-
-
 def test_the_steps_read_nothing_back_to_the_host():
     cfg = tiny_config()
     h, w = cfg.image.height, cfg.image.width
@@ -229,16 +211,16 @@ def test_the_steps_read_nothing_back_to_the_host():
     st, _, _ = tpipe.slam_step(st, lefts[1], rights[1], world.cam, cfg,
                                draws)
     u = draws.step(cfg.tracking.ransac_iters, st.prev_obs.mask.shape[0])
-    with _HostReads() as rec:
+    with HostReads() as rec:
         tpipe._step_core(st, lefts[2], rights[2], world.cam, cfg, u)
     assert rec.ops == []
     vs = vo.init_state(lefts[0], rights[0], world.cam, cfg)
     u = pnp.draw_uniform(cfg.tracking.ransac_iters,
                          vs.prev_obs.mask.shape[0], vs.generator, "cpu")
-    with _HostReads() as rec:
+    with HostReads() as rec:
         vo.vo_step(vs, lefts[1], rights[1], world.cam, cfg, u=u)
     assert rec.ops == []
-    with _HostReads() as rec:                 # the recorder sees reads
+    with HostReads() as rec:                 # the recorder sees reads
         bool(st.frame > 0)
     assert rec.ops == ["aten._local_scalar_dense.default"]
 
@@ -287,46 +269,6 @@ def test_tree_helpers_and_tensor_leaves():
             (torch.zeros(1),), ())
 
 
-@pytest.fixture
-def emulated_graphs(monkeypatch):
-    """StepGraph with its capture and replay run eagerly on the CPU: the
-    same static state, loads and write-backs as on the card, and the
-    graphed paths of SlamSystem and vo_block taken for CPU tensors."""
-
-    def capture(self, state, inputs):
-        graphs._check_tensors((state, inputs))
-        self._state = [x.clone() for x in tree.flatten(state)]
-        self._inputs = [x.clone() for x in tree.flatten(inputs)]
-        self._state_like = tree.unflatten(state, iter(self._state))
-        self._inputs_like = tree.unflatten(inputs, iter(self._inputs))
-        new, out = self.fn(self._state_like, *self._inputs_like)
-        graphs._write_back(self._state, tree.flatten(new))
-        self.graph = "emulated"
-        return self._state_like, out
-
-    def replay(self, *inputs):
-        graphs.load_leaves(self._inputs, tree.flatten(inputs))
-        new, self._out = self.fn(self._state_like, *self._inputs_like)
-        graphs._write_back(self._state, tree.flatten(new))
-        self.replays += 1
-
-    monkeypatch.setattr(graphs.StepGraph, "_capture", capture)
-    monkeypatch.setattr(graphs.StepGraph, "replay", replay)
-    card = types.SimpleNamespace(use_cuda=lambda t: True)
-    monkeypatch.setattr(tpipe, "dispatch", card)
-    monkeypatch.setattr(vo, "dispatch", card)
-
-
-def _bits(t):
-    return t.view(torch.int32) if t.dtype == torch.float32 else t
-
-
-def _same_state(a, b):
-    return all(torch.equal(_bits(x), _bits(y))
-               for x, y in zip(tree.flatten(a), tree.flatten(b),
-                               strict=True))
-
-
 def test_slam_system_through_a_step_graph_equals_eager(emulated_graphs,
                                                        tmp_path):
     """Local BA, BoW training, the live PGO, checkpoints and finalize all
@@ -355,7 +297,7 @@ def test_slam_system_through_a_step_graph_equals_eager(emulated_graphs,
     assert g.step_graph.replays == 38 and g.step_graph.loaded > 0
     assert len(g.ba_costs) > 0 and g._bow_trained
     np.testing.assert_array_equal(g_post, e_post)
-    assert _same_state(g.state, e.state)
+    assert same_bits(g.state, e.state)
     assert all(torch.equal(a, b) for a, b in zip(g_rows, e_rows))
     assert g.metrics == e.metrics
     assert [(i, j) for i, j, _, _ in g.loop_edges] == \
@@ -385,7 +327,7 @@ def test_vo_block_through_a_step_graph_equals_vo_steps(emulated_graphs):
     for x, y, z in zip(zip(*ms), b_ms, b_ms2):
         assert torch.equal(torch.stack(x), torch.cat([y, z]))
     assert b.frame == a.frame == 5
-    assert _same_state((a.T_w_cam, a.prev_obs, a.xi_vel),
+    assert same_bits((a.T_w_cam, a.prev_obs, a.xi_vel),
                        (b.T_w_cam, b.prev_obs, b.xi_vel))
     assert torch.equal(a.generator.get_state(), b.generator.get_state())
 
@@ -401,7 +343,7 @@ def test_checkpoint_keeps_the_frame_a_tensor(tmp_path):
     back = checkpoint.load(path, tpipe._template_state(cam, cfg))
     assert back.frame.dtype == torch.int32 and back.frame.dim() == 0
     assert int(back.frame) == 37
-    assert _same_state(st, back)
+    assert same_bits(st, back)
 
 
 # --------------------------------------------------------------- the card
@@ -430,7 +372,7 @@ def test_graph_replays_equal_eager_steps_on_the_card():
     assert g.step_graph is not None and g.step_graph.replays == 38
     assert g_n == e_n
     np.testing.assert_array_equal(g_post, e_post)
-    assert _same_state(g.state, e.state)
+    assert same_bits(g.state, e.state)
     a = vo.init_state(lefts[0], rights[0], world.cam, cfg, seed=1)
     poses = []
     for i in range(1, 8):

@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch twins, on the card, and
 what else only a card can show (bundle adjustment on CUDA tensors
-against the CPU, a windowed BA without a host sync).
+against the CPU, a windowed BA without a host sync, the backend's
+graphs replayed over the step graph's state).
 
 Every test here is marked `cuda` and skips where there is no card (the
 kernels have no CPU mode). The file imports torch and the port only,
@@ -20,6 +21,8 @@ from slam1_tpu_torch.models import pipeline, vo
 from slam1_tpu_torch.ops import cuda_kernels
 from slam1_tpu_torch.ops import fast as tfast
 from slam1_tpu_torch.utils import synthetic
+from slam1_tpu_torch.utils.graphs import StepGraph
+from slam1_tpu_torch.utils.tree import flatten, unflatten
 
 pytestmark = pytest.mark.cuda
 
@@ -366,3 +369,67 @@ def test_local_ba_step_makes_no_host_sync(cuda_device):
     assert cost.is_cuda and cost.dim() == 0 and bool(torch.isfinite(cost))
     assert float((new.traj - st.traj).abs().max()) > 0
     assert torch.equal(new.traj[10:], st.traj[10:])
+
+
+def _bits(x):
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}
+    return x.view(ints[x.dtype]) if x.dtype in ints else x
+
+
+def test_backend_graphs_replay_without_syncs_equal_to_eager(cuda_device):
+    """Local BA, a loop slate (with the batched Hamming launch) and a
+    place query, each captured as a graph over a SlamSystem's step
+    graph: a warm replay makes no host sync (sync debug mode "error")
+    and equals one eager call of the same function on a copy of the same
+    state to the bit, state and output alike, with the kernel's launch
+    counted once per replay."""
+    cfg = tiny_config()
+    cfg = cfg.replace(bow=dataclasses.replace(cfg.bow, place_query=True))
+    h, w = cfg.image.height, cfg.image.width
+    world = synthetic.make_world(3, n_frames=12, n_points=1200,
+                                 trajectory="loop", image_hw=(h, w),
+                                 speed=0.9, device=cuda_device)
+    lefts, rights = synthetic.render_sequence(world, h, w)
+    sys_ = pipeline.SlamSystem(world.cam, cfg, bow_train_frame=8)
+    sys_.process(lefts[0], rights[0])
+    sys_.process_block(lefts[1:], rights[1:])
+    step = sys_.step_graph
+    kf_n = int(sys_.state.kf.n)
+
+    def i64(v):
+        return torch.full((), v, dtype=torch.int64, device=cuda_device)
+    k = pipeline.SlamSystem.SLATE_K
+    cs, hfs = [2, 3] + [-1] * (k - 2), [10, 11] + [0] * (k - 2)
+    u = sys_.draws.slate(hfs, cs, 0, pipeline.LOOP_RANSAC_ITERS,
+                         pipeline.KF_FEATURES)
+    programs = {
+        "local_ba": (pipeline._graphed_local_ba(world.cam, cfg),
+                     (i64(kf_n - 1),), {}),
+        "slate": (pipeline._graphed_slate(world.cam, cfg),
+                  (u, torch.tensor(cs, device=cuda_device),
+                   torch.tensor(hfs, device=cuda_device)),
+                  {"hamming_top2_batched": 1}),
+        "place_query": (pipeline._graphed_place_query(cfg, 128),
+                        (i64(kf_n - 1), i64(6)), {}),
+    }
+    for name, (fn, args, launches) in programs.items():
+        graph = StepGraph(fn, name, over=step)
+        sys_.state, _ = graph(sys_.state, *args)     # warm-up + capture
+        assert graph.launches == launches, name
+        copy = unflatten(sys_.state, iter(
+            [x.clone() for x in flatten(sys_.state)]))
+        e_state, e_out = fn(copy, *args)
+        before = cuda_kernels.launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            g_state, g_out = graph(sys_.state, *args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        after = cuda_kernels.launch_counts()
+        assert g_state is step._state_like, name
+        assert {k: after[k] - before[k] for k in after
+                if after[k] != before[k]} == launches, name
+        for a, b in zip(flatten((e_state, e_out)), flatten((g_state, g_out)),
+                        strict=True):
+            assert torch.equal(_bits(a), _bits(b)), name

@@ -103,8 +103,9 @@ def _snapshot_store(seed=0, n_rows=6):
     return cfg, cam, st
 
 
-@pytest.fixture(scope="module")
-def slate():
+def _slate_inputs():
+    """(cfg, cam, store, cands, hits, keys, u): a snapshot store, a slate
+    of (cand, hit) pairs and the reference's keys and draws."""
     cfg, cam, st = _snapshot_store()
     # (cand, hit): genuine pairs, an anchor equal to the candidate, a hit
     # before every keyframe, and a padded entry.
@@ -115,6 +116,12 @@ def slate():
     u = np.stack([np.array(jax.random.uniform(k, (1024, K_SNAP),
                                               minval=1e-9, maxval=1.0))
                   for k in keys])
+    return cfg, cam, st, cands, hits, keys, u
+
+
+@pytest.fixture(scope="module")
+def slate():
+    cfg, cam, st, cands, hits, keys, u = _slate_inputs()
     jres = jlc.verify_loop_slate(keys, jax.tree.map(jnp.asarray, st),
                                  jnp.asarray(cands), jnp.asarray(hits), cam,
                                  cfg)
@@ -156,9 +163,10 @@ def test_verify_loop_pair_matches_jax(slate, i):
 
 # --------------------------------------------------------- place query
 
-@pytest.mark.parametrize("n_rows,max_frame", [(8, 40), (16, 30), (16, 200)])
-def test_place_query_matches_jax(n_rows, max_frame):
-    rng = np.random.default_rng(n_rows + max_frame)
+def _place_store(seed):
+    """A 16-row keyframe store whose rows 2, 3 and 9 share most of the
+    query row 13's descriptors."""
+    rng = np.random.default_rng(seed)
     st = jax.device_get(jmap.init_kf_store(16, K_SNAP))
     st = st._replace(**{f: np.array(getattr(st, f)) for f in st._fields})
     q = rng.integers(0, 256, (K_SNAP, 32), dtype=np.uint8)
@@ -172,7 +180,12 @@ def test_place_query_matches_jax(n_rows, max_frame):
         st.frame_of_row[r] = 10 * r
     st.desc[13] = q
     st.mask[13] = True
-    st = st._replace(n=np.int32(14))
+    return st._replace(n=np.int32(14))
+
+
+@pytest.mark.parametrize("n_rows,max_frame", [(8, 40), (16, 30), (16, 200)])
+def test_place_query_matches_jax(n_rows, max_frame):
+    st = _place_store(n_rows + max_frame)
     cj, sj = jlc.place_query(jax.tree.map(jnp.asarray, st), 13, max_frame,
                              n_rows, k=3, thresh=32, nms_frames=15)
     ct, sc = tlc.place_query(interop.kf_store(st, "cpu"), 13, max_frame,

@@ -21,13 +21,14 @@ from torch_dist_ranks import run_ranks
 
 from tools import (port_dist_ba_scale, port_global_ba_scale, port_loop_grid,
                    port_multihost_smoke, port_profile_ablate,
-                   port_profile_slam, port_profile_stage, port_roofline)
+                   port_profile_slam, port_profile_stage, port_roofline,
+                   port_two_view_pairs)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FRAMES = 40
 TOOLS = (port_global_ba_scale, port_dist_ba_scale, port_multihost_smoke,
          port_loop_grid, port_roofline, port_profile_stage,
-         port_profile_slam, port_profile_ablate)
+         port_profile_slam, port_profile_ablate, port_two_view_pairs)
 
 
 def _keys(name):

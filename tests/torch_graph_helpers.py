@@ -1,0 +1,81 @@
+"""What the CPU tests of the captured graphs share (not collected):
+
+  - `HostReads`, a dispatch mode that records every operation that reads
+    a tensor's value on the host or makes a tensor from host data: none
+    may run inside a captured CUDA graph;
+  - `same_bits`, two trees of tensors equal to the bit;
+  - the `emulated_graphs` fixture: `StepGraph`'s capture and replay run
+    eagerly on the CPU, with the same static state (its own clone, or
+    the state of the graph it runs over), loads and write-backs as on
+    the card, and the graphed paths of `SlamSystem` and `vo_block` taken
+    for CPU tensors.
+
+A test file takes them by importing them:
+
+    from torch_graph_helpers import HostReads, same_bits
+    from torch_graph_helpers import emulated_graphs  # noqa: F401
+"""
+
+import types
+
+import pytest
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from slam1_tpu_torch.models import pipeline as tpipe
+from slam1_tpu_torch.models import vo
+from slam1_tpu_torch.utils import graphs, tree
+
+HOST_OPS = ("_local_scalar_dense", "nonzero", "masked_select", "unique",
+            "bincount", "histc", "lift_fresh", "repeat_interleave")
+
+
+class HostReads(TorchDispatchMode):
+    """Records every operation that reads a value on the host or makes
+    a tensor from host data: none may run inside a captured graph."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types_, args=(), kwargs=None):
+        if any(op in str(func) for op in HOST_OPS):
+            self.ops.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+def same_bits(a, b) -> bool:
+    """Two trees of tensors with equal leaves, float32 compared as bits
+    (equal NaNs are equal)."""
+    def bits(x):
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+    return all(torch.equal(bits(x), bits(y))
+               for x, y in zip(tree.flatten(a), tree.flatten(b),
+                               strict=True))
+
+
+@pytest.fixture
+def emulated_graphs(monkeypatch):
+    """StepGraph with its capture and replay run eagerly on the CPU: the
+    same static state, loads and write-backs as on the card, and the
+    graphed paths of SlamSystem and vo_block taken for CPU tensors."""
+
+    def capture(self, state, inputs):
+        graphs._check_tensors((state, inputs))
+        self._inputs_like = self._bind(state, inputs)
+        new, out = self.fn(self._state_like, *self._inputs_like)
+        graphs._write_back(self._state, tree.flatten(new))
+        self.graph = "emulated"
+        return self._state_like, out
+
+    def replay(self, *inputs):
+        graphs.load_leaves(self._inputs, tree.flatten(inputs))
+        new, self._out = self.fn(self._state_like, *self._inputs_like)
+        graphs._write_back(self._state, tree.flatten(new))
+        self.replays += 1
+
+    monkeypatch.setattr(graphs.StepGraph, "_capture", capture)
+    monkeypatch.setattr(graphs.StepGraph, "replay", replay)
+    card = types.SimpleNamespace(use_cuda=lambda t: True)
+    monkeypatch.setattr(tpipe, "dispatch", card)
+    monkeypatch.setattr(vo, "dispatch", card)

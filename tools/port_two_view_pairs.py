@@ -9,7 +9,10 @@ fundamental matrix), and the rotation error of
 `epipolar.recover_pose_2d2d` (256 hypotheses) against the truth for 8
 draw seeds. Imports the PyTorch port only.
 
-    python3 tools/port_two_view_pairs.py [--device cpu|cuda] [--pairs 1,2,3]
+    python3 tools/port_two_view_pairs.py [--device cuda|cpu] [--pairs 1,2,3]
+
+Runs on the card unless `--device cpu` is given; without a card the
+default raises.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from slam1_tpu_torch import runtime  # noqa: E402
 from slam1_tpu_torch.config import SlamConfig  # noqa: E402
 from slam1_tpu_torch.ops import detector, epipolar, hamming  # noqa: E402
 from slam1_tpu_torch.utils import synthetic  # noqa: E402
@@ -38,10 +42,12 @@ def rot_deg(R):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; raises where there "
+                         "is no card)")
     ap.add_argument("--pairs", default="1,2,3")
     args = ap.parse_args(argv)
-    dev = torch.device(args.device)
+    dev = runtime.device(args.device)
     cfg = SlamConfig()
     world = synthetic.make_world(0, n_frames=24, n_points=6000,
                                  trajectory="arc", speed=1.0, device=dev)
