@@ -40,7 +40,9 @@ exits non-zero and never prints the final `ok` line:
                257, 300 x 77); the batched hamming_top2 at 8 x 1024 x
                1024 (a verification slate, with two padded all-invalid
                pairs and ties); chain_prepare and chain_sweep at 2048
-               poses (601 live rows, all rows, 1 and 2 live rows).
+               poses (601 live rows, all rows, 1 and 2 live rows; the
+               live count a 0-d int32 tensor on the card, as the PGO
+               graphs pass it).
   4. slice   — renders the 24-frame arc clip (6000 points) at the
                default config, runs VO `run_sequence` on CUDA tensors
                with the launch counters reset just before, checks the
@@ -83,22 +85,27 @@ exits non-zero and never prints the final `ok` line:
                a loop of vo_step on the arc clip from the same generator
                seed (poses, metrics, final state and generator equal to
                the bit), and SlamSystem's replays (the step, and the
-               backend's local BA, loop slates and place queries, each
-               a graph over the step graph's state) against
+               backend's local BA, loop slates, place queries and
+               pose-graph relaxations, each a graph over the step
+               graph's state; the PGO as pgo_build, pgo_gn once per
+               Gauss-Newton iteration and pgo_apply per bucket) against
                graphs=False over the 600-frame clip at slam-ba's config
                (BoW training at frame 30, culls every 32 frames, local
                BA write-backs, the ring's wrap at 256, live PGOs,
                finalize: poses, the whole state, metrics rows, loop
-               edges and events, BA costs equal to the bit); equal
-               launch counts; one backend replay per local BA window
-               and slate after the first; 0 host syncs in a warm
-               replay of every graph. Prints ms per warm vo_step,
-               slam_step, local BA window, slate and place query (at
-               the final keyframe count's bucket), eager and graphed
-               (CUDA events and host clock; the device-busy shares from
-               torch.profiler with the late sessions), capture seconds,
-               graph nodes and pool bytes. The other phases' VO and SLAM
-               runs replay graphs too (the card's default).
+               edges and events, BA and PGO costs equal to the bit);
+               equal launch counts; one backend replay per local BA
+               window and slate after the first, one pgo_gn call per
+               Gauss-Newton iteration; 0 host syncs in a warm replay of
+               every graph. Prints ms per warm vo_step, slam_step,
+               local BA window, slate, place query (at the final
+               keyframe count's bucket) and live relaxation (5
+               Gauss-Newton iterations at the final bucket), eager and
+               graphed (CUDA events and host clock; the device-busy
+               shares from torch.profiler, profiled after all phases),
+               capture seconds, graph nodes and pool bytes. The other
+               phases' VO and SLAM runs replay graphs too (the card's
+               default).
   6. slam-ba — the same clip at `SlamConfig()` with only
                bow.poll_lag_s=0 (so two passes can be compared): local
                BA every 5 keyframes, a checkpoint saved at frame 320.
@@ -206,7 +213,9 @@ exits non-zero and never prints the final `ok` line:
                reached;
                the VO frames/s of the per-frame loop, the SLAM frames/s
                of the process loop, and ms per place_query, per slate
-               and per PGO (the last three: phase times-slam).
+               and per PGO (the last three: phase times-slam; the PGO's
+               are the slam-ba pass's graphed live and final
+               relaxations).
 
 The torch.profiler sessions of every phase (device-busy ms, launch
 counts) run after all of them, so that no host-bound time is taken in a
@@ -609,13 +618,21 @@ def keep_worst(errs, rel_errs, new):
         rel_errs[name] = max(rel_errs.get(name, 0.0), rel)
 
 
+def device_live(n_live, dev):
+    """The live count as the chain kernels take it in a graph: a 0-d
+    int32 tensor on the card."""
+    return torch.full((), n_live, dtype=torch.int32, device=dev)
+
+
 def check_chain(ops, n_live, what):
-    """chain_prepare and chain_sweep against their plain twins on the
-    operands (JjInv, Ji, winv, v): {kernel: (max abs error, the same
-    over max |twin|)}; the relative one is what CHAIN_TOL bounds."""
-    prep_k = cuda_kernels.chain_prepare_cuda(ops[0], ops[1], n_live)
+    """chain_prepare and chain_sweep, with the live count a device
+    scalar, against their plain twins on the operands (JjInv, Ji, winv,
+    v): {kernel: (max abs error, the same over max |twin|)}; the
+    relative one is what CHAIN_TOL bounds."""
+    live = device_live(n_live, ops[0].device)
+    prep_k = cuda_kernels.chain_prepare_cuda(ops[0], ops[1], live)
     prep_p = cuda_kernels.chain_prepare_plain(ops[0], ops[1], n_live)
-    xk = cuda_kernels.chain_sweep_cuda(*ops, n_live, prep=prep_k)
+    xk = cuda_kernels.chain_sweep_cuda(*ops, live, prep=prep_k)
     xp = cuda_kernels.chain_sweep_plain(*ops, n_live)
     torch.cuda.synchronize()
     out = {}
@@ -1125,6 +1142,7 @@ def phase_slam_cpu_vs_gpu(cfg, world, lefts, rights, dev):
 
 
 GRAPH_REPS = 20              # warm steps per timing of a step
+PGO_REPS = 3                 # warm relaxations per timing of the PGO
 
 
 def bits(t):
@@ -1167,16 +1185,16 @@ def host_ms(fn, reps=GRAPH_REPS, warm=2):
     return 1e3 * (time.perf_counter() - t0) / reps
 
 
-def step_times(tag, eager, graphed, late):
-    """ms per warm step, eager and graphed (CUDA events and host clock),
-    and the host syncs of one warm graph replay; the device-busy shares
-    (torch.profiler) go into `late`."""
+def step_times(tag, eager, graphed, late, reps=GRAPH_REPS):
+    """ms per warm step, eager and graphed (CUDA events and host clock,
+    `reps` calls each), and the host syncs of one warm graph replay; the
+    device-busy shares (torch.profiler) go into `late`."""
     out = {}
     for which, fn in (("eager", eager), ("graph", graphed),
                       ("graph", graphed), ("eager", eager)):
         out.setdefault(f"{which}_events_ms", []).append(
-            event_ms(fn, reps=GRAPH_REPS, warm=2))
-        out.setdefault(f"{which}_host_ms", []).append(host_ms(fn))
+            event_ms(fn, reps=reps, warm=2))
+        out.setdefault(f"{which}_host_ms", []).append(host_ms(fn, reps))
     out = {k: float(np.mean(v)) for k, v in out.items()}
     out["graph_replay_syncs"], where = count_syncs(graphed)
     check(out["graph_replay_syncs"] == 0,
@@ -1201,7 +1219,9 @@ def backend_times(cfg, esys, gsys, late):
     (0), the device-busy shares (into `late`) and each graph's stats.
     Inputs: local BA's window ending at the middle keyframe, a slate of
     the run's loop edges padded to SLATE_B, the newest keyframe's place
-    query at its row bucket."""
+    query at its row bucket, and a live relaxation (its Gauss-Newton
+    budget, the run's loop edges) of the finished trajectory, whose
+    three programs are timed as one call and reported graph by graph."""
     graphs = gsys.backend_graphs
     st = gsys.state
     dev = st.traj.device
@@ -1241,6 +1261,28 @@ def backend_times(cfg, esys, gsys, late):
             **stats, **t)
         out.update({f"{tag}_{k}": v for k, v in t.items()})
         out.update({f"{tag}_graph_{k}": stats[k]
+                    for k in ("capture_seconds", "nodes", "pool_bytes")})
+
+    # The pose-graph relaxation: both systems relax their own (equal)
+    # finished state, graphs=False eagerly.
+    bucket, n_live, le = gsys._pgo_inputs()
+    _, _, le_e = esys._pgo_inputs()
+    iters = max(cfg.ba.pg_iters // 5, 3)
+    names = {p: f"pgo_{p}[{bucket}]" for p in ("build", "gn", "apply")}
+    check(set(names.values()) <= set(graphs),
+          f"the graphed pass made no PGO graphs at bucket {bucket}: "
+          f"{sorted(graphs)}")
+    t = step_times(
+        "pgo", lambda: esys._pgo(bucket, iters, n_live, *le_e),
+        lambda: gsys._pgo(bucket, iters, n_live, *le), late, reps=PGO_REPS)
+    say("graphs-pgo", bucket=bucket, n_live=n_live, gn_iterations=iters,
+        replays_in_pass={n: replays[n] for n in names.values()},
+        **{f"{p}_{k}": v for p, n in names.items()
+           for k, v in graphs[n].stats().items()}, **t)
+    out.update({f"pgo_{k}": v for k, v in t.items()})
+    for p, n in names.items():
+        stats = graphs[n].stats()
+        out.update({f"pgo_{p}_graph_{k}": stats[k]
                     for k in ("capture_seconds", "nodes", "pool_bytes")})
     return replays, out
 
@@ -1322,12 +1364,14 @@ def phase_graphs(cfg, world, lefts, rights, bcfg, sworld, slefts, srights,
 
     def result(sys_, post):
         return (post, sys_.state, sys_.metrics, sys_.loop_edges,
-                torch.stack(sys_.ba_costs), sys_.n_slates,
+                torch.stack(sys_.ba_costs), torch.stack(sys_.pgo_costs),
+                sys_.n_slates,
                 [dataclasses.astuple(e) for e in sys_.loop_events])
     slam_diff = tree_diff(result(esys, epost), result(gsys, gpost), "slam")
     sg = gsys.step_graph
-    # finalize's relaxation replaced four leaves: load them once, so the
-    # timed replays copy nothing.
+    # Nothing outside the graphs wrote the state after the step's last
+    # replay (finalize's relaxation writes back in place): the timed
+    # replays copy nothing.
     gsys.state = sg.load(gsys.state)
     d = pipeline.DrawSource(SEED + 2, slefts.device)
     slam_u = d.step(bcfg.tracking.ransac_iters, n)
@@ -1355,6 +1399,18 @@ def phase_graphs(cfg, world, lefts, rights, bcfg, sworld, slefts, srights,
           and replays["slate"] == gsys.n_slates - 1,
           f"backend replays {replays}, windows {len(gsys.ba_costs)}, "
           f"slates {gsys.n_slates}")
+    # Every relaxation (the live ones, finalize's) ran as the PGO
+    # programs: one call of pgo_gn per Gauss-Newton iteration, each
+    # bucket's first call its capture.
+    runs = len(gsys.stage_seconds["pgo"])
+    gn_iters = (runs - 1) * max(bcfg.ba.pg_iters // 5, 3) + bcfg.ba.pg_iters
+    calls = {p: sum(n + 1 for name, n in replays.items()
+                    if name.startswith(f"pgo_{p}["))
+             for p in ("build", "gn", "apply")}
+    check(calls == {"build": runs, "gn": gn_iters, "apply": runs}
+          and len(gsys.pgo_costs) == runs,
+          f"PGO graph calls {calls}, relaxations {runs}, Gauss-Newton "
+          f"iterations {gn_iters}")
     out = dict(backend_t)
     out.update({f"vo_step_{k}": v for k, v in vo_t.items()})
     out.update({f"slam_step_{k}": v for k, v in slam_t.items()})
@@ -1852,21 +1908,23 @@ def phase_times_slam(cfg, sys_, world):
         lambda: cuda_kernels.hamming_top2_batched_plain(*hargs),
         lambda: cuda_kernels.hamming_top2_batched_cuda(*hargs),
         *bound_hamming(b, n, n, gated=False))
+    # The kernels as the PGO graphs launch them: the live count a device
+    # scalar.
     cargs = [x.to(dev)
              for x in synthetic.chain_inputs(CHAIN_F, CHAIN_LIVE, 1)]
-    prep = cuda_kernels.chain_prepare_cuda(cargs[0], cargs[1], CHAIN_LIVE)
+    live = device_live(CHAIN_LIVE, dev)
+    prep = cuda_kernels.chain_prepare_cuda(cargs[0], cargs[1], live)
     times["chain_prepare"] = time_kernel(
         "chain_prepare",
         lambda: cuda_kernels.chain_prepare_plain(cargs[0], cargs[1],
                                                  CHAIN_LIVE),
-        lambda: cuda_kernels.chain_prepare_cuda(cargs[0], cargs[1],
-                                                CHAIN_LIVE),
+        lambda: cuda_kernels.chain_prepare_cuda(cargs[0], cargs[1], live),
         *bound_chain_prepare(CHAIN_F, CHAIN_LIVE,
                              cuda_kernels.CHAIN_LEVELS))
     times["chain_sweep"] = time_kernel(
         "chain_sweep",
         lambda: cuda_kernels.chain_sweep_plain(*cargs, CHAIN_LIVE),
-        lambda: cuda_kernels.chain_sweep_cuda(*cargs, CHAIN_LIVE, prep=prep),
+        lambda: cuda_kernels.chain_sweep_cuda(*cargs, live, prep=prep),
         *bound_chain_sweep(CHAIN_F, CHAIN_LIVE), plain_reps=3)
     stage = {k: (1e3 * float(np.median(v)) if v else None, len(v))
              for k, v in sys_.stage_seconds.items()}
@@ -1876,6 +1934,8 @@ def phase_times_slam(cfg, sys_, world):
         pgo_ms_median_live=float(np.median(live)) if live else None,
         pgo_ms_live=live, pgo_runs=len(pgo),
         pgo_ms_finalize=1e3 * pgo[-1] if pgo else None,
+        pgo_graphs=sorted(n for n in sys_.backend_graphs
+                          if n.startswith("pgo_")),
         run_stage_ms_median_and_count=stage)
     return times, dict(place_query_ms=pq_ms, slate_ms=slate_ms,
                        pgo_ms_median_live=(float(np.median(live))

@@ -12,6 +12,13 @@
 // so their solution is x_i = winv_i v_i exactly and the sweeps stop at
 // n_live - 1; with n_live = F this is the reference's recurrence.
 //
+// The kernels read n_live from device memory (a 0-d int32 tensor), and
+// the grids and the shared memory are sized from F alone, so that one
+// launch captured in a CUDA graph is right for every n_live the graph is
+// replayed with: a pose graph's live rows grow from one relaxation to
+// the next while its bucket F stays. A sweep whose n_live lies outside
+// [1, min(F, slam_chain_sweep_max_live())] writes NaN to all of x.
+//
 // What bounds it on the H100: the latency of a dependent chain (the
 // bytes, 2048 x 85 floats, and the 0.2 MFLOP are nothing). The design
 // shortens what each row adds to that chain, and then the chain:
@@ -76,9 +83,11 @@ constexpr int MAX_SMEM = 227 * 1024;
 // 2 <= i < n_live: x_0 = 0 takes no block).
 __global__ void chain_prepare_kernel(const float* __restrict__ jj_inv,
                                      const float* __restrict__ ji, int F,
-                                     int n_live, float* __restrict__ prep) {
+                                     const int* __restrict__ live,
+                                     float* __restrict__ prep) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= F * 72) return;
+  const int n_live = min(*live, F);
   const int i = k / 72;
   const int which = (k % 72) / 36;
   const int a = (k % 36) / 6;
@@ -104,9 +113,11 @@ __global__ void chain_prepare_kernel(const float* __restrict__ jj_inv,
 // One doubling of the blocks: hi_i = lo_i lo_p with p = i + j (backward)
 // or i - j (forward), zero where p leaves the live rows [1, n_live).
 __global__ void chain_double_kernel(const float* __restrict__ lo, int F,
-                                    int n_live, int j, float* __restrict__ hi) {
+                                    const int* __restrict__ live, int j,
+                                    float* __restrict__ hi) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= F * 72) return;
+  const int n_live = min(*live, F);
   const int i = k / 72;
   const int which = (k % 72) / 36;
   const int a = (k % 36) / 6;
@@ -271,13 +282,22 @@ __global__ void __launch_bounds__(THREADS)
 chain_sweep_kernel(const float* __restrict__ jj_inv,
                    const float* __restrict__ prep,
                    const float* __restrict__ winv,
-                   const float* __restrict__ v, int F, int n_live, int chunk,
+                   const float* __restrict__ v, int F,
+                   const int* __restrict__ live, int rows, int chunk,
                    int alt_in_smem, float* x) {
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x;
+  const int n_live = *live;
+  if (n_live < 1 || n_live > rows) {
+    for (int k = blockIdx.x * THREADS + tid; k < F * 6;
+         k += gridDim.x * THREADS) {
+      x[k] = __int_as_float(0x7fc00000);
+    }
+    return;
+  }
 
-  // The decoupled rows, on the blocks after the first; the sweeps never
-  // read them.
+  // The decoupled rows, on the blocks after the first (as many as
+  // n_live = 1 needs); the sweeps never read them.
   if (blockIdx.x > 0) {
     const int k = n_live * 6 + (blockIdx.x - 1) * THREADS + tid;
     if (k < F * 6) x[k] = winv[k / 6] * v[k];
@@ -320,14 +340,15 @@ chain_sweep_kernel(const float* __restrict__ jj_inv,
   for (int k = 6 + tid; k < n_live * 6; k += THREADS) x[k] = vec[k];
 }
 
-// How a launch with n_live live rows lays out shared memory: rows per
-// chunk of a warp's ring (16 or 8; 0 if n_live does not fit), whether
-// the second offsets buffer is in shared memory too, and the bytes.
-int shared_layout(int n_live, int* alt_in_smem, size_t* bytes) {
+// How a launch for up to `rows` live rows lays out shared memory: rows
+// per chunk of a warp's ring (16 or 8; 0 if `rows` does not fit),
+// whether the second offsets buffer is in shared memory too, and the
+// bytes. The layout only places data: every layout gives the same bits.
+int shared_layout(int rows, int* alt_in_smem, size_t* bytes) {
   const size_t rings = static_cast<size_t>(STAGES) * CHAINS;
   for (int alt = 1; alt >= 0; --alt) {
     for (int chunk = 16; chunk >= 8; chunk /= 2) {
-      *bytes = (rings * chunk * 36 + (1 + alt) * n_live * 6) * sizeof(float);
+      *bytes = (rings * chunk * 36 + (1 + alt) * rows * 6) * sizeof(float);
       *alt_in_smem = alt;
       if (*bytes <= MAX_SMEM) return chunk;
     }
@@ -337,11 +358,12 @@ int shared_layout(int n_live, int* alt_in_smem, size_t* bytes) {
 
 }  // namespace
 
-// jj_inv, ji: (F, 6, 6) float32 row-major; output prep (LEVELS, 2, F,
-// 6, 6): level l holds the blocks that step 2^l rows. 1 <= n_live <= F.
+// jj_inv, ji: (F, 6, 6) float32 row-major; n_live: one int32 in device
+// memory, 1 <= *n_live <= F (larger values count as F); output prep
+// (LEVELS, 2, F, 6, 6): level l holds the blocks that step 2^l rows.
 // LEVELS launches. Returns the first CUDA error (0: none).
 extern "C" int slam_chain_prepare(const float* jj_inv, const float* ji,
-                                  int F, int n_live, float* prep,
+                                  int F, const int* n_live, float* prep,
                                   void* stream) {
   const int total = F * 72;
   const int blocks = (total + 255) / 256;
@@ -365,15 +387,18 @@ extern "C" int slam_chain_sweep_max_live() {
 }
 
 // jj_inv (F, 6, 6), prep (LEVELS, 2, F, 6, 6) from slam_chain_prepare
-// with the same jj_inv, ji and n_live; winv (F,); v (F, 6); output x
-// (F, 6). 1 <= n_live <= min(F, slam_chain_sweep_max_live()).
+// with the same jj_inv, ji and n_live; winv (F,); v (F, 6); n_live: one
+// int32 in device memory, 1 <= *n_live <= min(F,
+// slam_chain_sweep_max_live()) (else x is all NaN); output x (F, 6).
 // Returns the first CUDA error (0: none) after the launch.
 extern "C" int slam_chain_sweep(const float* jj_inv, const float* prep,
                                 const float* winv, const float* v, int F,
-                                int n_live, float* x, void* stream) {
+                                const int* n_live, float* x, void* stream) {
   int alt_in_smem = 0;
   size_t smem = 0;
-  const int chunk = shared_layout(n_live, &alt_in_smem, &smem);
+  const int most = slam_chain_sweep_max_live();
+  const int rows = F < most ? F : most;
+  const int chunk = shared_layout(rows, &alt_in_smem, &smem);
   if (chunk == 0) return static_cast<int>(cudaErrorInvalidValue);
   // The kernel's shared-memory limit is raised once on each device.
   constexpr int MAX_DEVICES = 64;
@@ -388,9 +413,9 @@ extern "C" int slam_chain_sweep(const float* jj_inv, const float* prep,
     if (e != cudaSuccess) return static_cast<int>(e);
     if (device < MAX_DEVICES) sized[device] = true;
   }
-  const int blocks = 1 + ((F - n_live) * 6 + THREADS - 1) / THREADS;
+  const int blocks = 1 + ((F - 1) * 6 + THREADS - 1) / THREADS;
   chain_sweep_kernel<<<blocks, THREADS, smem,
                        static_cast<cudaStream_t>(stream)>>>(
-      jj_inv, prep, winv, v, F, n_live, chunk, alt_in_smem, x);
+      jj_inv, prep, winv, v, F, n_live, rows, chunk, alt_in_smem, x);
   return static_cast<int>(cudaGetLastError());
 }

@@ -21,8 +21,8 @@ the camera loop consumes what has landed. `global_ba_step` is the
 offline pass over all keyframes, with the pose graph as priors.
 
 State tables are updated in place by `slam_step` (the reference donates
-its state); the backend steps (`local_ba_step`, `global_ba_step`,
-`_pgo_step`) replace the tensors they change. The state's `frame` is a
+its state); the backend steps (`local_ba_step`, `global_ba_step`, the
+PGO's `_pgo_apply`) replace the tensors they change. The state's `frame` is a
 0-d int32 tensor on the state's device, as in the reference: culling,
 the trajectory write and the ring row are decided on the device, so the
 step's host code is the same at every frame. Random draws come from a
@@ -35,7 +35,11 @@ as the reference runs one compiled program per frame, and each call of
 `local_ba_step`, of a loop slate (`verify_loop_slate` +
 `_pack_slate_result`) and of `place_query` as one replay of a graph
 captured over the step graph's state, as the reference jits each of
-them; on the CPU, and with `SlamSystem(..., graphs=False)`, the same
+them. The pose-graph relaxation (the reference's jitted `_pgo_step`)
+replays three such graphs per PGO bucket: `pgo_build` builds the pose
+graph, `pgo_gn` (one Gauss-Newton iteration, the live count a device
+scalar) is replayed once per iteration, `pgo_apply` writes the state.
+On the CPU, and with `SlamSystem(..., graphs=False)`, the same
 functions run eagerly.
 `SlamSystem.frame_count` is the host mirror of `frame` that steers the
 host's cadences.
@@ -63,7 +67,7 @@ from slam1_tpu_torch.models.frontend import stereo_frontend
 from slam1_tpu_torch.models.loop_closure import place_query, \
     verify_loop_slate
 from slam1_tpu_torch.models.tracker import chain_pose, temporal_track
-from slam1_tpu_torch.ops import dispatch, se3
+from slam1_tpu_torch.ops import cuda_kernels, dispatch, se3
 from slam1_tpu_torch.ops.camera import StereoCamera
 from slam1_tpu_torch.ops.pnp import uniform
 from slam1_tpu_torch.runtime import default_device
@@ -570,28 +574,34 @@ def global_ba_step(state: SlamState, cam: StereoCamera, cfg: SlamConfig,
     return new_state, cost
 
 
-def _pgo_step(traj, rel, rel_mask, kf_frames, le_i, le_j, le_z, le_w,
-              frame, map_xyz, map_last, map_valid,
-              bucket: int, iters: int, cg_iters: int, n_live: int):
-    """Pose-graph relaxation over the first `bucket` poses, then
-    landmark re-anchoring: each map point rides the pose correction of
-    its last-observation frame. `n_live`: poses [0, n_live) carry the
-    odometry; later rows of the bucket only ride along. `frame` (an int
-    or 0-d tensor) picks the returned current pose."""
-    traj_old = traj
+def _pgo_graph(traj, rel, rel_mask, le_i, le_j, le_z, le_w, bucket: int):
+    """The pose graph over the first `bucket` poses of `traj`: the
+    odometry edges of `rel` (i -> i + 1, weighted by rel_mask), then the
+    fixed-capacity loop edges."""
     t = traj[:bucket]
     ei = torch.arange(bucket - 1, device=traj.device)
     # rel[f] = log(T_f_{f-1}); the edge measurement is T_{f-1}_f.
     z_odo = se3.exp_se3(-rel[1:bucket])
     w_odo = rel_mask[1:bucket].to(torch.float32)
-    graph = posegraph.PoseGraph(
+    return posegraph.PoseGraph(
         poses=t, ei=torch.cat([ei, le_i.long()]),
         ej=torch.cat([ei + 1, le_j.long()]), z=torch.cat([z_odo, le_z]),
         w=torch.cat([w_odo, le_w]))
-    opt, cost = posegraph.optimize(graph, iters=iters, cg_iters=cg_iters,
-                                   n_live=n_live)
+
+
+def _pgo_apply(traj, kf_frames, frame, map_xyz, map_last, map_valid,
+               graph: posegraph.PoseGraph, bucket: int):
+    """What follows the Gauss-Newton iterations, whose poses `graph`
+    holds: the cost, the relaxed poses written over the first `bucket`
+    rows of `traj` (unless they are not all finite), the pose at
+    `frame`, the keyframes' poses and the landmarks re-anchored: each
+    map point rides the pose correction of its last-observation frame.
+    -> (traj, T_w_cam, keyframe poses, map xyz, cost)."""
+    opt = graph.poses
+    cost = posegraph.cost(graph, opt)
     # Never let a non-finite relaxation replace a finite trajectory.
-    opt = torch.where(torch.isfinite(opt).all(), opt, t)
+    opt = torch.where(torch.isfinite(opt).all(), opt, traj[:bucket])
+    traj_old = traj
     traj = traj.clone()
     traj[:bucket] = opt
     t_w = _pose_at(traj, frame)
@@ -601,6 +611,23 @@ def _pgo_step(traj, rel, rel_mask, kf_frames, le_i, le_j, le_z, le_w,
     xyz2 = (d[:, :3, :3] @ map_xyz[..., None])[..., 0] + d[:, :3, 3]
     xyz2 = torch.where(map_valid[:, None], xyz2, map_xyz)
     return traj, t_w, new_kf_poses, xyz2, cost
+
+
+def _pgo_step(traj, rel, rel_mask, kf_frames, le_i, le_j, le_z, le_w,
+              frame, map_xyz, map_last, map_valid,
+              bucket: int, iters: int, cg_iters: int, n_live):
+    """Pose-graph relaxation over the first `bucket` poses, then
+    landmark re-anchoring (`_pgo_graph`, `iters` calls of
+    `posegraph.gn_step`, `_pgo_apply`: the ops SlamSystem's programs
+    run). `n_live` (an int or a 0-d int32 tensor): poses [0, n_live)
+    carry the odometry; later rows of the bucket only ride along.
+    `frame` (an int or 0-d tensor) picks the returned current pose."""
+    graph = _pgo_graph(traj, rel, rel_mask, le_i, le_j, le_z, le_w, bucket)
+    for _ in range(iters):
+        graph = graph._replace(poses=posegraph.gn_step(
+            graph, graph.poses, cg_iters, n_live=n_live))
+    return _pgo_apply(traj, kf_frames, frame, map_xyz, map_last, map_valid,
+                      graph, bucket)
 
 
 def _pack_slate_result(res) -> torch.Tensor:
@@ -629,6 +656,42 @@ def _graphed_slate(cam: StereoCamera, cfg: SlamConfig):
         res = verify_loop_slate(u, state.kf, cand_frames, hit_frames, cam,
                                 cfg)
         return state, _pack_slate_result(res)
+    return step
+
+
+def _graphed_pgo_build(bucket: int):
+    """_pgo_graph at the `bucket` as a backend program's function: (state,
+    le_i, le_j, le_z, le_w) -> (state, PoseGraph)."""
+    def step(state, le_i, le_j, le_z, le_w):
+        return state, _pgo_graph(state.traj, state.rel, state.rel_mask,
+                                 le_i, le_j, le_z, le_w, bucket)
+    return step
+
+
+def _graphed_pgo_gn(cg_iters: int):
+    """One Gauss-Newton iteration as a backend program's function:
+    (state, PoseGraph, n_live, a 0-d int32 tensor) -> (state, the
+    PoseGraph with the updated poses and the same edge tensors)."""
+    def step(state, graph, n_live):
+        return state, graph._replace(poses=posegraph.gn_step(
+            graph, graph.poses, cg_iters, n_live=n_live))
+    return step
+
+
+def _graphed_pgo_apply(bucket: int):
+    """_pgo_apply as a backend program's function: (state, PoseGraph at
+    the relaxed poses) -> (state with traj, T_w_cam, the poses of the
+    stored keyframes and the map written, cost)."""
+    def step(state, graph):
+        kf, mp = state.kf, state.map
+        traj, t_w, kf_poses, xyz, cost = _pgo_apply(
+            state.traj, kf.frame_of_row, state.frame, mp.xyz,
+            mp.last_frame, mp.valid, graph, bucket)
+        kf_sel = torch.where((kf.frame_of_row >= 0)[:, None, None],
+                             kf_poses, kf.poses)
+        return state._replace(traj=traj, T_w_cam=t_w,
+                              kf=kf._replace(poses=kf_sel),
+                              map=mp._replace(xyz=xyz)), cost
     return step
 
 
@@ -669,13 +732,16 @@ class SlamSystem:
 
     On CUDA tensors every frame after the bootstrap is one replay of a
     CUDA graph of the step, captured at frame 1 (`step_graph`), and the
-    backend's local BA, loop slate and place query (one graph per row
-    bucket) each replay a graph captured over the step graph's static
-    state at their first call (`backend_graphs`); `graphs=False` runs
-    them all eagerly instead, for comparisons. On CPU tensors everything
-    runs eagerly. Write-backs of the eager backend (live PGO, BoW
-    training, finalize) replace state tensors; the next replay copies
-    them into the graphs' state (`StepGraph.load`).
+    backend's local BA, loop slate, place query (one graph per row
+    bucket) and pose-graph relaxation (`pgo_build`, `pgo_gn` replayed
+    once per Gauss-Newton iteration and `pgo_apply`, per PGO bucket;
+    the live PGO, `detect_loops_offline`'s and `finalize`'s) each replay
+    a graph captured over the step graph's static state at their first
+    call (`backend_graphs`); `graphs=False` runs them all eagerly
+    instead, for comparisons. On CPU tensors everything runs eagerly.
+    Write-backs from outside the graphs (BoW training, a backend program
+    that ran before the step graph existed) replace state tensors; the
+    next replay copies them into the graphs' state (`StepGraph.load`).
     """
 
     def __init__(self, cam: StereoCamera, cfg: Optional[SlamConfig] = None,
@@ -698,6 +764,7 @@ class SlamSystem:
         self.loop_events: list = []
         self.metrics: list = []          # drained StepOutputs
         self.ba_costs: list = []         # 0-d tensors, one per local BA
+        self.pgo_costs: list = []        # 0-d tensors, one per relaxation
         self.frame_count = 0             # host mirror of state.frame
         self._kf_at_last_ba = 1
         self._bow_trained = False
@@ -759,12 +826,13 @@ class SlamSystem:
                                         self.cfg, u)
         return row
 
-    def _backend(self, name: str, fn, *inputs):
+    def _program(self, name: str, fn, *inputs):
         """One backend program `fn(state, *inputs) -> (state, out)` on
         self.state -> out. Once the step runs as a graph, the program is
         the graph `name` over the step graph's static state (captured at
-        its first call, replayed after), and `out` is copied out of the
-        graphs' pool; before that, and with graphs=False, it runs
+        its first call, replayed after), and `out` is the graph's own,
+        overwritten by its next replay (it may be handed to that replay
+        as an input); before that, and with graphs=False, it runs
         eagerly."""
         if self.step_graph is None:
             self.state, out = fn(self.state, *inputs)
@@ -774,12 +842,19 @@ class SlamSystem:
             graph = self.backend_graphs[name] = StepGraph(
                 fn, name, over=self.step_graph)
         self.state, out = graph(self.state, *inputs)
+        return out
+
+    def _backend(self, name: str, fn, *inputs):
+        """`_program`, with `out` copied out of the graphs' pool."""
+        out = self._program(name, fn, *inputs)
+        if self.step_graph is None:
+            return out
         return unflatten(out, iter([x.clone() for x in flatten(out)]))
 
-    def _device_int(self, v: int) -> torch.Tensor:
-        """A 0-d int64 input of a backend program, filled on the device."""
-        return torch.full((), v, dtype=torch.int64,
-                          device=self.state.traj.device)
+    def _device_int(self, v: int, dtype=torch.int64) -> torch.Tensor:
+        """A 0-d integer input of a backend program, filled on the
+        device."""
+        return torch.full((), v, dtype=dtype, device=self.state.traj.device)
 
     def process_block(self, lefts, rights):
         """Process a (K,H,W) block of frames (bootstrap frame 0 with
@@ -1151,9 +1226,27 @@ class SlamSystem:
         return added
 
     def _run_pgo(self, iters: Optional[int] = None):
-        st = self.state
+        """Relax the pose graph of the trajectory so far and its newest
+        MAX_LOOP_EDGES loop edges: `iters` Gauss-Newton iterations
+        (default: the live budget, max(pg_iters // 5, 3)); the host
+        waits for the result."""
+        bucket, n_live, edges = self._pgo_inputs()
+        t0 = time.perf_counter()
+        self.pgo_costs.append(self._pgo(
+            bucket, iters or max(self.cfg.ba.pg_iters // 5, 3), n_live,
+            *edges))
+        dev = self.state.traj.device
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        self.stage_seconds["pgo"].append(time.perf_counter() - t0)
+
+    def _pgo_inputs(self):
+        """What a relaxation now takes: the smallest PGO bucket that holds
+        the trajectory, the live poses in it, and the newest
+        MAX_LOOP_EDGES loop edges as fixed-capacity (le_i, le_j, le_z,
+        le_w) on the state's device."""
         n = self.frame_count + 1
-        f_cap = st.traj.shape[0]
+        f_cap = self.state.traj.shape[0]
         bucket = next((b for b in PGO_BUCKETS if b >= n and b <= f_cap),
                       f_cap)
         edges = self.loop_edges
@@ -1168,24 +1261,33 @@ class SlamSystem:
         le_w = np.zeros(MAX_LOOP_EDGES, np.float32)
         for k, (i, j, Z, w) in enumerate(edges):
             le_i[k], le_j[k], le_z[k], le_w[k] = i, j, Z, w
-        dev = st.traj.device
-        t0 = time.perf_counter()
-        traj, t_w, kf_poses, map_xyz, _ = _pgo_step(
-            st.traj, st.rel, st.rel_mask, st.kf.frame_of_row,
-            *[torch.as_tensor(a, device=dev)
-              for a in (le_i, le_j, le_z, le_w)],
-            st.frame, st.map.xyz, st.map.last_frame, st.map.valid,
-            bucket=bucket,
-            iters=(iters or max(self.cfg.ba.pg_iters // 5, 3)),
-            cg_iters=self.cfg.ba.cg_iters, n_live=min(n, bucket))
-        kf_sel = torch.where((st.kf.frame_of_row >= 0)[:, None, None],
-                             kf_poses, st.kf.poses)
-        self.state = st._replace(traj=traj, T_w_cam=t_w,
-                                 kf=st.kf._replace(poses=kf_sel),
-                                 map=st.map._replace(xyz=map_xyz))
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        self.stage_seconds["pgo"].append(time.perf_counter() - t0)
+        dev = self.state.traj.device
+        return bucket, min(n, bucket), tuple(
+            torch.as_tensor(a, device=dev) for a in (le_i, le_j, le_z, le_w))
+
+    def _pgo(self, bucket: int, iters: int, n_live: int, le_i, le_j, le_z,
+             le_w) -> torch.Tensor:
+        """The relaxation as the programs `pgo_build[bucket]` (the pose
+        graph from the state and the loop edges), `iters` times
+        `pgo_gn[bucket]` (one Gauss-Newton iteration; `n_live` goes in as
+        a 0-d int32 device tensor) and `pgo_apply[bucket]` (the state's
+        write-back) -> the cost, a 0-d tensor on the device. Nothing is
+        read back to the host between them."""
+        # The kernel bounds n_live on the device (NaN past its most live
+        # rows); the host knows it here and says so at once.
+        if le_w.is_cuda and n_live > cuda_kernels.build().chain_max_live:
+            raise ValueError(f"a pose graph of {n_live} live poses exceeds "
+                             f"the chain sweep's "
+                             f"{cuda_kernels.build().chain_max_live}")
+        graph = self._program(f"pgo_build[{bucket}]",
+                              _graphed_pgo_build(bucket),
+                              le_i, le_j, le_z, le_w)
+        live = self._device_int(n_live, torch.int32)
+        gn = _graphed_pgo_gn(self.cfg.ba.cg_iters)
+        for _ in range(iters):
+            graph = self._program(f"pgo_gn[{bucket}]", gn, graph, live)
+        return self._backend(f"pgo_apply[{bucket}]",
+                             _graphed_pgo_apply(bucket), graph)
 
     # ------------------------------------------------ checkpoint/resume
     def save_checkpoint(self, path: str):

@@ -13,11 +13,16 @@ sequential sweeps that run as one launch of `csrc/chain_sweep.cu` on
 CUDA tensors (`dispatch.chain_sweep`), on 6x6 blocks that one more
 launch fuses once per Gauss-Newton iteration (`dispatch.chain_prepare`).
 Edge arrays are fixed capacity with weight masks.
+
+`optimize` is a loop over `gn_step`, one Gauss-Newton iteration that
+reads nothing back to the host (its `n_live` may be a 0-d int32 device
+tensor), and `cost`: `SlamSystem` captures `gn_step` as one CUDA
+graph and replays it once per iteration.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import torch
 
@@ -64,16 +69,16 @@ def _inv6(M):
     return torch.cat([top, bot], dim=-2)
 
 
-def _chain_sqrt_solve(JjInv, Ji, winv, v, n_live: Optional[int] = None,
-                      prep=None):
+def _chain_sqrt_solve(JjInv, Ji, winv, v, n_live=None, prep=None):
     """M^-1 v for the odometry-chain part M = A^T W A of the normal
     matrix, in factored form: A^-1 W^-1 A^-T v as a backward and a
     forward bidiagonal sweep around an elementwise scale (substitution
     growth is bounded by the chain adjoint, where a block-LDL^T of M
     overflows float32 on a 2000-pose chain). Row i in [1, F) holds chain
-    edge (i-1, i); row 0 (gauge) is 0. Rows from `n_live` on must carry
-    no chain edge (default: all F rows are swept). `prep` is
-    dispatch.chain_prepare's value for these JjInv, Ji and n_live."""
+    edge (i-1, i); row 0 (gauge) is 0. Rows from `n_live` (an int or a
+    0-d int32 tensor) on must carry no chain edge (default: all F rows
+    are swept). `prep` is dispatch.chain_prepare's value for these
+    JjInv, Ji and n_live."""
     f = v.shape[0]
     return dispatch.chain_sweep(JjInv, Ji, winv, v,
                                 f if n_live is None else n_live, prep)
@@ -139,23 +144,16 @@ def chain_operands(graph: PoseGraph, damping: float = 1e-4):
     return _chain_blocks(graph, Ji, Jj, damping)
 
 
-def optimize(graph: PoseGraph, iters: int = 10, cg_iters: int = 50,
-             damping: float = 1e-4, chain_precond: bool = True,
-             n_live: Optional[int] = None):
-    """Gauss-Newton pose-graph relaxation with pose 0 gauge-fixed.
-
-    chain_precond preconditions each GN step's CG with the exact inverse
-    of the odometry chain (see _chain_sqrt_solve), so CG converges in
-    ~O(loop edges) iterations independent of trajectory length.
-    n_live: optional count of leading poses that edges touch; later
-    poses only ride along (they are solved without the sweeps).
-    Returns (optimised poses (F,4,4), final weighted cost ()).
-    """
-    f = graph.poses.shape[0]
+def gn_step(graph: PoseGraph, poses, cg_iters: int = 50,
+            damping: float = 1e-4, chain_precond: bool = True, n_live=None):
+    """One Gauss-Newton iteration of `optimize` from `poses` (F,4,4) ->
+    the updated poses, pose 0 gauge-fixed. `n_live`: None, an int, or a
+    0-d int32 tensor on the poses' device (see `optimize`)."""
+    f = poses.shape[0]
     ei, ej = graph.ei.long(), graph.ej.long()
-    poses = graph.poses
     dt, dev = poses.dtype, poses.device
     w = graph.w[:, None]
+    live = f if n_live is None else n_live
 
     def scatter(vals_i, vals_j):
         # Summed in float64, whose sum of a pose's few float32 terms is
@@ -166,45 +164,68 @@ def optimize(graph: PoseGraph, iters: int = 10, cg_iters: int = 50,
         out.index_add_(0, ej, vals_j.double())
         return out.to(dt)
 
-    for _ in range(iters):
-        r0, Ji, Jj = _linearize(graph, poses)
+    r0, Ji, Jj = _linearize(graph, poses)
 
-        rw = r0 * w
-        b = -scatter(torch.einsum("eab,ea->eb", Ji, rw),
-                     torch.einsum("eab,ea->eb", Jj, rw))
-        b[0].zero_()
+    rw = r0 * w
+    b = -scatter(torch.einsum("eab,ea->eb", Ji, rw),
+                 torch.einsum("eab,ea->eb", Jj, rw))
+    b[0].zero_()
 
-        def matvec(x, Ji=Ji, Jj=Jj):
-            y = (torch.einsum("eab,eb->ea", Ji, x[ei])
-                 + torch.einsum("eab,eb->ea", Jj, x[ej])) * w
-            out = scatter(torch.einsum("eab,ea->eb", Ji, y),
-                          torch.einsum("eab,ea->eb", Jj, y))
-            out = out + damping * x
-            out[0] = x[0]                  # gauge: pin pose 0
-            return out
+    def matvec(x):
+        y = (torch.einsum("eab,eb->ea", Ji, x[ei])
+             + torch.einsum("eab,eb->ea", Jj, x[ej])) * w
+        out = scatter(torch.einsum("eab,ea->eb", Ji, y),
+                      torch.einsum("eab,ea->eb", Jj, y))
+        out = out + damping * x
+        out[0] = x[0]                      # gauge: pin pose 0
+        return out
 
-        precond = None
-        if chain_precond:
-            JjInv, JiC, winv = _chain_blocks(graph, Ji, Jj, damping)
-            # Fixed for this iteration's ~cg_iters applications.
-            prep = dispatch.chain_prepare(JjInv, JiC,
-                                          f if n_live is None else n_live)
+    precond = None
+    if chain_precond:
+        JjInv, JiC, winv = _chain_blocks(graph, Ji, Jj, damping)
+        # Fixed for this iteration's ~cg_iters applications.
+        prep = dispatch.chain_prepare(JjInv, JiC, live)
 
-            def precond(v, JjInv=JjInv, JiC=JiC, winv=winv, prep=prep):
-                x = _chain_sqrt_solve(JjInv, JiC, winv, v, n_live, prep)
-                x[0] = v[0]
-                return x
+        def precond(v):
+            x = _chain_sqrt_solve(JjInv, JiC, winv, v, live, prep)
+            x[0] = v[0]
+            return x
 
-        delta = cg(matvec, b, iters=cg_iters, precond=precond)
-        delta = torch.where(torch.isfinite(delta), delta,
-                            torch.zeros_like(delta))
-        delta[0].zero_()
-        poses = poses @ se3.exp_se3(delta)
+    delta = cg(matvec, b, iters=cg_iters, precond=precond)
+    delta = torch.where(torch.isfinite(delta), delta,
+                        torch.zeros_like(delta))
+    delta[0].zero_()
+    return poses @ se3.exp_se3(delta)
 
-    zero = torch.zeros((ei.shape[0], 6), dtype=dt, device=dev)
+
+def cost(graph: PoseGraph, poses):
+    """The weighted cost sum_e w_e |r_e|^2 of the graph at `poses`, ()."""
+    ei, ej = graph.ei.long(), graph.ej.long()
+    zero = torch.zeros((ei.shape[0], 6), dtype=poses.dtype,
+                       device=poses.device)
     r = _edge_residual(zero, zero, poses[ei], poses[ej], graph.z)
-    cost = torch.sum(graph.w * torch.sum(r * r, dim=-1))
-    return poses, cost
+    return torch.sum(graph.w * torch.sum(r * r, dim=-1))
+
+
+def optimize(graph: PoseGraph, iters: int = 10, cg_iters: int = 50,
+             damping: float = 1e-4, chain_precond: bool = True,
+             n_live=None):
+    """Gauss-Newton pose-graph relaxation with pose 0 gauge-fixed:
+    `iters` calls of `gn_step` from graph.poses.
+
+    chain_precond preconditions each GN step's CG with the exact inverse
+    of the odometry chain (see _chain_sqrt_solve), so CG converges in
+    ~O(loop edges) iterations independent of trajectory length.
+    n_live: optional count of leading poses that edges touch (an int or
+    a 0-d int32 tensor); later poses only ride along (they are solved
+    without the sweeps).
+    Returns (optimised poses (F,4,4), final weighted cost ()).
+    """
+    poses = graph.poses
+    for _ in range(iters):
+        poses = gn_step(graph, poses, cg_iters, damping, chain_precond,
+                        n_live)
+    return poses, cost(graph, poses)
 
 
 def distribute_error_linear(poses, idx: int, i: int, T_corrected):

@@ -140,9 +140,9 @@ class _Kernels:
                                                    p, p, p, p, p, p]
         chain = libs["chain_sweep.cu"]
         self.slam_chain_prepare = chain.slam_chain_prepare
-        self.slam_chain_prepare.argtypes = [p, p, i, i, p, p]
+        self.slam_chain_prepare.argtypes = [p, p, i, p, p, p]
         self.slam_chain_sweep = chain.slam_chain_sweep
-        self.slam_chain_sweep.argtypes = [p, p, p, p, i, i, p, p]
+        self.slam_chain_sweep.argtypes = [p, p, p, p, i, p, p, p]
         for fn in (self.slam_fast_score, self.slam_fast_score_levels,
                    self.slam_hamming_top2,
                    self.slam_hamming_top2_batched, self.slam_chain_prepare,
@@ -446,12 +446,17 @@ hamming_top2_batched_cuda.launches = 0
 # ---------------------------------------------------------------------------
 # Pose-graph chain sweeps
 # ---------------------------------------------------------------------------
+#
+# `n_live` is an int or a 0-d int32 tensor: the kernels read it from
+# device memory, so that one captured launch serves every value; the
+# plain twins loop over the live rows and read its value on the host.
 
-def chain_sweep_plain(jj_inv, ji, winv, v, n_live: int):
+def chain_sweep_plain(jj_inv, ji, winv, v, n_live):
     """Plain twin of chain_sweep_cuda: the two sweeps of the square-root
     chain preconditioner as a loop over rows (see csrc/chain_sweep.cu).
     jj_inv, ji (F,6,6); winv (F,); v (F,6) -> x (F,6), x_0 = 0; rows
     from n_live on are decoupled (x_i = winv_i v_i)."""
+    n_live = int(n_live)
     x = winv[:, None] * v
     x[0].zero_()
     s = torch.zeros(6, dtype=v.dtype, device=v.device)
@@ -466,7 +471,7 @@ def chain_sweep_plain(jj_inv, ji, winv, v, n_live: int):
     return x
 
 
-def chain_prepare_plain(jj_inv, ji, n_live: int):
+def chain_prepare_plain(jj_inv, ji, n_live):
     """Plain twin of chain_prepare_cuda: the fused blocks of the chain,
     (CHAIN_LEVELS, 2, F, 6, 6). Level 0 holds, for live rows i,
     [0,i] = -JjInv_i^T Ji_{i+1}^T (the backward sweep's step from row
@@ -477,7 +482,7 @@ def chain_prepare_plain(jj_inv, ji, n_live: int):
     rows [1, n_live)."""
     prep = torch.zeros((CHAIN_LEVELS, 2, jj_inv.shape[0], 6, 6),
                        dtype=jj_inv.dtype, device=jj_inv.device)
-    n = n_live
+    n = int(n_live)
     if n >= 3:
         prep[0, 0, 1:n - 1] = -(jj_inv[1:n - 1].transpose(1, 2)
                                 @ ji[2:n].transpose(1, 2))
@@ -513,7 +518,7 @@ def _strided_solve(blocks, d):
     return y
 
 
-def chain_sweep_fused_plain(jj_inv, ji, winv, v, n_live: int):
+def chain_sweep_fused_plain(jj_inv, ji, winv, v, n_live):
     """The algebra of csrc/chain_sweep.cu in plain PyTorch, for the
     tests: the 6x6 blocks fused and doubled once (chain_prepare_plain),
     the offsets c_i = JjInv_i^T v_i and e_i = JjInv_i (winv_i s_i)
@@ -521,6 +526,7 @@ def chain_sweep_fused_plain(jj_inv, ji, winv, v, n_live: int):
     2^(CHAIN_LEVELS - 1) interleaved chains of one product per row.
     Same contract as chain_sweep_plain; the float32 sums are associated
     differently."""
+    n_live = int(n_live)
     x = winv[:, None] * v
     x[0].zero_()
     if n_live < 2:
@@ -535,23 +541,40 @@ def chain_sweep_fused_plain(jj_inv, ji, winv, v, n_live: int):
     return x
 
 
-def chain_prepare_cuda(jj_inv, ji, n_live: int):
+def _live_arg(n_live, device, most: int, what: str) -> torch.Tensor:
+    """n_live as the chain kernels read it: a 0-d int32 tensor on
+    `device`. An int is checked against [1, most] here and filled on the
+    device; a tensor is taken as it is (reading it would stall the host),
+    and the kernels bound its value."""
+    if isinstance(n_live, torch.Tensor):
+        _check(n_live, f"{what}: n_live", torch.int32, ())
+        if n_live.device != device:
+            raise ValueError(f"{what}: n_live on {n_live.device}, the "
+                             f"operands on {device}")
+        return n_live
+    if not 1 <= n_live <= most:
+        raise ValueError(f"{what}: n_live={n_live} not in [1, {most}]")
+    return torch.full((), n_live, dtype=torch.int32, device=device)
+
+
+def chain_prepare_cuda(jj_inv, ji, n_live):
     """The fused 6x6 blocks of the chain, (CHAIN_LEVELS, 2, F, 6, 6), as
     chain_prepare_plain defines them, by the prepare kernels of
     csrc/chain_sweep.cu. They hold for as long as jj_inv and ji do (one
-    Gauss-Newton iteration); chain_sweep_cuda takes them as `prep`."""
+    Gauss-Newton iteration); chain_sweep_cuda takes them as `prep`.
+    `n_live`: an int in [1, F], or a 0-d int32 tensor on the operands'
+    device (a value above F counts as F)."""
     f = jj_inv.shape[0]
     _check(jj_inv, "jj_inv", torch.float32, (f, 6, 6))
     _check(ji, "ji", torch.float32, (f, 6, 6))
-    if not 1 <= n_live <= f:
-        raise ValueError(f"chain_prepare_cuda: n_live={n_live} not in "
-                         f"[1, {f}]")
+    live = _live_arg(n_live, jj_inv.device, f, "chain_prepare_cuda")
     prep = torch.empty((CHAIN_LEVELS, 2, f, 6, 6), dtype=torch.float32,
                        device=jj_inv.device)
     lib = build()
     stream = torch.cuda.current_stream(jj_inv.device).cuda_stream
     _raise_on(lib.slam_chain_prepare(jj_inv.data_ptr(), ji.data_ptr(), f,
-                                     int(n_live), prep.data_ptr(), stream),
+                                     live.data_ptr(), prep.data_ptr(),
+                                     stream),
               "chain_prepare launch")
     chain_prepare_cuda.launches += 1
     return prep
@@ -560,32 +583,32 @@ def chain_prepare_cuda(jj_inv, ji, n_live: int):
 chain_prepare_cuda.launches = 0
 
 
-def chain_sweep_cuda(jj_inv, ji, winv, v, n_live: int, prep=None):
+def chain_sweep_cuda(jj_inv, ji, winv, v, n_live, prep=None):
     """The two chain sweeps in one launch of csrc/chain_sweep.cu. Same
-    contract as chain_sweep_plain. `prep` is chain_prepare_cuda's result
-    for the same jj_inv, ji and n_live, which `posegraph.optimize` makes
-    once per Gauss-Newton iteration. It is optional only so that the
-    call without it keeps working as it did before the blocks were
-    fused: the blocks are then prepared here, by one more counted call
-    of chain_prepare_cuda."""
+    contract as chain_sweep_plain. `n_live`: an int in [1, min(F, the
+    kernel's most live rows)], or a 0-d int32 tensor on the operands'
+    device, whose value the kernel bounds (outside that range x is all
+    NaN). `prep` is chain_prepare_cuda's result for the same jj_inv, ji
+    and n_live, which `posegraph.gn_step` makes once per Gauss-Newton
+    iteration. It is optional only so that the call without it keeps
+    working as it did before the blocks were fused: the blocks are then
+    prepared here, by one more counted call of chain_prepare_cuda."""
     f = v.shape[0]
     _check(jj_inv, "jj_inv", torch.float32, (f, 6, 6))
     _check(ji, "ji", torch.float32, (f, 6, 6))
     _check(winv, "winv", torch.float32, (f,))
     _check(v, "v", torch.float32, (f, 6))
-    if prep is None:
-        prep = chain_prepare_cuda(jj_inv, ji, n_live)
-    _check(prep, "prep", torch.float32, (CHAIN_LEVELS, 2, f, 6, 6))
     lib = build()
-    most = min(f, lib.chain_max_live)
-    if not 1 <= n_live <= most:
-        raise ValueError(
-            f"chain_sweep_cuda: n_live={n_live} not in [1, {most}]")
+    live = _live_arg(n_live, v.device, min(f, lib.chain_max_live),
+                     "chain_sweep_cuda")
+    if prep is None:
+        prep = chain_prepare_cuda(jj_inv, ji, live)
+    _check(prep, "prep", torch.float32, (CHAIN_LEVELS, 2, f, 6, 6))
     x = torch.empty_like(v)
     stream = torch.cuda.current_stream(v.device).cuda_stream
     _raise_on(lib.slam_chain_sweep(jj_inv.data_ptr(), prep.data_ptr(),
                                    winv.data_ptr(), v.data_ptr(), f,
-                                   int(n_live), x.data_ptr(), stream),
+                                   live.data_ptr(), x.data_ptr(), stream),
               "chain_sweep launch")
     chain_sweep_cuda.launches += 1
     return x

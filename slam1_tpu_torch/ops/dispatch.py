@@ -59,17 +59,19 @@ def hamming_top2_batched(desc_a, desc_b, mask_a, mask_b):
               mask_b.contiguous())
 
 
-def chain_prepare(jj_inv, ji, n_live: int):
+def chain_prepare(jj_inv, ji, n_live):
     """What chain_sweep can reuse for as long as jj_inv and ji hold (one
     Gauss-Newton iteration): the kernel's fused 6x6 blocks on CUDA
-    tensors, nothing (None) on the CPU, where the plain twin needs none."""
+    tensors, nothing (None) on the CPU, where the plain twin needs none.
+    `n_live`: an int, or a 0-d int32 tensor on the operands' device (what
+    a captured graph takes: the kernels read it on the device)."""
     if use_cuda(jj_inv):
         return cuda_kernels.chain_prepare_cuda(jj_inv.contiguous(),
                                                ji.contiguous(), n_live)
     return None
 
 
-def chain_sweep(jj_inv, ji, winv, v, n_live: int, prep=None):
+def chain_sweep(jj_inv, ji, winv, v, n_live, prep=None):
     """The square-root chain preconditioner's two sweeps -> x (F,6).
     `prep` is chain_prepare's value for the same jj_inv, ji, n_live."""
     args = (jj_inv.contiguous(), ji.contiguous(), winv.contiguous(),

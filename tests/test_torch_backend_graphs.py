@@ -18,7 +18,8 @@ On the CPU the graphs cannot be captured, so:
     graphs (the same static state, loads and write-backs as on the card)
     ends equal to the bit to `graphs=False`, over checkpoints, BoW
     training, place queries, slates and a poll in which the live PGO
-    writes back before local BA replays;
+    (its own graphs: tests/test_torch_pgo_graphs.py) writes back before
+    local BA replays;
   - a backend graph over a state that does not fit the step graph's, or
     over a step graph not yet captured, raises.
 A test in tests/test_torch_kernels_cuda.py replays the real graphs on
@@ -187,15 +188,25 @@ def test_slam_system_backend_graphs_equal_eager(emulated_graphs, tmp_path):
     # the last poll: the live PGO, then local BA on its write-back
     last = [call for f, call in g_log if f == 47]
     assert last.index("pgo") < last.index("local_ba")
+    pgo = {"pgo_build[512]", "pgo_gn[512]", "pgo_apply[512]"}
     assert set(g.backend_graphs) == {"local_ba", "slate",
-                                     "place_query[128]"}
+                                     "place_query[128]"} | pgo
     assert e.backend_graphs == {}
     for name, graph in g.backend_graphs.items():
         assert graph.over is g.step_graph and graph.replays > 0, name
         assert graph._state is g.step_graph._state, name
-    # the live PGO's write-back was loaded into the shared state by the
-    # first backend graph of that poll (the place query)
-    assert g.backend_graphs["place_query[128]"].loaded > 0
+    # every relaxation (the live ones and finalize's) ran as the PGO
+    # programs, the first of them as their captures: one pgo_gn replay
+    # per Gauss-Newton iteration after the first
+    runs = len(g.stage_seconds["pgo"])
+    live_iters = max(cfg.ba.pg_iters // 5, 3)
+    gn = g.backend_graphs["pgo_gn[512]"]
+    assert runs >= 2 and runs == len(e.stage_seconds["pgo"])
+    assert gn.replays == (runs - 1) * live_iters + cfg.ba.pg_iters - 1
+    assert g.backend_graphs["pgo_build[512]"].replays == runs - 1
+    assert g.backend_graphs["pgo_apply[512]"].replays == runs - 1
+    # the PGO writes back in place: no backend graph loaded a leaf
+    assert all(graph.loaded == 0 for graph in g.backend_graphs.values())
     np.testing.assert_array_equal(g_post, e_post)
     assert same_bits(g.state, e.state)
     assert all(torch.equal(a, b) for a, b in zip(g_rows, e_rows))

@@ -1,7 +1,9 @@
 """The CUDA kernels against their plain PyTorch twins, on the card, and
 what else only a card can show (bundle adjustment on CUDA tensors
 against the CPU, a windowed BA without a host sync, the backend's
-graphs replayed over the step graph's state).
+graphs, the pose-graph relaxation's among them, replayed over the step
+graph's state, and the chain kernels captured once and replayed with
+several live counts written into their device scalar).
 
 Every test here is marked `cuda` and skips where there is no card (the
 kernels have no CPU mode). The file imports torch and the port only,
@@ -433,3 +435,110 @@ def test_backend_graphs_replay_without_syncs_equal_to_eager(cuda_device):
         for a, b in zip(flatten((e_state, e_out)), flatten((g_state, g_out)),
                         strict=True):
             assert torch.equal(_bits(a), _bits(b)), name
+
+
+def test_chain_kernels_captured_once_serve_every_live_count(cuda_device):
+    """One chain_prepare + chain_sweep pair captured in a CUDA graph with
+    the live count a 0-d int32 device tensor, replayed with three counts
+    written into it: each replay equals the plain twins at that count;
+    a count outside [1, F] makes x all NaN. The wrappers refuse a live
+    count of another dtype or device."""
+    f = 2048
+    jj, ji, winv, v = [x.to(cuda_device)
+                       for x in synthetic.chain_inputs(f, f, 7)]
+    live = torch.full((), f, dtype=torch.int32, device=cuda_device)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):               # build, and the warm-up
+        cuda_kernels.chain_sweep_cuda(jj, ji, winv, v, live)
+    torch.cuda.current_stream().wait_stream(side)
+    before = cuda_kernels.launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        prep = cuda_kernels.chain_prepare_cuda(jj, ji, live)
+        x = cuda_kernels.chain_sweep_cuda(jj, ji, winv, v, live, prep=prep)
+    for n in (601, 1, 2048):
+        live.fill_(n)
+        graph.replay()
+        torch.cuda.synchronize()
+        prep_p = cuda_kernels.chain_prepare_plain(jj, ji, n)
+        assert torch.allclose(prep, prep_p, rtol=0, atol=1e-5), n
+        xp = cuda_kernels.chain_sweep_plain(jj, ji, winv, v, n)
+        assert torch.isfinite(x).all(), n
+        assert (x - xp).abs().max().item() <= 1e-4 * xp.abs().max().item()
+    for n in (0, f + 1):
+        live.fill_(n)
+        graph.replay()
+        assert torch.isnan(x).all(), n
+    after = cuda_kernels.launch_counts()
+    assert after["chain_sweep"] - before["chain_sweep"] == 1
+    assert after["chain_prepare"] - before["chain_prepare"] == 1
+    with pytest.raises(TypeError):
+        cuda_kernels.chain_sweep_cuda(jj, ji, winv, v, live.long())
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_kernels.chain_prepare_cuda(jj, ji, live.cpu())
+    with pytest.raises(ValueError, match="n_live=0"):
+        cuda_kernels.chain_sweep_cuda(jj, ji, winv, v, 0)
+
+
+def test_pgo_graphs_replay_without_syncs_equal_to_eager(cuda_device):
+    """The pose-graph relaxation of a SlamSystem with a step graph, as
+    its programs pgo_build, pgo_gn (once per Gauss-Newton iteration) and
+    pgo_apply, captured at the first call over the step graph's state: a
+    warm relaxation makes no host sync (sync debug mode "error"), counts
+    one chain_prepare per iteration and one chain_sweep per
+    preconditioner application, and equals one eager `_pgo_step` on a
+    copy of the same state to the bit, state and cost alike."""
+    cfg = tiny_config()
+    h, w = cfg.image.height, cfg.image.width
+    world = synthetic.make_world(3, n_frames=12, n_points=1200,
+                                 trajectory="loop", image_hw=(h, w),
+                                 speed=0.9, device=cuda_device)
+    lefts, rights = synthetic.render_sequence(world, h, w)
+    sys_ = pipeline.SlamSystem(world.cam, cfg, bow_train_frame=8)
+    sys_.process(lefts[0], rights[0])
+    sys_.process_block(lefts[1:], rights[1:])
+    step = sys_.step_graph
+    cap = pipeline.MAX_LOOP_EDGES
+    le = [torch.zeros(cap, dtype=torch.int64),
+          torch.zeros(cap, dtype=torch.int64),
+          torch.eye(4).repeat(cap, 1, 1), torch.zeros(cap)]
+    gt = world.poses.cpu()
+    le[1][0], le[3][0] = 11, 100.0               # the loop 0 -> 11
+    le[2][0] = torch.linalg.inv(gt[0]) @ gt[11]
+    le = [x.to(cuda_device) for x in le]
+    bucket, iters, n_live = 512, 3, 12
+    sys_._pgo(bucket, iters, n_live, *le)        # warm-ups + captures
+    names = [f"pgo_{p}[{bucket}]" for p in ("build", "gn", "apply")]
+    graphs = [sys_.backend_graphs[n] for n in names]
+    assert all(g.over is step for g in graphs)
+    assert graphs[1].launches == {"chain_prepare": 1,
+                                  "chain_sweep": cfg.ba.cg_iters + 1}
+    st = sys_.state
+    copy = unflatten(st, iter([x.clone() for x in flatten(st)]))
+    traj, t_w, kf_poses, xyz, e_cost = pipeline._pgo_step(
+        copy.traj, copy.rel, copy.rel_mask, copy.kf.frame_of_row, *le,
+        copy.frame, copy.map.xyz, copy.map.last_frame, copy.map.valid,
+        bucket=bucket, iters=iters, cg_iters=cfg.ba.cg_iters, n_live=n_live)
+    kf_sel = torch.where((copy.kf.frame_of_row >= 0)[:, None, None],
+                         kf_poses, copy.kf.poses)
+    before = cuda_kernels.launch_counts()
+    replays = [g.replays for g in graphs]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        g_cost = sys_._pgo(bucket, iters, n_live, *le)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    after = cuda_kernels.launch_counts()
+    assert sys_.state is step._state_like
+    assert [g.replays - r for g, r in zip(graphs, replays)] == [1, iters, 1]
+    assert {k: after[k] - before[k] for k in after
+            if after[k] != before[k]} == {
+        "chain_prepare": iters, "chain_sweep": iters * (cfg.ba.cg_iters + 1)}
+    g = sys_.state
+    for a, b in zip((traj, t_w, kf_sel, xyz, e_cost),
+                    (g.traj, g.T_w_cam, g.kf.poses, g.map.xyz, g_cost),
+                    strict=True):
+        assert torch.equal(_bits(a), _bits(b))
+    assert float((traj - copy.traj).abs().max()) > 0
