@@ -153,14 +153,23 @@ exits non-zero and never prints the final `ok` line:
                pnp_ok >= 0.8, the fetch worker gone with the system.
   flow     — the flow VO (`models/vo_flow.py`: FAST corners through the
                kernel's one-level entry, pyramidal LK, dense SGM
-               disparity, RANSAC-PnP) over the arc clip on CUDA tensors,
-               the launch counters reset just before: fast_score once per
-               frame, no other kernel; pnp_ok >= 0.6, poses finite, ATE
-               printed beside the VO slice's; the first 6 frames on CPU
-               and CUDA with the same draws (num_tracked and num_stereo
-               within 2%, poses within 1e-2 m); then flow frames/s, ms
-               per vo_step, per disparity and per lk_track call (CUDA
-               events), their device-busy ms and launches (torch.profiler).
+               disparity, RANSAC-PnP) over the arc clip on CUDA tensors
+               through `run_sequence`, which replays one CUDA graph of
+               the step per frame, the launch counters reset just
+               before: fast_score once per frame, no other kernel;
+               pnp_ok >= 0.6, poses finite, ATE printed beside the VO
+               slice's; the graphed run equal to the bit to a loop of
+               eager vo_step calls from the same seed (poses, metrics,
+               the final state, launch counts; one replay per frame
+               after the first); the first 6 frames on CPU and CUDA
+               with the same draws (num_tracked and num_stereo within
+               2%, poses within 1e-2 m); then ms per warm vo_step eager
+               and graphed (CUDA events, host clock; 0 host syncs per
+               warm replay), the graph's nodes, capture s and pool
+               bytes, flow frames/s graphed and eager (per-frame loops)
+               and of the whole run_sequence call (capture included),
+               ms per disparity and per lk_track call (CUDA events), and
+               device-busy shares and launches (torch.profiler).
  10. cpu-vs-gpu — the first 6 frames of `slam_step` on CPU and on CUDA
                with the same draws (num_stereo, kf.n and map.cursor
                within 2%, poses within 1e-2 m); `bundle_adjust` of a
@@ -290,6 +299,7 @@ RESUME_TOL = 1e-3            # m, resumed run against the straight run
 ASYNC_FRAMES = 100           # the bench runs 600 at the same config
 BA_TOL = 1e-4                # m, bundle_adjust on CPU against CUDA
 FLOW_PNP_OK = 0.6            # the flow VO's pnp_ok share on the arc clip
+FLOW_REPS = 5                # warm flow steps per timing (an eager one ~0.3 s)
 CLI_FRAMES = 120             # the first frames of the loop2 clip
 CLI_CROP = (370, 1226)       # KITTI odometry's image size
 CLI_CKPT_EVERY = 64
@@ -1437,19 +1447,38 @@ def flow_stage(cfg, lefts, rights):
                                 max_err=fc.max_err))
 
 
+def flow_eager(cfg, cam, lefts, rights):
+    """The flow VO as a loop of eager vo_step calls from SEED (the draws
+    run_sequence makes from the same seed): (final state, poses (F-1,4,4),
+    metrics stacked over F-1, host seconds of the loop after init_state,
+    ending in a synchronize)."""
+    st = vo_flow.init_state(lefts[0], rights[0], cam, cfg, SEED)
+    poses, ms = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(1, lefts.shape[0]):
+        st, m = vo_flow.vo_step(st, lefts[i], rights[i], cam, cfg)
+        poses.append(st.T_w_cam)
+        ms.append(m)
+    torch.cuda.synchronize()
+    return st, torch.stack(poses), vo_flow.FlowVOMetrics(
+        *[torch.stack(v) for v in zip(*ms)]), time.perf_counter() - t0
+
+
 def phase_flow(cfg, world, lefts, rights, dev, vo_ate, late):
     """The second VO frontend (FAST corners, pyramidal LK, dense SGM
     disparity, RANSAC-PnP) over the arc clip on CUDA tensors, the launch
-    counters reset just before; the first frames on CPU tensors against
-    CUDA with the same draws; then its times (its profiler sessions go
-    into `late`)."""
-    f = lefts.shape[0]
+    counters reset just before: run_sequence replays one CUDA graph of
+    the step per frame. Then the graphed run against a loop of eager
+    vo_step calls with the same draws (to the bit); the first frames on
+    CPU tensors against CUDA with the same draws; its times, eager and
+    graphed (its profiler sessions go into `late`)."""
+    f, cam = lefts.shape[0], world.cam
     gt = world.poses.cpu().numpy()
     cuda_kernels.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    poses, metrics = vo_flow.run_sequence(lefts, rights, world.cam, cfg,
-                                          seed=SEED)
+    poses, metrics = vo_flow.run_sequence(lefts, rights, cam, cfg, seed=SEED)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = cuda_kernels.launch_counts()
@@ -1469,6 +1498,35 @@ def phase_flow(cfg, world, lefts, rights, dev, vo_ate, late):
     check(ok_share >= FLOW_PNP_OK,
           f"flow pnp_ok share {ok_share} < {FLOW_PNP_OK}")
 
+    # Graphed against eager: the same seed, so the same draws. The graph
+    # kept for the times below is run_sequence's own path.
+    cuda_kernels.reset_launch_counts()
+    es, e_poses, e_metrics, t_eager = flow_eager(cfg, cam, lefts, rights)
+    counts_e = cuda_kernels.launch_counts()
+    cuda_kernels.reset_launch_counts()
+    gs, graph, g_poses, g_metrics = vo_flow._run_graphed(
+        vo_flow.init_state(lefts[0], rights[0], cam, cfg, SEED), lefts,
+        rights, cam, cfg)
+    counts_g = cuda_kernels.launch_counts()
+    seq = (torch.as_tensor(poses[1:]),
+           [torch.as_tensor(np.stack([getattr(m, k) for m in metrics]))
+            for k in vo_flow.FlowVOMetrics._fields])
+    flow_diff = (tree_diff((e_poses, e_metrics, tuple(es)[:-2],
+                            es.generator.get_state(), es.frame),
+                           (g_poses, g_metrics, tuple(gs)[:-2],
+                            gs.generator.get_state(), gs.frame), "flow")
+                 + tree_diff((e_poses.cpu(), [v.cpu() for v in e_metrics]),
+                             seq, "run_sequence"))
+    say("flow-graph", differing=flow_diff, launches_eager=counts_e,
+        launches_graph=counts_g, eager_loop_seconds=f"{t_eager:.3f}",
+        **graph.stats())
+    check(not flow_diff, f"the graphed flow VO differs from the vo_step "
+          f"loop: {flow_diff}")
+    check(counts_e == counts_g == want,
+          f"flow launch counts: eager {counts_e}, graphed {counts_g}")
+    check(graph.replays == f - 2, f"{graph.replays} flow replays, not "
+          f"one per frame after the first")
+
     # CPU (plain path) vs CUDA (kernel) on the first frames, same draws.
     n = vo_flow._detect_corners(lefts[0], cfg)[0].shape[0]
     g = torch.Generator(device="cpu").manual_seed(SEED + 1)
@@ -1477,10 +1535,10 @@ def phase_flow(cfg, world, lefts, rights, dev, vo_ate, late):
     t0 = time.perf_counter()
     p_cpu, m_cpu = vo_flow.run_sequence(
         lefts[:CPU_FRAMES].cpu(), rights[:CPU_FRAMES].cpu(),
-        world.cam.to("cpu"), cfg, draws=draws)
+        cam.to("cpu"), cfg, draws=draws)
     cpu_secs = time.perf_counter() - t0
     p_gpu, m_gpu = vo_flow.run_sequence(
-        lefts[:CPU_FRAMES], rights[:CPU_FRAMES], world.cam, cfg,
+        lefts[:CPU_FRAMES], rights[:CPU_FRAMES], cam, cfg,
         draws=[d.to(dev) for d in draws])
     dt = float(np.abs(p_cpu[:, :3, 3] - p_gpu[:, :3, 3]).max())
     dr = max(rot_err(a[:3, :3], b[:3, :3]) for a, b in zip(p_cpu, p_gpu))
@@ -1495,35 +1553,40 @@ def phase_flow(cfg, world, lefts, rights, dev, vo_ate, late):
     check(dt <= 1e-2 and dr <= 1e-3,
           f"flow CPU vs GPU poses: {dt} m, {dr} rad")
 
-    # Warm times: the per-frame loop, one step, its two dense stages.
-    state = vo_flow.init_state(lefts[0], rights[0], world.cam, cfg, SEED)
-    for i in range(1, 3):
-        state, _ = vo_flow.vo_step(state, lefts[i], rights[i], world.cam, cfg)
+    # Warm times: one step eager and graphed, the graphed per-frame loop
+    # (the eager one is flow_eager's), the two dense stages.
+    k = cfg.tracking.ransac_iters
+    carry = tuple(gs)[:-2]
+    flow_u = draw_uniform(k, n, gs.generator, dev)
+    step_t = step_times(
+        "flow_vo_step",
+        lambda: vo_flow.vo_step(es, lefts[5], rights[5], cam, cfg),
+        lambda: graph(carry, lefts[5], rights[5], flow_u), late,
+        reps=FLOW_REPS)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(1, f):
-        state, _ = vo_flow.vo_step(state, lefts[i], rights[i], world.cam, cfg)
+        u = draw_uniform(k, n, gs.generator, dev)
+        carry, _ = graph(carry, lefts[i], rights[i], u)
     torch.cuda.synchronize()
-    fps = (f - 1) / (time.perf_counter() - t0)
-
-    def step():
-        vo_flow.vo_step(state, lefts[5], rights[5], world.cam, cfg)
+    fps, eager_fps = (f - 1) / (time.perf_counter() - t0), (f - 1) / t_eager
     disp, track = flow_stage(cfg, lefts, rights)
-    step_ms = event_ms(step, reps=5, warm=1)
     disp_ms = event_ms(disp, reps=5, warm=1)
     lk_ms = event_ms(track, reps=10, warm=2)
     d = cfg.disparity
-    say("flow-times", flow_frames_per_s=fps, vo_step_ms=step_ms,
+    stats = graph.stats()
+    say("flow-times", flow_frames_per_s=fps, flow_eager_frames_per_s=eager_fps,
+        run_sequence_frames_per_s=(f - 1) / secs, **step_t,
         disparity_ms=disp_ms, lk_track_ms=lk_ms, max_disp=d.max_disp,
         radius=d.radius, sgm_columns=cfg.image.width,
         lk=dataclasses.asdict(cfg.flow))
     check(math.isfinite(fps) and fps > 0, "flow fps not measured")
 
     def profiled():
-        """Device-busy ms and launches; the disparity is timed again
-        after the sessions, against its time before any session."""
-        out = dict(flow_vo_step_device_busy_ms=device_busy_ms(step, reps=2),
-                   flow_disparity_device_busy_ms=device_busy_ms(disp, reps=2),
+        """Device-busy ms and launches of the two dense stages; the
+        disparity is timed again after the sessions, against its time
+        before any session."""
+        out = dict(flow_disparity_device_busy_ms=device_busy_ms(disp, reps=2),
                    flow_disparity_launches=device_launches(disp),
                    flow_lk_track_launches=device_launches(track),
                    flow_disparity_ms_after_profiler=event_ms(disp, reps=5,
@@ -1532,9 +1595,13 @@ def phase_flow(cfg, world, lefts, rights, dev, vo_ate, late):
         return out
     late.append(profiled)
     return counts, dict(
-        flow_frames_per_s=fps, flow_ate_m=ate, flow_pnp_ok_share=ok_share,
-        flow_vo_step_ms=step_ms, flow_disparity_ms=disp_ms,
-        flow_lk_track_ms=lk_ms)
+        flow_frames_per_s=fps, flow_eager_frames_per_s=eager_fps,
+        flow_run_sequence_frames_per_s=(f - 1) / secs, flow_ate_m=ate,
+        flow_pnp_ok_share=ok_share,
+        **{f"flow_vo_step_{k}": v for k, v in step_t.items()},
+        **{f"flow_vo_step_graph_{k}": stats[k]
+           for k in ("capture_seconds", "nodes", "pool_bytes")},
+        flow_disparity_ms=disp_ms, flow_lk_track_ms=lk_ms)
 
 
 def run_together(cmds, timeout=900):

@@ -10,6 +10,14 @@ hand-written kernel per frame on CUDA tensors.
 
 The state carries a `torch.Generator` for RANSAC in place of the
 reference's PRNG key; `vo_step` may take the frame's draws instead.
+
+`vo_step` runs eagerly. On CUDA tensors `run_sequence` runs each frame
+after the first as one replay of a captured CUDA graph of the step
+(`utils/graphs.py`), as the reference runs one compiled program per
+frame: the RANSAC draws are made from the state's generator before the
+replay (the same numbers, in the same order, as `vo_step` draws), and
+the step's launches (the SGM column loop, LK's iterations, RANSAC-PnP)
+become the graph's nodes.
 """
 
 from __future__ import annotations
@@ -22,10 +30,11 @@ import torch
 from slam1_tpu_torch.config import SlamConfig
 from slam1_tpu_torch.models.tracker import chain_pose
 from slam1_tpu_torch.ops import disparity as disp_ops
-from slam1_tpu_torch.ops import lk, pnp, triangulate
+from slam1_tpu_torch.ops import dispatch, lk, pnp, triangulate
 from slam1_tpu_torch.ops.brief import gaussian_blur
 from slam1_tpu_torch.ops.camera import StereoCamera
 from slam1_tpu_torch.ops.detector import detect
+from slam1_tpu_torch.utils.graphs import StepGraph
 
 
 class FlowVOState(NamedTuple):
@@ -129,22 +138,71 @@ def vo_step(state: FlowVOState, left, right, cam: StereoCamera,
     return new_state, metrics
 
 
+def _graphed_step(cam: StereoCamera, cfg: SlamConfig):
+    """vo_step as a StepGraph's function: (the state's tensor leaves,
+    left, right, draws) -> (the same leaves, metrics)."""
+    def step(carry, left, right, u):
+        s, m = vo_step(FlowVOState(*carry, generator=None, frame=0), left,
+                       right, cam, cfg, u=u)
+        return tuple(s)[:-2], m
+    return step
+
+
+def _run_graphed(state: FlowVOState, lefts, rights, cam: StereoCamera,
+                 cfg: SlamConfig, draws=None):
+    """Frames 1.. of (F,H,W) CUDA stacks from `state`, one graph call per
+    frame: the first is the graph's warm-up step and capture, each later
+    one a replay. Returns (state, graph, poses (F-1,4,4), metrics stacked
+    over F-1); the state's tensors are the graph's static state."""
+    f = lefts.shape[0]
+    n = state.prev_xy.shape[0]
+    graph = StepGraph(_graphed_step(cam, cfg), "flow_vo_step")
+    carry = tuple(state)[:-2]        # all but generator and frame
+    poses = torch.empty((f - 1, 4, 4), dtype=lefts.dtype, device=lefts.device)
+    cols = None
+    for i in range(1, f):
+        u = (draws[i - 1].to(device=lefts.device, dtype=lefts.dtype)
+             if draws is not None else
+             pnp.draw_uniform(cfg.tracking.ransac_iters, n, state.generator,
+                              lefts.device))
+        carry, m = graph(carry, lefts[i], rights[i], u)
+        if cols is None:
+            cols = [torch.empty((f - 1,) + v.shape, dtype=v.dtype,
+                                device=v.device) for v in m]
+        # Both live in the graph's buffers until the next replay.
+        poses[i - 1].copy_(carry[0])
+        for col, v in zip(cols, m):
+            col[i - 1].copy_(v)
+    return (FlowVOState(*carry, generator=state.generator,
+                        frame=state.frame + f - 1), graph, poses,
+            FlowVOMetrics(*cols))
+
+
 def run_sequence(lefts, rights, cam: StereoCamera, cfg: SlamConfig,
                  seed: int = 0, draws=None):
     """Host driver over (F,H,W) stacks -> (poses (F,4,4) numpy, list of
     F-1 FlowVOMetrics of numpy scalars). draws: optional sequence of F-1
-    (K,N) RANSAC draw arrays. Per-frame outputs stay on the device and
-    come back in one transfer at the end."""
+    (K,N) RANSAC draw arrays. On CUDA tensors every frame after the
+    first is one replay of the step's CUDA graph; on the CPU a loop of
+    vo_step. Per-frame outputs stay on the device and come back in one
+    transfer at the end."""
     state = init_state(lefts[0], rights[0], cam, cfg, seed)
-    poses, ms = [state.T_w_cam], []
-    for i in range(1, lefts.shape[0]):
-        state, m = vo_step(state, lefts[i], rights[i], cam, cfg,
-                           u=None if draws is None else draws[i - 1])
-        poses.append(state.T_w_cam)
-        ms.append(m)
-    poses = torch.stack(poses).cpu().numpy()
-    if not ms:
-        return poses, []
-    cols = [torch.stack(v).cpu().numpy() for v in zip(*ms)]
+    if lefts.shape[0] < 2:
+        return state.T_w_cam[None].cpu().numpy(), []
+    if dispatch.use_cuda(lefts):
+        _, _, poses, m = _run_graphed(state, lefts, rights, cam, cfg, draws)
+    else:
+        poses, ms = [], []
+        for i in range(1, lefts.shape[0]):
+            state, mi = vo_step(state, lefts[i], rights[i], cam, cfg,
+                                u=None if draws is None else draws[i - 1])
+            poses.append(state.T_w_cam)
+            ms.append(mi)
+        poses = torch.stack(poses)
+        m = FlowVOMetrics(*[torch.stack(v) for v in zip(*ms)])
+    poses = torch.cat([torch.eye(4, dtype=poses.dtype,
+                                 device=poses.device)[None], poses])
+    poses = poses.cpu().numpy()
+    cols = [v.cpu().numpy() for v in m]
     return poses, [FlowVOMetrics(*[np.asarray(c[i]) for c in cols])
-                   for i in range(len(ms))]
+                   for i in range(poses.shape[0] - 1)]

@@ -82,9 +82,11 @@ def _track_level(prev, nxt, pts, guess, win: int, iters: int):
     offs = _window_offsets(win, pts.dtype, pts.device)
     grid = pts[:, None, :] + offs                           # (N,W2,2)
     t = bilinear(prev, grid)                                # template
-    # Spatial gradients of the template, constant across iterations.
-    dx = torch.tensor([0.5, 0.0], dtype=pts.dtype, device=pts.device)
-    dy = torch.tensor([0.0, 0.5], dtype=pts.dtype, device=pts.device)
+    # Spatial gradients of the template, constant across iterations. The
+    # half-pixel steps [0.5, 0] and [0, 0.5] are made on the device: a
+    # tensor of host data would be a copy from pageable memory, which
+    # stalls the host and cannot be captured in a CUDA graph.
+    dx, dy = torch.eye(2, dtype=pts.dtype, device=pts.device) * 0.5
     ix = bilinear(prev, grid + dx) - bilinear(prev, grid - dx)
     iy = bilinear(prev, grid + dy) - bilinear(prev, grid - dy)
     gxx = torch.sum(ix * ix, dim=-1)

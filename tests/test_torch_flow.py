@@ -221,8 +221,7 @@ def test_sample_disparity():
     np.testing.assert_allclose(d.numpy(), 6.0, atol=1.0)
 
 
-@pytest.fixture(scope="module")
-def clip():
+def reference_clip():
     """tests/test_vo_flow.py's clip: 8 frames, 1500 points, speed 0.45."""
     cfg = jtiny()
     world = make_world(jax.random.PRNGKey(0), n_frames=8, n_points=1500,
@@ -230,6 +229,11 @@ def clip():
                        speed=0.45)
     lefts, rights = render_sequence(world, cfg.image.height, cfg.image.width)
     return cfg, world, np.array(lefts), np.array(rights)
+
+
+@pytest.fixture(scope="module")
+def clip():
+    return reference_clip()
 
 
 def reference_draws(cfg, n_steps, seed=0):
@@ -249,11 +253,18 @@ def reference_draws(cfg, n_steps, seed=0):
 
 def test_run_sequence_matches_jax(clip):
     cfg, world, lefts, rights = clip
-    pj, mj = jvf.run_sequence(jnp.asarray(lefts), jnp.asarray(rights),
-                              world.cam, cfg)
     pt, mt = tvf.run_sequence(
         t(lefts), t(rights), interop.camera(jax.device_get(world.cam), "cpu"),
         tiny_config(), draws=reference_draws(cfg, lefts.shape[0] - 1))
+    held_to_reference(clip, pt, mt)
+
+
+def held_to_reference(clip, pt, mt):
+    """The port's run_sequence of the clip (poses, metrics), with the
+    reference's draws, against the reference's run_sequence."""
+    cfg, world, lefts, rights = clip
+    pj, mj = jvf.run_sequence(jnp.asarray(lefts), jnp.asarray(rights),
+                              world.cam, cfg)
     assert pt.shape == pj.shape and len(mt) == len(mj)
     for i, (a, b) in enumerate(zip(mj, mt)):
         assert int(b.num_tracked) == int(a.num_tracked), i

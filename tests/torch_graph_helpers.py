@@ -7,8 +7,8 @@
   - the `emulated_graphs` fixture: `StepGraph`'s capture and replay run
     eagerly on the CPU, with the same static state (its own clone, or
     the state of the graph it runs over), loads and write-backs as on
-    the card, and the graphed paths of `SlamSystem` and `vo_block` taken
-    for CPU tensors.
+    the card, and the graphed paths of `SlamSystem`, `vo_block` and the
+    flow VO's `run_sequence` taken for CPU tensors.
 
 A test file takes them by importing them:
 
@@ -23,7 +23,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from slam1_tpu_torch.models import pipeline as tpipe
-from slam1_tpu_torch.models import vo
+from slam1_tpu_torch.models import vo, vo_flow
 from slam1_tpu_torch.utils import graphs, tree
 
 HOST_OPS = ("_local_scalar_dense", "nonzero", "masked_select", "unique",
@@ -58,7 +58,8 @@ def same_bits(a, b) -> bool:
 def emulated_graphs(monkeypatch):
     """StepGraph with its capture and replay run eagerly on the CPU: the
     same static state, loads and write-backs as on the card, and the
-    graphed paths of SlamSystem and vo_block taken for CPU tensors."""
+    graphed paths of SlamSystem, vo_block and vo_flow.run_sequence taken
+    for CPU tensors."""
 
     def capture(self, state, inputs):
         graphs._check_tensors((state, inputs))
@@ -79,3 +80,4 @@ def emulated_graphs(monkeypatch):
     card = types.SimpleNamespace(use_cuda=lambda t: True)
     monkeypatch.setattr(tpipe, "dispatch", card)
     monkeypatch.setattr(vo, "dispatch", card)
+    monkeypatch.setattr(vo_flow, "dispatch", card)
