@@ -124,11 +124,18 @@ exits non-zero and never prints the final `ok` line:
                1e-6 m of its.
   8. global-ba — `global_ba_step` on the finished state with the
                keyframe count's bucket, the observation bucket the CLI
-               picks, the run's loop edges as priors and the trace:
-               final cost finite and <= the first trace entry, at least
-               one accepted step, ATE after <= 1.05 x before. Prints the
-               trace, ms per LM iteration and ms per CG matvec with its
-               byte bound.
+               picks, the run's loop edges as priors and the trace: two
+               eager calls (`graphs=False`) compared to each other, the
+               graphed call that captures `ba_build`, `ba_lm` and
+               `ba_apply`, and a second one made only of replays (one,
+               lm_iters, one), equal to the first eager call to the bit
+               and making no host sync; the graduated cut made on the
+               card equal to the host's. Final cost finite and <= the
+               first trace entry, at least one accepted step, ATE after
+               <= 1.05 x before. Prints the trace, ms per LM iteration
+               eager and graphed (CUDA events and host clock), each
+               graph's capture s, nodes and pool bytes, and ms per CG
+               matvec with its byte bound.
   ref-backend — `ref_backend.optimize_segment` over the run's first loop
                (its odometry twists, padded to a multiple of 64, the loop
                edge's measurement): endpoint gap down >= 10x, twists
@@ -280,6 +287,7 @@ from slam1_tpu_torch.utils.bounds import bound_ba_matvec, \
 from slam1_tpu_torch.utils.evalmetrics import ate_rmse  # noqa: E402
 from slam1_tpu_torch.utils.timing import device_busy_ms, device_launches, \
     event_ms, graph_ms  # noqa: E402
+from slam1_tpu_torch.utils.tree import flatten  # noqa: E402
 
 N_FRAMES = 24
 N_POINTS = 6000
@@ -953,9 +961,21 @@ def phase_checkpoint(cfg, world, lefts, rights, path, straight,
     return dict(checkpoint_load_s=t_load, resume_max_diff_m=diff)
 
 
-def phase_global_ba(cfg, sys_, world):
+def max_abs_diff(a, b) -> float:
+    """The largest |a - b| over the float leaves of two trees of
+    tensors (0 where they are equal)."""
+    return max([float((x.double() - y.double()).abs().max())
+                for x, y in zip(flatten(a), flatten(b), strict=True)
+                if x.is_floating_point() and x.numel()] + [0.0])
+
+
+def phase_global_ba(cfg, sys_, world, smi):
     """Global BA with pose priors on the finished state, as the CLI's
-    offline pass drives it."""
+    offline pass drives it: two eager calls (`graphs=False`) held to each
+    other, the graphed call that captures `ba_build`, `ba_lm` and
+    `ba_apply`, a second graphed call made only of replays held to the
+    eager one, the calls timed eager against graphed and the graphs'
+    stats; then one CG matvec timed against its bound."""
     st = sys_.state
     f = sys_.frame_count + 1
     gt = world.poses.cpu().numpy()
@@ -966,17 +986,81 @@ def phase_global_ba(cfg, sys_, world):
     obs_bucket = 1 << max(int(np.ceil(np.log2(max(n_obs_real, 1)))), 10)
     loop_rows = sys_.loop_edge_rows()
     ate_before = ate_rmse(sys_.poses(), gt, align=False)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    new, cost, trace = pipeline.global_ba_step(
-        st, sys_.cam, cfg, n_kf=bucket, obs_bucket=obs_bucket,
-        return_trace=True, loop_rows=loop_rows)
-    torch.cuda.synchronize()
-    call_ms = 1e3 * (time.perf_counter() - t0)
+    iters = cfg.ba.lm_iters
+    dev = st.traj.device
+    steps = torch.arange(iters, device=dev)
+    cut_bits = [ba.graduated_cut(cfg.ba.outlier_px, steps[t],
+                                 torch.float32).cpu().view(torch.int32)
+                for t in range(iters)]
+    host_bits = [torch.full((), cfg.ba.outlier_px * max(1.0, 8.0 * 0.5 ** t),
+                            dtype=torch.float32).view(torch.int32)
+                 for t in range(iters)]
+    check(all(torch.equal(a, b) for a, b in zip(cut_bits, host_bits)),
+          "the graduated cut made on the card differs from the host's")
+
+    def call(graphs):
+        return pipeline.global_ba_step(
+            st, sys_.cam, cfg, n_kf=bucket, obs_bucket=obs_bucket,
+            return_trace=True, loop_rows=loop_rows, graphs=graphs)
+
+    def timed(graphs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = call(graphs)
+        torch.cuda.synchronize()
+        return res, 1e3 * (time.perf_counter() - t0)
+
+    pipeline.GLOBAL_BA_GRAPHS.clear()
+    eager, eager_ms = timed(False)
+    eager2, eager2_ms = timed(False)
+    eager_diff = tree_diff(eager, eager2, "eager")
+    eager_spread = max_abs_diff(eager, eager2)
+    captured, capture_call_ms = timed(True)
+    check(len(pipeline.GLOBAL_BA_GRAPHS) == 1,
+          f"a graphed call made {len(pipeline.GLOBAL_BA_GRAPHS)} graph sets")
+    (graphs,) = pipeline.GLOBAL_BA_GRAPHS.values()
+    names = ("ba_build", "ba_lm", "ba_apply")
+    replays = [graphs[n].replays for n in names]
+    graphed, graphed_ms = timed(True)
+    check([graphs[n].replays - r for n, r in zip(names, replays)]
+          == [1, iters, 1] and len(pipeline.GLOBAL_BA_GRAPHS) == 1,
+          f"the second graphed call was not one replay of ba_build, "
+          f"{iters} of ba_lm and one of ba_apply")
+    graph_diff = tree_diff(eager, graphed, "global_ba")
+    graph_spread = max_abs_diff(eager, graphed)
+    capture_diff = tree_diff(captured, graphed, "global_ba")
+    times = {}
+    for which, graphs_on in (("eager", False), ("graph", True),
+                             ("graph", True), ("eager", False)):
+        times.setdefault(f"{which}_events_ms", []).append(
+            event_ms(lambda g=graphs_on: call(g), reps=1, warm=0))
+        times.setdefault(f"{which}_host_ms", []).append(
+            host_ms(lambda g=graphs_on: call(g), reps=1, warm=0))
+    times = {k: float(np.mean(v)) for k, v in times.items()}
+    syncs, where = count_syncs(lambda: call(True))
+    stats = {n: graphs[n].stats() for n in names}
+    new, cost, trace = graphed
     poses = new.traj[:f].cpu().numpy()
     ate_after = ate_rmse(poses, gt, align=False)
     tr = {k: getattr(trace, k).cpu().numpy().tolist() for k in trace._fields}
     cost = float(cost)
+    say("global-ba-graphs", card=smi, eager_call_ms=[eager_ms, eager2_ms],
+        eager_vs_eager_differing=eager_diff,
+        eager_vs_eager_max_abs=eager_spread,
+        capture_call_ms=capture_call_ms, graph_call_ms=graphed_ms,
+        graph_vs_eager_differing=graph_diff,
+        graph_vs_eager_max_abs=graph_spread,
+        capture_vs_replay_differing=capture_diff,
+        ms_per_lm_iteration={k: v / iters for k, v in times.items()},
+        call_ms=times, graph_replay_syncs=syncs,
+        **{f"{n}_{k}": v for n, st_ in stats.items()
+           for k, v in st_.items()})
+    check(syncs == 0, f"a warm graphed global BA made host syncs: {where}")
+    check(not capture_diff, f"the capturing call and the replays differ: "
+          f"{capture_diff}")
+    check(not graph_diff, f"graphed global BA differs from eager "
+          f"({graph_spread} at most; eager against eager "
+          f"{eager_spread}): {graph_diff}")
 
     # One CG matvec of the reduced system at the initial point.
     prob, _ = pipeline.build_global_problem(
@@ -994,12 +1078,12 @@ def phase_global_ba(cfg, sys_, world):
     o, c, l, e = (prob.uv.shape[0], prob.poses.shape[0],
                   prob.points.shape[0], prob.pe_i.shape[0])
     mv_bound_ms, mv_by = bound_ba_matvec(o, c, l, e)
-    iters = cfg.ba.lm_iters
     say("global-ba", keyframes=n_kf, camera_rows=bucket,
         observations=n_obs_real, observation_bucket=obs_bucket,
         weighted_observations=int(prob.w.sum()), landmark_rows=l,
         prior_edges=e, lm_iters=iters, cg_iters=cfg.ba.cg_iters,
-        call_ms=call_ms, ms_per_lm_iteration=call_ms / iters,
+        call_ms=graphed_ms, ms_per_lm_iteration=graphed_ms / iters,
+        eager_ms_per_lm_iteration=eager_ms / iters,
         matvecs_per_call=iters * (cfg.ba.cg_iters + 1),
         matvec_ms=mv_ms, matvec_device_ms=mv_device_ms,
         matvec_bound_ms=mv_bound_ms, matvec_bound_by=mv_by,
@@ -1012,16 +1096,28 @@ def phase_global_ba(cfg, sys_, world):
     check(any(tr["accept"]), "global BA accepted no step")
     check(bool(np.isfinite(poses).all()) and ate_after <= 1.05 * ate_before,
           f"global BA moved keyframe ATE {ate_before} -> {ate_after}")
-    return dict(global_ba_ms_per_lm_iteration=call_ms / iters,
-                global_ba_observations=n_obs_real,
-                global_ba_matvec_ms=mv_ms,
-                global_ba_matvec_device_ms=mv_device_ms,
-                global_ba_matvec_bound_ms=mv_bound_ms,
-                global_ba_linearize_ms=lin_ms,
-                global_ba_accepted=int(sum(tr["accept"])),
-                global_ba_cost_first_last=[tr["cost"][0], cost],
-                global_ba_ate_before_m=ate_before,
-                global_ba_ate_after_m=ate_after)
+    out = dict(global_ba_ms_per_lm_iteration=graphed_ms / iters,
+               global_ba_eager_ms_per_lm_iteration=eager_ms / iters,
+               global_ba_eager_vs_eager_max_abs=eager_spread,
+               global_ba_graph_vs_eager_max_abs=graph_spread,
+               global_ba_capture_call_ms=capture_call_ms,
+               global_ba_graph_replay_syncs=syncs,
+               global_ba_observations=n_obs_real,
+               global_ba_matvec_ms=mv_ms,
+               global_ba_matvec_device_ms=mv_device_ms,
+               global_ba_matvec_bound_ms=mv_bound_ms,
+               global_ba_linearize_ms=lin_ms,
+               global_ba_accepted=int(sum(tr["accept"])),
+               global_ba_cost_first_last=[tr["cost"][0], cost],
+               global_ba_ate_before_m=ate_before,
+               global_ba_ate_after_m=ate_after)
+    out.update({f"global_ba_{k}_per_lm_iteration": v / iters
+                for k, v in times.items()})
+    out.update({f"global_{n}_graph_{k}": stats[n][k] for n in names
+                for k in ("capture_seconds", "nodes", "pool_bytes")})
+    # The graphs' pools are not needed by the later phases.
+    pipeline.GLOBAL_BA_GRAPHS.clear()
+    return out
 
 
 def fetch_threads():
@@ -2704,7 +2800,7 @@ def main(argv=None):
                     (slam_ba["slam_ba_ate_before_m"],
                      slam_ba["slam_ba_ate_after_m"])))
     if "global-ba" in phases:
-        numbers.update(phase_global_ba(bcfg, sys_, sworld))
+        numbers.update(phase_global_ba(bcfg, sys_, sworld, smi))
     if "ref-backend" in phases:
         t0 = time.perf_counter()
         numbers.update(phase_ref_backend(sys_, dev))

@@ -14,7 +14,10 @@
     preconditioned CG otherwise (`_schur_solve`);
   - outer Levenberg-Marquardt with accept/reject damping, Huber IRLS
     weights and a graduated outlier cut, fixed iteration counts, no
-    value read back to the host.
+    value read back to the host: `lm_step` is one iteration (the
+    reference's scan body, the iteration a device scalar) and
+    `bundle_adjust` a loop over it; on the card `global_ba_step`
+    replays `lm_step` as a captured graph (`models/pipeline.py`).
 
 Every scatter-add accumulates in float64 and rounds once to the working
 dtype: CUDA's `index_add_` adds in the order its atomics land, and a
@@ -344,9 +347,92 @@ class BATrace(NamedTuple):
     dc_norm: torch.Tensor  # (lm_iters,)
 
 
+def _trunc_cost(problem: BAProblem, hw, r2, cap):
+    """The truncated robust cost sum_i w_i min(huber(r_i), cap); no cap
+    (None) leaves it the full Huber cost."""
+    contrib = hw * r2                          # huber(r): r2 or delta * r
+    if cap is not None:
+        contrib = torch.minimum(contrib, cap)
+    return torch.sum(problem.w * contrib)
+
+
+def graduated_cut(outlier_px: float, t, dtype):
+    """The outlier cut of LM iteration `t` (a 0-d integer tensor), made
+    on its device: outlier_px * max(1, 8 * 0.5 ** t), 8x loose at first
+    and tightened to outlier_px. The power of two is an integer shift,
+    exact on every device, so the value is the one the host computes."""
+    return outlier_px * (1 << torch.clamp(3 - t, min=0)).to(dtype)
+
+
+def lm_step(problem: BAProblem, cam: StereoCamera, cfg: BAConfig, poses,
+            points, lam, t, trace: bool = True):
+    """One Levenberg-Marquardt iteration, the reference's scan body:
+    ((poses, points, lam), trace row). `t` is the iteration, a 0-d
+    integer tensor on the device, from which the graduated cut is made
+    there. The row is (accepted full cost, surviving observations, the
+    damping used, accept, the largest camera-step norm), 0-d tensors;
+    None with `trace=False`. Nothing is read back to the host."""
+    dt = problem.uv.dtype
+    p = problem._replace(poses=poses, points=points)
+    full_cur, r, hw = _cost(p, cam, cfg.huber_delta)
+    w = problem.w * hw
+    r2 = torch.sum(r * r, dim=-1)
+    cap = None
+    if cfg.outlier_px:
+        # Graduated rejection: the cut starts 8x loose and tightens to
+        # outlier_px. The step zero-weights observations beyond the cut;
+        # the objective saturates them at the cap.
+        cut = graduated_cut(cfg.outlier_px, t, dt)
+        cut2 = cut * cut
+        w = w * (r2 < cut2).to(dt)
+        cap = huber_weights(cut2, cfg.huber_delta) * cut2
+    pc_cur = _prior_cost(problem, poses)
+    cost_cur = _trunc_cost(problem, hw, r2, cap) + pc_cur
+    full_cur = full_cur + pc_cur
+    r_, Jc, Jl, w_ = _linearize(p, cam, w)
+    if problem.poses.shape[0] <= DIRECT_MAX_CAMS:
+        dc, dl = _schur_solve_direct(p, r_, Jc, Jl, w_, lam)
+    else:
+        dc, dl = _schur_solve(p, r_, Jc, Jl, w_, lam, cfg.cg_iters)
+    dc = torch.where(torch.isfinite(dc), dc, torch.zeros_like(dc))
+    dl = torch.where(torch.isfinite(dl), dl, torch.zeros_like(dl))
+    new_poses = poses @ se3.exp_se3(dc)
+    new_points = points + dl
+    full_new, r_new, hw_new = _cost(
+        problem._replace(poses=new_poses, points=new_points), cam,
+        cfg.huber_delta)
+    r2_new = torch.sum(r_new * r_new, dim=-1)
+    pc_new = _prior_cost(problem, new_poses)
+    cost_new = _trunc_cost(problem, hw_new, r2_new, cap) + pc_new
+    full_new = full_new + pc_new
+    accept = cost_new < cost_cur
+    poses = torch.where(accept, new_poses, poses)
+    points = torch.where(accept, new_points, points)
+    lam = torch.clamp(torch.where(accept, lam / cfg.lm_lambda_down,
+                                  lam * cfg.lm_lambda_up), 1e-9, 1e6)
+    row = None
+    if trace:
+        # The reference rebuilds the damping it used from the clipped
+        # value; kept as it is.
+        lam_used = torch.where(accept, lam * cfg.lm_lambda_down,
+                               lam / cfg.lm_lambda_up)
+        row = (torch.where(accept, full_new, full_cur),
+               torch.sum(w > 0).to(torch.int32), lam_used, accept,
+               torch.max(torch.linalg.norm(dc, dim=-1)))
+    return (poses, points, lam), row
+
+
+def final_cost(problem: BAProblem, cam: StereoCamera, cfg: BAConfig, poses,
+               points):
+    """() full Huber cost plus the pose priors' at (poses, points)."""
+    out = problem._replace(poses=poses, points=points)
+    return _cost(out, cam, cfg.huber_delta)[0] + _prior_cost(problem, poses)
+
+
 def bundle_adjust(problem: BAProblem, cam: StereoCamera, cfg: BAConfig,
                   return_trace: bool = False):
-    """Full LM bundle adjustment. Camera 0 is gauge-fixed.
+    """Full LM bundle adjustment: `cfg.lm_iters` calls of `lm_step`.
+    Camera 0 is gauge-fixed.
 
     Returns (optimised problem, final cost ()), plus a BATrace when
     `return_trace`. Nothing is read back to the host: decisions are
@@ -361,65 +447,14 @@ def bundle_adjust(problem: BAProblem, cam: StereoCamera, cfg: BAConfig,
     dt, dev = problem.uv.dtype, problem.uv.device
     poses, points = problem.poses, problem.points
     lam = torch.full((), cfg.lm_lambda0, dtype=dt, device=dev)
-    direct = problem.poses.shape[0] <= DIRECT_MAX_CAMS
+    steps = torch.arange(cfg.lm_iters, device=dev)
     trace = []
-
-    def trunc_cost(hw, r2, cap):
-        contrib = hw * r2                      # huber(r): r2 or delta * r
-        if cap is not None:
-            contrib = torch.minimum(contrib, cap)
-        return torch.sum(problem.w * contrib)
-
     for t in range(cfg.lm_iters):
-        p = problem._replace(poses=poses, points=points)
-        full_cur, r, hw = _cost(p, cam, cfg.huber_delta)
-        w = problem.w * hw
-        r2 = torch.sum(r * r, dim=-1)
-        cap = None
-        if cfg.outlier_px:
-            # Graduated rejection: the cut starts 8x loose and tightens
-            # to outlier_px. The step zero-weights observations beyond
-            # the cut; the objective saturates them at the cap.
-            cut = torch.full((), cfg.outlier_px * max(1.0, 8.0 * 0.5 ** t),
-                             dtype=dt, device=dev)
-            cut2 = cut * cut
-            w = w * (r2 < cut2).to(dt)
-            cap = huber_weights(cut2, cfg.huber_delta) * cut2
-        pc_cur = _prior_cost(problem, poses)
-        cost_cur = trunc_cost(hw, r2, cap) + pc_cur
-        full_cur = full_cur + pc_cur
-        r_, Jc, Jl, w_ = _linearize(p, cam, w)
-        if direct:
-            dc, dl = _schur_solve_direct(p, r_, Jc, Jl, w_, lam)
-        else:
-            dc, dl = _schur_solve(p, r_, Jc, Jl, w_, lam, cfg.cg_iters)
-        dc = torch.where(torch.isfinite(dc), dc, torch.zeros_like(dc))
-        dl = torch.where(torch.isfinite(dl), dl, torch.zeros_like(dl))
-        new_poses = poses @ se3.exp_se3(dc)
-        new_points = points + dl
-        full_new, r_new, hw_new = _cost(
-            problem._replace(poses=new_poses, points=new_points), cam,
-            cfg.huber_delta)
-        r2_new = torch.sum(r_new * r_new, dim=-1)
-        pc_new = _prior_cost(problem, new_poses)
-        cost_new = trunc_cost(hw_new, r2_new, cap) + pc_new
-        full_new = full_new + pc_new
-        accept = cost_new < cost_cur
-        poses = torch.where(accept, new_poses, poses)
-        points = torch.where(accept, new_points, points)
-        lam = torch.clamp(torch.where(accept, lam / cfg.lm_lambda_down,
-                                      lam * cfg.lm_lambda_up), 1e-9, 1e6)
-        if return_trace:
-            # The reference rebuilds the damping it used from the
-            # clipped value; kept as it is.
-            lam_used = torch.where(accept, lam * cfg.lm_lambda_down,
-                                   lam / cfg.lm_lambda_up)
-            trace.append((torch.where(accept, full_new, full_cur),
-                          torch.sum(w > 0).to(torch.int32), lam_used, accept,
-                          torch.max(torch.linalg.norm(dc, dim=-1))))
-
+        (poses, points, lam), row = lm_step(problem, cam, cfg, poses, points,
+                                            lam, steps[t], return_trace)
+        trace.append(row)
     out = problem._replace(poses=poses, points=points)
-    cost = _cost(out, cam, cfg.huber_delta)[0] + _prior_cost(problem, poses)
+    cost = final_cost(problem, cam, cfg, poses, points)
     if return_trace:
         return out, cost, BATrace(*[torch.stack(c) for c in zip(*trace)])
     return out, cost

@@ -40,7 +40,9 @@ replays three such graphs per PGO bucket: `pgo_build` builds the pose
 graph, `pgo_gn` (one Gauss-Newton iteration, the live count a device
 scalar) is replayed once per iteration, `pgo_apply` writes the state.
 On the CPU, and with `SlamSystem(..., graphs=False)`, the same
-functions run eagerly.
+functions run eagerly. The offline `global_ba_step` replays graphs of
+its own on CUDA tensors (`ba_build`, `ba_lm` once per LM iteration,
+`ba_apply`; `GLOBAL_BA_GRAPHS`), unless called with `graphs=False`.
 `SlamSystem.frame_count` is the host mirror of `frame` that steers the
 host's cadences.
 """
@@ -58,6 +60,7 @@ import numpy as np
 import torch
 
 from slam1_tpu_torch.config import SlamConfig
+from slam1_tpu_torch.models import ba
 from slam1_tpu_torch.models import bow as bow_mod
 from slam1_tpu_torch.models import mapping
 from slam1_tpu_torch.models import posegraph
@@ -73,8 +76,8 @@ from slam1_tpu_torch.ops.pnp import uniform
 from slam1_tpu_torch.runtime import default_device
 from slam1_tpu_torch.types import StereoObservations
 from slam1_tpu_torch.utils import checkpoint as ckpt_mod
-from slam1_tpu_torch.utils.graphs import StepGraph
-from slam1_tpu_torch.utils.tree import flatten, unflatten
+from slam1_tpu_torch.utils.graphs import StepGraph, copy_out
+from slam1_tpu_torch.utils.tree import flatten
 
 MAX_LOOP_EDGES = 128
 KF_FEATURES = 1024          # per-keyframe snapshot (top-K by corner score)
@@ -528,17 +531,11 @@ def build_global_problem(state: SlamState, n_kf: int, obs_bucket: int = 0,
                         ur=ur, wr=wr, **pe), frames
 
 
-def global_ba_step(state: SlamState, cam: StereoCamera, cfg: SlamConfig,
-                   n_kf: int, obs_bucket: int = 0,
-                   return_trace: bool = False, loop_rows=None):
-    """Global BA over the first n_kf keyframe rows; returns (state,
-    cost), plus the per-LM-iteration BATrace when `return_trace`.
-    `obs_bucket`: compacted observation count (see build_global_problem);
-    callers pick the smallest bucket covering
-    int(sum(map.obs_count[:n_kf])). `loop_rows` (fixed-capacity
-    keyframe-row loop edges) enables the pose-prior regularisation.
-    Replaces `traj`, `kf.poses`, `map.xyz` and `T_w_cam`; writes nothing
-    in place."""
+def _global_problem(state, cam: StereoCamera, cfg: SlamConfig, n_kf: int,
+                    obs_bucket: int, loop_rows):
+    """What global BA solves: `build_global_problem` (pose priors when
+    `loop_rows` is given), then the one-shot association gate ->
+    (problem, frames)."""
     prob, frames = build_global_problem(
         state, n_kf, obs_bucket, loop_rows=loop_rows,
         prior_odo_weight=(cfg.ba.prior_odo_weight
@@ -555,22 +552,217 @@ def global_ba_step(state: SlamState, cam: StereoCamera, cfg: SlamConfig,
         rn0 = torch.linalg.norm(r0[:, :2], dim=-1)
         keep = (rn0 < cfg.ba.global_trim_px).to(prob.w.dtype)
         prob = prob._replace(w=prob.w * keep, wr=prob.wr * keep)
-    res = bundle_adjust(prob, cam, cfg.ba, return_trace=return_trace)
-    out, cost = res[0], res[1]
-    # Only real keyframe rows write back (n_kf is a bucket >= kf.n;
-    # padding rows' frames clip to 0).
+    return prob, frames
+
+
+def _global_write_back(state, n_kf: int, frames, poses, points):
+    """The state with global BA's poses and points: `traj`, `kf.poses`,
+    `map.xyz` and `T_w_cam` replaced. Only real keyframe rows write back
+    (n_kf is a bucket >= kf.n; padding rows' frames clip to 0)."""
     rows = torch.arange(n_kf, device=frames.device)
     ok = (rows < state.kf.n) & (state.kf.frame_of_row[:n_kf] >= 0)
-    traj = _set_rows(state.traj, frames, ok, out.poses)
+    traj = _set_rows(state.traj, frames, ok, poses)
     kf_poses = torch.cat([
-        torch.where(ok[:, None, None], out.poses, state.kf.poses[:n_kf]),
+        torch.where(ok[:, None, None], poses, state.kf.poses[:n_kf]),
         state.kf.poses[n_kf:]])
     t_w = _pose_at(traj, state.frame)
-    new_state = state._replace(
+    return state._replace(
         traj=traj, kf=state.kf._replace(poses=kf_poses),
-        map=state.map._replace(xyz=out.points), T_w_cam=t_w)
+        map=state.map._replace(xyz=points), T_w_cam=t_w)
+
+
+class _KfRows(NamedTuple):
+    n: torch.Tensor
+    frame_of_row: torch.Tensor
+
+
+class _MapSlots(NamedTuple):
+    obs: torch.Tensor
+    obs_ur: torch.Tensor
+    obs_count: torch.Tensor
+    valid: torch.Tensor
+    xyz: torch.Tensor
+
+
+class _BuildLeaves(NamedTuple):
+    """The leaves of a SlamState that `_global_problem` reads."""
+    traj: torch.Tensor
+    kf: _KfRows
+    map: _MapSlots
+
+
+class _KfPoses(NamedTuple):
+    n: torch.Tensor
+    frame_of_row: torch.Tensor
+    poses: torch.Tensor
+
+
+class _MapXyz(NamedTuple):
+    xyz: torch.Tensor
+
+
+class _ApplyLeaves(NamedTuple):
+    """The leaves of a SlamState that `_global_write_back` reads or
+    replaces."""
+    traj: torch.Tensor
+    frame: torch.Tensor
+    T_w_cam: torch.Tensor
+    kf: _KfPoses
+    map: _MapXyz
+
+
+class _LMCarry(NamedTuple):
+    """The state of the `ba_lm` graph: the problem and camera it reads,
+    the (poses, points, lam) carry, the iteration `t` (a 0-d int64
+    tensor) and the trace rows written so far (a BATrace of (lm_iters,)
+    tensors, or () without the trace)."""
+    problem: ba.BAProblem
+    cam: StereoCamera
+    poses: torch.Tensor
+    points: torch.Tensor
+    lam: torch.Tensor
+    t: torch.Tensor
+    trace: tuple
+
+
+def _global_ba_leaves(state: SlamState):
+    """(_BuildLeaves, _ApplyLeaves) of a SlamState."""
+    kf, mp = state.kf, state.map
+    return (_BuildLeaves(state.traj, _KfRows(kf.n, kf.frame_of_row),
+                         _MapSlots(mp.obs, mp.obs_ur, mp.obs_count, mp.valid,
+                                   mp.xyz)),
+            _ApplyLeaves(state.traj, state.frame, state.T_w_cam,
+                         _KfPoses(kf.n, kf.frame_of_row, kf.poses),
+                         _MapXyz(mp.xyz)))
+
+
+def _lm_carry(prob: ba.BAProblem, cam: StereoCamera, cfg: SlamConfig,
+              return_trace: bool) -> _LMCarry:
+    """The carry of LM iteration 0: the problem's poses and points,
+    lam = lm_lambda0, t = 0 and, with the trace, zeroed rows."""
+    dt, dev = prob.uv.dtype, prob.uv.device
+    trace = ()
     if return_trace:
-        return new_state, cost, res[2]
+        n = cfg.ba.lm_iters
+        trace = ba.BATrace(*[torch.zeros(n, dtype=d, device=dev) for d in (
+            dt, torch.int32, dt, torch.bool, dt)])
+    return _LMCarry(prob, cam, prob.poses, prob.points,
+                    torch.full((), cfg.ba.lm_lambda0, dtype=dt, device=dev),
+                    torch.zeros((), dtype=torch.int64, device=dev), trace)
+
+
+def _graphed_ba_build(cfg: SlamConfig, n_kf: int, obs_bucket: int):
+    """_global_problem as a graph's function: (_BuildLeaves, cam,
+    *loop_rows) -> (the same leaves, (problem, frames))."""
+    def step(leaves, cam, *loop_rows):
+        return leaves, _global_problem(leaves, cam, cfg, n_kf, obs_bucket,
+                                       loop_rows or None)
+    return step
+
+
+def _graphed_ba_lm(cfg: SlamConfig):
+    """One `ba.lm_step` as a graph's function: (_LMCarry) -> (the carry
+    one iteration on, with `t` advanced and the iteration's trace row
+    written at `t`, ())."""
+    def step(carry):
+        (poses, points, lam), row = ba.lm_step(
+            carry.problem, carry.cam, cfg.ba, carry.poses, carry.points,
+            carry.lam, carry.t, trace=bool(carry.trace))
+        trace = carry.trace
+        if row is not None:
+            at = carry.t.reshape(1)
+            trace = ba.BATrace(*[buf.index_copy(0, at, x.reshape(1))
+                                 for buf, x in zip(trace, row)])
+        return carry._replace(poses=poses, points=points, lam=lam,
+                              t=carry.t + 1, trace=trace), ()
+    return step
+
+
+def _graphed_ba_apply(cfg: SlamConfig, n_kf: int):
+    """The final cost and `_global_write_back` as a graph's function:
+    (_ApplyLeaves, problem, frames, poses, points, cam) -> (the leaves
+    written, cost)."""
+    def step(leaves, problem, frames, poses, points, cam):
+        cost = ba.final_cost(problem, cam, cfg.ba, poses, points)
+        return _global_write_back(leaves, n_kf, frames, poses, points), cost
+    return step
+
+
+# The global BA graphs by their static arguments, as jax.jit caches its
+# programs: key -> {"ba_build": ..., "ba_lm": ..., "ba_apply": ...}.
+GLOBAL_BA_GRAPHS: dict = {}
+
+
+def _global_ba_graphed(state: SlamState, cam: StereoCamera,
+                       cfg: SlamConfig, n_kf: int, obs_bucket: int,
+                       return_trace: bool, loop_rows):
+    """global_ba_step as replays of the graphs `ba_build`, `ba_lm`
+    (`cfg.ba.lm_iters` times) and `ba_apply`, each captured at its first
+    call for its key; nothing is read back to the host between them.
+    The replaced leaves, the cost and the trace are copied out of the
+    graphs' pools."""
+    build_in, apply_in = _global_ba_leaves(state)
+    loop = tuple(loop_rows) if loop_rows is not None else ()
+    shapes = tuple((tuple(x.shape), x.dtype) for x in
+                   flatten((build_in, apply_in, cam, loop)))
+    key = (state.traj.device, cfg, n_kf, obs_bucket, return_trace,
+           loop_rows is not None, n_kf <= ba.DIRECT_MAX_CAMS, shapes)
+    graphs = GLOBAL_BA_GRAPHS.get(key)
+    if graphs is None:
+        fns = {"ba_build": _graphed_ba_build(cfg, n_kf, obs_bucket),
+               "ba_lm": _graphed_ba_lm(cfg),
+               "ba_apply": _graphed_ba_apply(cfg, n_kf)}
+        graphs = GLOBAL_BA_GRAPHS[key] = {
+            name: StepGraph(fn, f"{name}[{n_kf},{obs_bucket}]", key=key)
+            for name, fn in fns.items()}
+    _, (prob, frames) = graphs["ba_build"](build_in, cam, *loop)
+    carry = _lm_carry(prob, cam, cfg, return_trace)
+    for _ in range(cfg.ba.lm_iters):
+        carry, _ = graphs["ba_lm"](carry)
+    leaves, cost = graphs["ba_apply"](apply_in, carry.problem, frames,
+                                      carry.poses, carry.points, cam)
+    leaves, cost, trace = copy_out((leaves, cost, carry.trace))
+    new_state = state._replace(
+        traj=leaves.traj, T_w_cam=leaves.T_w_cam,
+        kf=state.kf._replace(poses=leaves.kf.poses),
+        map=state.map._replace(xyz=leaves.map.xyz))
+    return new_state, cost, trace
+
+
+def global_ba_step(state: SlamState, cam: StereoCamera, cfg: SlamConfig,
+                   n_kf: int, obs_bucket: int = 0,
+                   return_trace: bool = False, loop_rows=None,
+                   graphs: bool = True):
+    """Global BA over the first n_kf keyframe rows; returns (state,
+    cost), plus the per-LM-iteration BATrace when `return_trace`.
+    `obs_bucket`: compacted observation count (see build_global_problem);
+    callers pick the smallest bucket covering
+    int(sum(map.obs_count[:n_kf])). `loop_rows` (fixed-capacity
+    keyframe-row loop edges) enables the pose-prior regularisation.
+    Replaces `traj`, `kf.poses`, `map.xyz` and `T_w_cam`; writes nothing
+    in place.
+
+    On CUDA tensors it replays three CUDA graphs, as the reference runs
+    one compiled program: `ba_build` (the problem and the trim), `ba_lm`
+    (one LM iteration, replayed `cfg.ba.lm_iters` times) and `ba_apply`
+    (the final cost and the write-back), kept in GLOBAL_BA_GRAPHS by
+    the call's static arguments and captured at the first call with a
+    new key; their memory pools stay reserved until the graphs are
+    dropped (`GLOBAL_BA_GRAPHS.clear()`). On the CPU, and with
+    `graphs=False`, the same operations run eagerly."""
+    if graphs and dispatch.use_cuda(state.traj):
+        new_state, cost, trace = _global_ba_graphed(
+            state, cam, cfg, n_kf, obs_bucket, return_trace, loop_rows)
+    else:
+        prob, frames = _global_problem(state, cam, cfg, n_kf, obs_bucket,
+                                       loop_rows)
+        out, cost, *trace = bundle_adjust(prob, cam, cfg.ba,
+                                          return_trace=return_trace)
+        new_state = _global_write_back(state, n_kf, frames, out.poses,
+                                       out.points)
+        trace = trace[0] if trace else None
+    if return_trace:
+        return new_state, cost, trace
     return new_state, cost
 
 
@@ -849,7 +1041,7 @@ class SlamSystem:
         out = self._program(name, fn, *inputs)
         if self.step_graph is None:
             return out
-        return unflatten(out, iter([x.clone() for x in flatten(out)]))
+        return copy_out(out)
 
     def _device_int(self, v: int, dtype=torch.int64) -> torch.Tensor:
         """A 0-d integer input of a backend program, filled on the

@@ -100,6 +100,12 @@ def _write_back(static: list, leaves: list):
         s.copy_(x)
 
 
+def copy_out(tree):
+    """The tree with every leaf cloned: what a caller keeps of a replay's
+    output or static state past the next replay of the graph's pool."""
+    return unflatten(tree, iter([x.clone() for x in flatten(tree)]))
+
+
 def graph_nodes(graph: torch.cuda.CUDAGraph) -> int:
     """Nodes of a graph captured with keep_graph=True (the driver's
     cuGraphGetNodes)."""

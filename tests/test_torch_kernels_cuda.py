@@ -2,8 +2,9 @@
 what else only a card can show (bundle adjustment on CUDA tensors
 against the CPU, a windowed BA without a host sync, the backend's
 graphs, the pose-graph relaxation's among them, replayed over the step
-graph's state, and the chain kernels captured once and replayed with
-several live counts written into their device scalar).
+graph's state, the chain kernels captured once and replayed with
+several live counts written into their device scalar, and global BA's
+own graphs replayed without a sync).
 
 Every test here is marked `cuda` and skips where there is no card (the
 kernels have no CPU mode). The file imports torch and the port only,
@@ -542,3 +543,69 @@ def test_pgo_graphs_replay_without_syncs_equal_to_eager(cuda_device):
                     strict=True):
         assert torch.equal(_bits(a), _bits(b))
     assert float((traj - copy.traj).abs().max()) > 0
+
+
+@pytest.mark.parametrize("n_kf", [16, 32], ids=["dense", "cg"])
+def test_global_ba_graphs_replay_without_syncs_equal_to_eager(cuda_device,
+                                                              n_kf):
+    """global_ba_step on a CUDA state (12 frames of the loop clip, one
+    loop edge as a prior, the trace), on the dense and the CG path: the
+    first call captures ba_build, ba_lm and ba_apply; a warm call makes
+    no host sync (sync debug mode "error"), replays them once, lm_iters
+    times and once, and equals two graphs=False calls, which equal each
+    other, to the bit, state, cost and trace alike. The graduated cut
+    made on the card equals the host's value."""
+    from slam1_tpu_torch.models import ba
+    cfg = tiny_config()
+    h, w = cfg.image.height, cfg.image.width
+    world = synthetic.make_world(3, n_frames=12, n_points=1200,
+                                 trajectory="loop", image_hw=(h, w),
+                                 speed=0.9, device=cuda_device)
+    lefts, rights = synthetic.render_sequence(world, h, w)
+    draws = pipeline.DrawSource(0, cuda_device)
+    st = pipeline._init_state(lefts[0], rights[0], world.cam, cfg, draws)
+    for i in range(1, 12):
+        st, _, _ = pipeline.slam_step(st, lefts[i], rights[i], world.cam,
+                                      cfg, draws)
+    cap = pipeline.MAX_LOOP_EDGES
+    le = [torch.zeros(cap, dtype=torch.int64),
+          torch.zeros(cap, dtype=torch.int64),
+          torch.eye(4).repeat(cap, 1, 1), torch.zeros(cap)]
+    last = int(st.kf.n) - 1                     # the loop 0 -> last row,
+    kf_poses = st.kf.poses.cpu()                # its measurement 5 cm off
+    le[1][0], le[3][0] = last, 1000.0
+    le[2][0] = torch.linalg.inv(kf_poses[0]) @ kf_poses[last]
+    le[2][0, 0, 3] += 0.05
+    le = tuple(x.to(cuda_device) for x in le)
+    n_obs = int(st.map.obs_count[:n_kf].sum())
+    bucket = 1 << max(int(np.ceil(np.log2(max(n_obs, 1)))), 10)
+
+    def call(graphs=True):
+        return pipeline.global_ba_step(st, world.cam, cfg, n_kf=n_kf,
+                                       obs_bucket=bucket, return_trace=True,
+                                       loop_rows=le, graphs=graphs)
+    pipeline.GLOBAL_BA_GRAPHS.clear()
+    eager, eager2 = call(False), call(False)
+    captured = call()                           # warm-ups + captures
+    (graphs,) = pipeline.GLOBAL_BA_GRAPHS.values()
+    names = ("ba_build", "ba_lm", "ba_apply")
+    replays = [graphs[n].replays for n in names]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        graphed = call()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert [graphs[n].replays - r for n, r in zip(names, replays)] == [
+        1, cfg.ba.lm_iters, 1]
+    for other in (eager2, captured, graphed):
+        for a, b in zip(flatten(eager), flatten(other), strict=True):
+            assert torch.equal(_bits(a), _bits(b))
+    assert bool(eager[2].accept.any())
+    assert float((graphed[0].traj - st.traj).abs().max()) > 0
+    steps = torch.arange(cfg.ba.lm_iters, device=cuda_device)
+    for t in range(cfg.ba.lm_iters):
+        cut = ba.graduated_cut(cfg.ba.outlier_px, steps[t], torch.float32)
+        host = torch.full((), cfg.ba.outlier_px * max(1.0, 8.0 * 0.5 ** t))
+        assert torch.equal(_bits(cut.cpu()), _bits(host)), t
+    pipeline.GLOBAL_BA_GRAPHS.clear()

@@ -10,7 +10,10 @@ observation bucket and the loop edges as pose priors. Prints ONE JSON
 record as its last line (the keys of BENCH_GLOBAL.json, `backend` the
 torch device type): keyframes, observations, wall times, cost before /
 after, the per-LM-iteration trace, keyframe ATE (VO, before, after) and
-loop counts.
+loop counts. The global BA is timed as the card runs it (a warm call
+captures its graphs, the timed one replays them) and again eagerly
+(`graphs=False`): ms per LM iteration of each, and the graphed
+trajectory's largest difference from the eager one.
 
 Timing: the renderer runs interleaved with the pipeline in 64-frame
 chunks (a 2000-frame stack would hold 7.7 GB), each chunk synchronised
@@ -189,18 +192,22 @@ def backend_stages(sys_, world, cfg, n):
     w0 = prob.w > 0
     n_trim = int((w0 & (rn0 >= cfg.ba.global_trim_px)).sum()) \
         if cfg.ba.global_trim_px > 0 else 0
-    # A warm call (first-call set-up of the solvers and the allocator)
-    # out of the timed run.
-    pipeline.global_ba_step(st, sys_.cam, cfg, n_kf=bucket,
-                            obs_bucket=obs_bucket, return_trace=True,
-                            loop_rows=loop_rows)
-    sync(dev)
-    t0 = time.perf_counter()
-    st2, cost, trace = pipeline.global_ba_step(
-        st, sys_.cam, cfg, n_kf=bucket, obs_bucket=obs_bucket,
-        return_trace=True, loop_rows=loop_rows)
-    sync(dev)
-    ba_wall = time.perf_counter() - t0
+    def global_ba(graphs=True):
+        sync(dev)
+        t0 = time.perf_counter()
+        res = pipeline.global_ba_step(
+            st, sys_.cam, cfg, n_kf=bucket, obs_bucket=obs_bucket,
+            return_trace=True, loop_rows=loop_rows, graphs=graphs)
+        sync(dev)
+        return res, time.perf_counter() - t0
+
+    # A warm call out of the timed run: first-call set-up of the solvers
+    # and the allocator, and on a card the capture of the graphs, which
+    # the timed call replays. Then the same call eagerly (graphs=False;
+    # on the CPU both are eager).
+    global_ba()
+    (st2, cost, trace), ba_wall = global_ba()
+    (st3, _, _), eager_wall = global_ba(graphs=False)
 
     ate_after = kf_ate(st2)
     n_acc = sum(1 for e in sys_.loop_events if e.accepted)
@@ -213,6 +220,12 @@ def backend_stages(sys_, world, cfg, n):
         "global_ba_trimmed": n_trim,
         "global_trim_px": cfg.ba.global_trim_px,
         "global_ba_wall_s": round(ba_wall, 3),
+        "global_ba_eager_wall_s": round(eager_wall, 3),
+        "ms_per_lm_iteration": round(1e3 * ba_wall / cfg.ba.lm_iters, 2),
+        "eager_ms_per_lm_iteration": round(
+            1e3 * eager_wall / cfg.ba.lm_iters, 2),
+        "graphed_traj_max_abs_diff_from_eager": float(
+            (st2.traj - st3.traj).abs().max()),
         "lm_iters": cfg.ba.lm_iters,
         "cg_iters": cfg.ba.cg_iters,
         "cost_before": round(cost_before, 2),
