@@ -11,7 +11,8 @@ tools (`tools/port_*.py`).
 
 With no argument every phase runs; `--phases` runs the named ones and
 what they need (slam-ba and graphs need slam; checkpoint, global-ba,
-ref-backend, dist and times-slam need slam-ba; times needs kernels), and
+ref-backend, dist and times-slam need slam-ba; times needs kernels;
+traj-ba needs nothing), and
 leaves null in the last lines what it did not measure. `--phases pyramid,two-view`
 runs without the 600-frame clip; `--phases bench,tools` too.
 
@@ -136,6 +137,17 @@ exits non-zero and never prints the final `ok` line:
                eager and graphed (CUDA events and host clock), each
                graph's capture s, nodes and pool bytes, and ms per CG
                matvec with its byte bound.
+  traj-ba  — `slam-torch ba <traj.npy>` in process on float64 files of
+               a noisy two-lap trajectory at 4661 poses (KITTI 02's
+               length) and 12000 (past the 8533 rows whose chain offsets
+               fit in shared memory: the sweep keeps them in device
+               memory); posegraph.optimize on the command's graph eager
+               (graphs=False) against replays of pg_gn (10 times) and
+               pg_cost, equal to the bit and to the command's output,
+               no host sync in a warm call, cost not raised. Prints ms
+               per Gauss-Newton iteration eager and graphed (host clock,
+               turns eager, graph, graph, eager), pg_gn's capture s,
+               nodes and pool bytes.
   ref-backend — `ref_backend.optimize_segment` over the run's first loop
                (its odometry twists, padded to a multiple of 64, the loop
                edge's measurement): endpoint gap down >= 10x, twists
@@ -146,7 +158,9 @@ exits non-zero and never prints the final `ok` line:
                partition_problem at 1 and 2 shards, nothing dropped;
                distributed_bundle_adjust at one rank over NCCL in this
                process against bundle_adjust (trace, keyframe ATE <=
-               1.05 x before); optimize_sharded on the run's pose graph
+               1.05 x before; the single-device baseline timed as
+               replays of its CUDA graphs, equal to the bit to and
+               beside its eager run); optimize_sharded on the run's pose graph
                (2048 rows, 601 live, its loop edges, the live
                relaxation's 5 GN x 64 CG)
                against posegraph.optimize (cost, ATE <= odometry-only),
@@ -198,7 +212,9 @@ exits non-zero and never prints the final `ok` line:
                process), `eval` (the same ATE), `ba --state` on its
                checkpoint, `ba --state --distributed --lm-shards 1`
                (finite cost, nothing dropped), `ba` on its trajectory
-               (finite costs), and `run --synthetic 8` plainly and with
+               and on a float64 copy of it (finite costs, float32
+               output within 1e-4 of each other), and `run --synthetic
+               8` plainly and with
                `--multihost --coordinator 127.0.0.1:<free port>
                --num-processes 1 --process-id 0` (its rank line, the
                plain run's poses).
@@ -226,7 +242,9 @@ exits non-zero and never prints the final `ok` line:
                outputs alone, whatever the kernel's design (the larger
                of bytes / 3.35 TB/s and operations / the H100's
                published peak for their type) and the share of the bound
-               reached;
+               reached; chain_sweep also at 12000 poses, its offsets in
+               device memory (against its twin; device time of the
+               shared-memory path at 8533 poses beside it);
                the VO frames/s of the per-frame loop, the SLAM frames/s
                of the process loop, and ms per place_query, per slate
                and per PGO (the last three: phase times-slam; the PGO's
@@ -249,9 +267,11 @@ those of every path, the dist phase's per rank) and {"ok": true,
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import glob
+import io
 import json
 import math
 import os
@@ -268,7 +288,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from slam1_tpu_torch import runtime  # noqa: E402
+from slam1_tpu_torch import cli, runtime  # noqa: E402
 from slam1_tpu_torch.config import SlamConfig  # noqa: E402
 from slam1_tpu_torch.models import ba, pipeline, posegraph, ref_backend, \
     vo, vo_flow  # noqa: E402
@@ -331,11 +351,17 @@ BENCH_KEYS = ("metric", "value", "unit", "data", "vs_baseline",
 BENCH_ATE_M = 1.1
 BENCH_LOOPS = 2
 TOOLS_FRAMES = 200           # port_global_ba_scale's clip in phase tools
+# `ba <traj.npy>`: KITTI 02's length, and past the 8533 poses whose chain
+# offsets fit in shared memory
+TRAJ_POSES = (4661, 12000)
+TRAJ_ITERS = 10              # the command's Gauss-Newton iterations
+TRAJ_CG_ITERS = 50           # and CG iterations in each
 REPO = os.path.dirname(os.path.abspath(__file__))
 # Phases a run may select (--phases), in the order a full run takes
 # them, and what each needs run before it.
 PHASES = ("kernels", "slice", "pyramid", "two-view", "flow", "slam",
-          "graphs", "slam-ba", "checkpoint", "global-ba", "ref-backend",
+          "graphs", "slam-ba", "checkpoint", "global-ba", "traj-ba",
+          "ref-backend",
           "dist", "async", "cpu-vs-gpu", "cli", "bench", "tools", "times",
           "times-slam")
 NEEDS = {"slam-ba": ("slam",), "graphs": ("slam",),
@@ -1120,6 +1146,93 @@ def phase_global_ba(cfg, sys_, world, smi):
     return out
 
 
+def traj_file(n, path):
+    """A drifting trajectory of `n` poses (the two-lap loop with 5 cm of
+    noise on each position) saved as float64, as np.save writes one."""
+    poses = synthetic.make_trajectory(n, "loop2", 1.0, dtype=torch.float64,
+                                      device="cpu").numpy()
+    poses[:, :3, 3] += np.random.default_rng(n).normal(0, 0.05, (n, 3))
+    np.save(path, poses)
+    return path
+
+
+def phase_traj_ba(smi, dev, tmp):
+    """`slam-torch ba <traj.npy>` at KITTI 02's length (4661 poses) and
+    at TRAJ_POSES[-1], past the 8533 rows whose chain offsets fit in
+    shared memory: the command in process on a float64 file, the launch
+    counters reset just before and read just after (one chain_prepare
+    per Gauss-Newton iteration, one chain_sweep per preconditioner
+    application), then posegraph.optimize on the command's graph eager
+    (`graphs=False`) against replays of its graphs, to the bit, timed in
+    turns eager, graph, graph, eager; the host syncs of a warm call and
+    pg_gn's stats. -> (launches by path, numbers)."""
+    out, by_path = {}, {}
+    for n in TRAJ_POSES:
+        path = traj_file(n, os.path.join(tmp, f"traj{n}.npy"))
+        opt_path = os.path.join(tmp, f"opt{n}.npy")
+        posegraph.POSEGRAPH_GRAPHS.clear()
+        buf = io.StringIO()
+        cuda_kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["ba", path, "--out", opt_path])
+        cli_s = time.perf_counter() - t0
+        counts = by_path[f"traj_ba_{n}"] = cuda_kernels.launch_counts()
+        want = {**{k: 0 for k in counts}, "chain_prepare": TRAJ_ITERS,
+                "chain_sweep": TRAJ_ITERS * (TRAJ_CG_ITERS + 1)}
+        check(counts == want, f"`ba` on {n} poses launched {counts}, "
+              f"not {want}")
+        line = json.loads(buf.getvalue().strip().splitlines()[-1])
+        check(rc == 0 and line["frames"] == n
+              and math.isfinite(line["final_cost"]),
+              f"`ba` on {n} poses: rc {rc}, line {line}")
+        graph = cli.trajectory_graph(np.load(path), dev)
+
+        def call(graphs, graph=graph):
+            return posegraph.optimize(graph, TRAJ_ITERS, graphs=graphs)
+
+        eager = call(False)
+        graphed = call(True)
+        diff = tree_diff(eager, graphed, f"optimize[{n}]")
+        cli_diff = tree_diff(eager[0].cpu().numpy(), np.load(opt_path),
+                             f"ba[{n}]")
+        times = {}
+        for which, graphs_on in (("eager", False), ("graph", True),
+                                 ("graph", True), ("eager", False)):
+            times.setdefault(which, []).append(
+                host_ms(lambda g=graphs_on: call(g), reps=1, warm=0))
+        ms = {k: float(np.mean(v)) / TRAJ_ITERS for k, v in times.items()}
+        syncs, where = count_syncs(lambda: call(True))
+        gn = next(g for k, g in posegraph.POSEGRAPH_GRAPHS.items()
+                  if k[0] == "pg_gn")
+        cost0 = float(posegraph.optimize(graph, iters=0)[1])
+        staged = cuda_kernels.chain_sweep_staged(n)
+        say("traj-ba", card=smi, poses=n, gn_iters=TRAJ_ITERS,
+            cg_iters=TRAJ_CG_ITERS, launches=counts,
+            chain_offsets="device memory" if staged
+            else "shared memory", cli_seconds=cli_s, cli_result=line,
+            graph_vs_eager_differing=diff, cli_vs_eager_differing=cli_diff,
+            ms_per_gn_iteration=ms, eager_call_ms=times["eager"],
+            graph_call_ms=times["graph"], cost_before=cost0,
+            cost_after=float(eager[1]), graph_replay_syncs=syncs,
+            **{f"pg_gn_{k}": v for k, v in gn.stats().items()})
+        check(not diff, f"graphed optimize at {n} poses differs from "
+              f"eager: {diff}")
+        check(not cli_diff, f"`ba` at {n} poses differs from optimize")
+        check(syncs == 0, f"a warm graphed optimize made host syncs: {where}")
+        check(bool(torch.isfinite(eager[0]).all())
+              and float(eager[1]) <= cost0 + 1e-3 * max(cost0, 1.0),
+              f"optimize at {n} poses: cost {cost0} -> {float(eager[1])}")
+        out.update({f"traj_ba_{n}_ms_per_gn_eager": ms["eager"],
+                    f"traj_ba_{n}_ms_per_gn_graph": ms["graph"],
+                    f"traj_ba_{n}_pg_gn_nodes": gn.nodes,
+                    f"traj_ba_{n}_pg_gn_capture_seconds": gn.capture_seconds,
+                    f"traj_ba_{n}_pg_gn_pool_bytes": gn.pool_bytes,
+                    f"traj_ba_{n}_graph_replay_syncs": syncs})
+    posegraph.POSEGRAPH_GRAPHS.clear()
+    return by_path, out
+
+
 def fetch_threads():
     return [t for t in threading.enumerate()
             if t.name.startswith("slam-fetch")]
@@ -1762,8 +1875,9 @@ def phase_cli(world, lefts, rights, tmp):
     as 8-bit grayscale PNG (P5 PGM where the native decoder does not
     build: a machine may have neither cv2 nor PIL), then
     `slam-torch run` (SLAM, checkpoints, metrics) in a subprocess, then
-    `run --vo-only`, `eval`, `ba --state`, `ba` and `run --multihost`
-    in subprocesses started together."""
+    `run --vo-only`, `eval`, `ba --state`, `ba` (on the run's float32
+    trajectory and on a float64 copy, as np.save writes one) and `run
+    --multihost` in subprocesses started together."""
     cfg = SlamConfig()
     f = CLI_FRAMES
     h, w = CLI_CROP
@@ -1826,13 +1940,16 @@ def phase_cli(world, lefts, rights, tmp):
     check(len(ckpts) > 0, "`run --checkpoint-every` wrote no checkpoint")
 
     vo_npy = os.path.join(tmp, "vo.npy")
+    traj64 = os.path.join(tmp, "traj64.npy")
+    np.save(traj64, np.load(traj).astype(np.float64))
     # `run --multihost` as one process of a world of one: the plain run.
     plain_npy, multi_npy = (os.path.join(tmp, x) for x in ("p.npy", "m.npy"))
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
     ((out, vo_launches, _, _), (ev, _, _, _), (bs, _, _, _),
-     (bd, _, _, bd_err), (bt, _, _, _), _, (_, _, _, mh_err)) = \
+     (bd, _, _, bd_err), (bt, _, _, _), _, (_, _, _, mh_err),
+     (bt64, _, _, _)) = \
         slam_torch_together([
             ("run", "--data", root, "--poses", poses_txt, "--vo-only",
              "--out", vo_npy),
@@ -1847,7 +1964,8 @@ def phase_cli(world, lefts, rights, tmp):
             ("run", "--synthetic", str(MULTIHOST_FRAMES), "--out",
              multi_npy, "--multihost", "--coordinator",
              f"127.0.0.1:{port}", "--num-processes", "1",
-             "--process-id", "0")])
+             "--process-id", "0"),
+            ("ba", traj64, "--out", os.path.join(tmp, "opt_traj64.npy"))])
     L = torch.as_tensor(np.stack([a for a, _ in frames])).cuda()
     R = torch.as_tensor(np.stack([b for _, b in frames])).cuda()
     ref, _ = vo.run_sequence(L, R, seq.cam, cfg, seed=0)
@@ -1874,6 +1992,15 @@ def phase_cli(world, lefts, rights, tmp):
           f"`ba --state --distributed` line {bd}")
     check(bt["frames"] == f and math.isfinite(bt["final_cost"]),
           f"`ba` line {bt}")
+    opt32, opt64 = (np.load(os.path.join(tmp, x))
+                    for x in ("opt_traj.npy", "opt_traj64.npy"))
+    d64 = float(np.abs(opt64 - opt32).max())
+    say("cli-ba-float64", result=bt64, dtype=str(opt64.dtype),
+        max_abs_diff_to_float32_file=d64)
+    check(bt64["frames"] == f and math.isfinite(bt64["final_cost"])
+          and opt64.dtype == np.float32 and d64 <= BA_TOL,
+          f"`ba` on a float64 trajectory: line {bt64}, {opt64.dtype}, "
+          f"{d64} off the float32 file's result")
     rank_line = [ln for ln in mh_err.splitlines()
                  if ln.startswith("multihost: process")]
     same = bool(np.array_equal(np.load(plain_npy), np.load(multi_npy)))
@@ -1885,7 +2012,8 @@ def phase_cli(world, lefts, rights, tmp):
                         cli_decoder=decoder, cli_format=fmt,
                         cli_ba_state_keyframes=bs["keyframes"],
                         cli_ba_state_final_cost=bs["final_cost"],
-                        cli_ba_distributed_final_cost=bd["final_cost"])
+                        cli_ba_distributed_final_cost=bd["final_cost"],
+                        cli_ba_traj_float64_max_abs_diff=d64)
 
 
 def phase_bench():
@@ -2011,11 +2139,13 @@ def phase_tools(tmp):
                 tools_vo_step_ms=prof["stages_ms"]["vo_step (full)"])
 
 
-def time_kernel(name, plain, kern, bound_ms, bound_by, plain_reps=10):
-    """Times of one kernel's unit of work, in turns plain, kernel,
-    kernel, plain: `ms` the device time (CUDA graph replay), `eager_ms`
-    the wrapper called eagerly, `plain_ms` the plain twin (eager), and
-    the share of the bound that `ms` reaches."""
+def time_kernel(name, plain, kern, bound_ms, bound_by, plain_reps=10,
+                per=None):
+    """Times of one kernel's unit of work (`per`, by default the
+    KERNELS entry's), in turns plain, kernel, kernel, plain: `ms` the
+    device time (CUDA graph replay), `eager_ms` the wrapper called
+    eagerly, `plain_ms` the plain twin (eager), and the share of the
+    bound that `ms` reaches."""
     runs = {"plain": [], "ms": [], "eager": []}
     for which in ("plain", "cuda", "cuda", "plain"):
         if which == "plain":
@@ -2027,9 +2157,9 @@ def time_kernel(name, plain, kern, bound_ms, bound_by, plain_reps=10):
            "eager_ms": float(np.mean(runs["eager"])),
            "plain_ms": float(np.mean(runs["plain"])),
            "bound_ms": bound_ms, "bound_by": bound_by}
-    say("times", kernel=name, per=KERNELS[name][2], kernel_ms=out["ms"],
-        eager_ms=out["eager_ms"], plain_ms=out["plain_ms"],
-        bound_us=1e3 * bound_ms, bound_by=bound_by,
+    say("times", kernel=name, per=per or KERNELS[name][2],
+        kernel_ms=out["ms"], eager_ms=out["eager_ms"],
+        plain_ms=out["plain_ms"], bound_us=1e3 * bound_ms, bound_by=bound_by,
         share_of_bound=bound_ms / out["ms"])
     return out
 
@@ -2133,6 +2263,39 @@ def phase_times(cfg, lefts, rights, world, hamming_inputs):
         lambda: [cuda_kernels.hamming_top2_cuda(da, db, ma, mb, **kw)
                  for kw in gates],
         len(gates) * one_ms, by)
+
+    # The chain sweep past the rows whose offsets fit in shared memory
+    # (the trajectory mode's longest chain, offsets in device memory),
+    # beside the shared-memory path at its most rows.
+    n, most = TRAJ_POSES[-1], cuda_kernels.build().chain_max_live
+    dev = lefts.device
+    largs = [x.to(dev) for x in synthetic.chain_inputs(n, n, 1)]
+    lprep = cuda_kernels.chain_prepare_cuda(largs[0], largs[1], n)
+    row = time_kernel(
+        "chain_sweep",
+        lambda: cuda_kernels.chain_sweep_plain(*largs, n),
+        lambda: cuda_kernels.chain_sweep_cuda(*largs, n, prep=lprep),
+        *bound_chain_sweep(n, n), plain_reps=1,
+        per=f"one launch, {n} poses, all live, offsets in device memory")
+    xk = cuda_kernels.chain_sweep_cuda(*largs, n, prep=lprep)
+    xp = cuda_kernels.chain_sweep_plain(*largs, n)
+    err = (xk - xp).abs().max().item()
+    scale = max(xp.abs().max().item(), 1e-30)
+    sargs = [x[:most] for x in largs]
+    sprep = cuda_kernels.chain_prepare_cuda(sargs[0], sargs[1], most)
+    shared_ms = graph_ms(
+        lambda: cuda_kernels.chain_sweep_cuda(*sargs, most, prep=sprep))
+    row.update(poses=n, staged=cuda_kernels.chain_sweep_staged(n),
+               max_abs_err=err, max_rel_err=err / scale,
+               shared_memory_path_ms=shared_ms, shared_memory_poses=most)
+    say("times", kernel="chain_sweep", poses=n, staged=row["staged"],
+        max_rel_err=err / scale, shared_memory_path_ms=shared_ms,
+        shared_memory_poses=most)
+    check(row["staged"] and bool(torch.isfinite(xk).all())
+          and err <= CHAIN_TOL * scale,
+          f"chain_sweep at {n} poses: staged {row['staged']}, |err| {err} "
+          f"vs scale {scale}")
+    times["chain_sweep_long"] = row
 
     # VO frames/s of the per-frame loop (warm state, frames 1..F-1).
     state = vo.init_state(lefts[0], rights[0], world.cam, cfg, SEED)
@@ -2583,11 +2746,25 @@ def phase_dist(cfg, sys_, world, tmp):
     torch.cuda.synchronize()
     d_ms = 1e3 * (time.perf_counter() - t0) / iters
     ba_comm = dict(mesh.comm)
-    t0 = time.perf_counter()
-    outs, costs, traces = ba.bundle_adjust(prob, cam, cfg.ba,
-                                           return_trace=True)
-    torch.cuda.synchronize()
-    s_ms = 1e3 * (time.perf_counter() - t0) / iters
+
+    # The single-device baseline as the reference runs it (graphs: the
+    # first call captures, the second is timed) and op by op.
+    def single(graphs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = ba.bundle_adjust(prob, cam, cfg.ba, return_trace=True,
+                               graphs=graphs)
+        torch.cuda.synchronize()
+        return res, 1e3 * (time.perf_counter() - t0) / iters
+
+    ba.BA_GRAPHS.clear()
+    eager_single, s_eager_ms = single(False)
+    _, s_capture_ms = single(True)
+    (outs, costs, traces), s_ms = single(True)
+    single_diff = tree_diff(eager_single, (outs, costs, traces), "single")
+    ba.BA_GRAPHS.clear()
+    check(not single_diff, f"graphed bundle_adjust differs from eager: "
+          f"{single_diff}")
     rows = torch.arange(bucket, device=prob.poses.device) < n_kf
     frames = sys_.state.kf.frame_of_row[:bucket][rows].long().cpu().numpy()
 
@@ -2605,6 +2782,10 @@ def phase_dist(cfg, sys_, world, tmp):
         trace_max_rel_diff=trace_rel, kf_ate_before_m=ate0,
         kf_ate_after_m=ate1, kf_ate_single_m=ate_s,
         ms_per_lm_iteration=d_ms, ms_per_lm_iteration_single=s_ms,
+        single_timed="graphed (CUDA graph replays)",
+        ms_per_lm_iteration_single_eager=s_eager_ms,
+        ms_per_lm_iteration_single_capture_call=s_capture_ms,
+        single_graph_vs_eager_differing=single_diff,
         all_reduce_calls=ba_comm["all_reduce_calls"],
         all_reduce_bytes_per_cg_step=6 * 8 * bucket,
         all_reduce_bytes_total=ba_comm["all_reduce_bytes"],
@@ -2630,6 +2811,7 @@ def phase_dist(cfg, sys_, world, tmp):
     graph = posegraph.PoseGraph(*[x.to(mesh.device) for x in pgo_graph(g)])
     ps, pcs = posegraph.optimize(graph, iters=pg_it, cg_iters=pg_cg,
                                  n_live=g["n_live"])
+    posegraph.POSEGRAPH_GRAPHS.clear()
     torch.distributed.destroy_process_group()
     n = g["n_live"]
     ate_odo = ate_rmse(g["poses"][:n].numpy(), gt[:n], align=False)
@@ -2693,6 +2875,8 @@ def phase_dist(cfg, sys_, world, tmp):
                     enumerate(res)})
     return by_path, dict(
         dist_ba_ms_per_lm_iteration=d_ms, dist_ba_trace_max_rel_diff=trace_rel,
+        dist_single_ba_ms_per_lm_iteration_graph=s_ms,
+        dist_single_ba_ms_per_lm_iteration_eager=s_eager_ms,
         dist_ba_2_rank_cost_rel_diff=cost_rel,
         dist_ba_all_reduce_bytes_per_cg_step=6 * 8 * bucket,
         dist_pgo_ms_per_gn_iteration=p_ms,
@@ -2801,6 +2985,13 @@ def main(argv=None):
                      slam_ba["slam_ba_ate_after_m"])))
     if "global-ba" in phases:
         numbers.update(phase_global_ba(bcfg, sys_, sworld, smi))
+    if "traj-ba" in phases:
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            traj_paths, traj_numbers = phase_traj_ba(smi, dev, tmp)
+        by_path.update(traj_paths)
+        numbers.update(traj_numbers)
+        phase_s["traj-ba"] = time.perf_counter() - t0
     if "ref-backend" in phases:
         t0 = time.perf_counter()
         numbers.update(phase_ref_backend(sys_, dev))
@@ -2860,6 +3051,9 @@ def main(argv=None):
                 **({"max_rel_err": rel_errs[name]} if name in rel_errs
                    else {}),
                 "per": per, **times.get(name, unmeasured),
+                **({"past_shared_memory": times["chain_sweep_long"]}
+                   if name == "chain_sweep" and "chain_sweep_long" in times
+                   else {}),
                 "library_ms": None}
                for name, (src, rep, per) in KERNELS.items()]
     print(json.dumps({"phases": [p for p in PHASES if p in phases],

@@ -45,7 +45,10 @@ each other. Steps:
      Gauss-Newton iterations x 64 CG iterations, chain preconditioner)
      on `synthetic.loop2_graph` (600 poses, four loop edges), host clock
      around a synchronise, with the old chain sweep in the
-     preconditioner's place and with the new one, in the same turns.
+     preconditioner's place and with the new one, in the same turns,
+     op by op (`graphs=False`, as every earlier record of it ran), and
+     beside them the same relaxation as `optimize` runs it by default
+     on a card, replays of its captured CUDA graphs (`graphed_ms`).
 
 The last line is one JSON object with every number; --out also writes it
 to a file.
@@ -392,11 +395,11 @@ def time_pgo(dev, old):
     n = graph.poses.shape[0]
     new_prepare, new_sweep = ck.chain_prepare_cuda, ck.chain_sweep_cuda
 
-    def relax():
+    def relax(graphs=False):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         poses, cost = posegraph.optimize(graph, iters=5, cg_iters=64,
-                                         n_live=n)
+                                         n_live=n, graphs=graphs)
         torch.cuda.synchronize()
         return 1e3 * (time.perf_counter() - t0), poses, float(cost)
 
@@ -419,6 +422,12 @@ def time_pgo(dev, old):
            "old_vs_new_max_abs_pose_diff": float(
                (runs[0][1][1] - runs[1][1][1]).abs().max()),
            "old_cost": runs[0][1][2], "new_cost": runs[1][1][2]}
+    relax(graphs=True)                        # the capture
+    graphed = [relax(graphs=True) for _ in range(2)]
+    out["graphed_ms"] = [r[0] for r in graphed]
+    out["graphed_vs_new_max_abs_pose_diff"] = float(
+        (graphed[0][1] - runs[1][1][1]).abs().max())
+    posegraph.POSEGRAPH_GRAPHS.clear()
     print(f"[time] live PGO, {n} poses, 5 GN x 64 CG: {out}", flush=True)
     return out
 

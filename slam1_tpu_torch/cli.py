@@ -179,7 +179,9 @@ def _cmd_eval(args):
 
 def _cmd_ba(args):
     """Offline backend pass. Two modes:
-      - trajectory .npy: pose-graph relaxation over odometry edges;
+      - trajectory .npy (float32 or float64, any length): pose-graph
+        relaxation over odometry edges (`trajectory_graph`), on the card
+        as replays of `posegraph.optimize`'s CUDA graphs;
       - --state checkpoint.npz: global bundle adjustment over all
         keyframes and landmarks, the checkpoint's odometry chain and
         loop closures as pose priors; with --distributed the
@@ -242,21 +244,34 @@ def _cmd_ba(args):
         return 0
 
     from slam1_tpu_torch.models import posegraph
-    from slam1_tpu_torch.ops import se3
     poses = np.load(args.traj)
     f = len(poses)
-    rel = se3.log_se3(torch.as_tensor(
-        np.linalg.inv(poses[:-1]) @ poses[1:]).to(dev))
-    ei = torch.arange(f - 1, device=dev)
-    graph = posegraph.PoseGraph(
-        poses=torch.as_tensor(poses).to(dev), ei=ei, ej=ei + 1,
-        z=se3.exp_se3(rel), w=torch.ones(f - 1, device=dev))
+    graph = trajectory_graph(poses, dev)
     opt, cost = posegraph.optimize(
         graph, iters=args.iters if args.iters is not None else 10)
     np.save(args.out, opt.cpu().numpy())
     _launch_line(dev)
     print(json.dumps({"frames": f, "final_cost": float(cost)}))
     return 0
+
+
+def trajectory_graph(poses: np.ndarray, dev):
+    """The pose graph of `ba <traj.npy>`: the (F,4,4) poses of the file
+    and an odometry edge between neighbours, weight 1, on `dev`. The
+    relative transforms are made in the file's precision, then both are
+    float32, as the reference's jnp.asarray makes them: a float64 file
+    (np.save's default) gives a float32 graph, as in the reference."""
+    import torch
+
+    from slam1_tpu_torch.models import posegraph
+    from slam1_tpu_torch.ops import se3
+    f = len(poses)
+    rel = se3.log_se3(torch.as_tensor(
+        np.linalg.inv(poses[:-1]) @ poses[1:], dtype=torch.float32).to(dev))
+    ei = torch.arange(f - 1, device=dev)
+    return posegraph.PoseGraph(
+        poses=torch.as_tensor(poses, dtype=torch.float32).to(dev), ei=ei,
+        ej=ei + 1, z=se3.exp_se3(rel), w=torch.ones(f - 1, device=dev))
 
 
 def _distributed_ba(st, cam, cfg, mesh, n_kf: int, bucket: int,

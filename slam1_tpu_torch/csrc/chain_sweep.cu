@@ -17,7 +17,7 @@
 // launch captured in a CUDA graph is right for every n_live the graph is
 // replayed with: a pose graph's live rows grow from one relaxation to
 // the next while its bucket F stays. A sweep whose n_live lies outside
-// [1, min(F, slam_chain_sweep_max_live())] writes NaN to all of x.
+// [1, F] writes NaN to all of x.
 //
 // What bounds it on the H100: the latency of a dependent chain (the
 // bytes, 2048 x 85 floats, and the 0.2 MFLOP are nothing). The design
@@ -51,6 +51,14 @@
 //    the launch. Both sweeps stay in one launch; the offsets live in
 //    shared memory (24 bytes per live row, twice where that fits, else
 //    they alternate with the output buffer while they are doubled).
+//  - Past slam_chain_sweep_max_live() rows (8533) the offsets do not fit
+//    in shared memory. For such an F the launch keeps them in a device
+//    scratch buffer of (2, F, 6) floats that the caller allocates, and
+//    each march copies a chunk's offsets into shared memory with
+//    cp.async one chunk ahead, marches them there in place and writes
+//    them back after. The choice is made from F alone, so a captured
+//    launch stays right for every n_live; the arithmetic is the same,
+//    and so are the bits.
 // No atomics and no order that depends on scheduling: the same operands
 // give the same bits on every run.
 //
@@ -139,6 +147,12 @@ __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
                :: "r"(s), "l"(gmem) : "memory");
 }
 
+__device__ __forceinline__ void cp_async8(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
+               :: "r"(s), "l"(gmem) : "memory");
+}
+
 // One warp's march of `count` rows from `first` in steps of `step`:
 //   y_r = vec[r] + B_r y_prev,  y_prev = 0 before the first row,
 // B_r the 6x6 block at blocks + 36 r, through the warp's ring of STAGES
@@ -220,6 +234,83 @@ struct March {
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     __syncwarp();
   }
+
+  // Start the copy of chunk c's offsets (rows of 6 floats in vec, 8
+  // bytes per copy) into its half of `offs`, the warp's two slots of
+  // `chunk` rows in shared memory, and close the copy group (an empty
+  // one past the last chunk).
+  __device__ __forceinline__ void stage_offsets(int c, const float* vec,
+                                                float* offs, int lane) const {
+    const int k0 = c * chunk;
+    const int rows = min(chunk, count - k0);
+    float* slot = offs + (c & 1) * (chunk * 6);
+    for (int q = lane; q < rows * 3; q += 32) {
+      const int kk = q / 3, part = q % 3;
+      const int r = first + (k0 + kk) * step;
+      cp_async8(slot + kk * 6 + part * 2,
+                vec + static_cast<size_t>(r) * 6 + part * 2);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+
+  // run() with the offsets in device memory (vec), after begin(): a
+  // chunk's offsets reach their slot of `offs` one chunk ahead, in the
+  // copy group before the blocks two chunks ahead, so that the wait of
+  // run() covers them too; each chunk is marched in its slot exactly as
+  // run() marches it in vec, then written back to vec.
+  __device__ __forceinline__ void run_staged(float* vec, float* offs,
+                                             int lane) const {
+    const int a = lane % 6;
+    const int chunks = (count + chunk - 1) / chunk;
+    for (int q = lane; q < min(chunk, count) * 6; q += 32) {
+      offs[q] = vec[static_cast<size_t>(first + (q / 6) * step) * 6 + q % 6];
+    }
+    float y = 0.0f;
+    for (int c = 0; c < chunks; ++c) {
+      // Chunk c's blocks and offsets are in, and every lane has left the
+      // slots that the copies below refill.
+      asm volatile("cp.async.wait_group %0;\n" :: "n"(STAGES - 2) : "memory");
+      __syncwarp();
+      stage_offsets(c + 1, vec, offs, lane);
+      stage(c + STAGES - 1, lane);
+      const float* slot = ring + (c % STAGES) * (chunk * 36) + a * 6;
+      float* ys = offs + (c & 1) * (chunk * 6);
+      const int k0 = c * chunk;
+      const int rows = min(chunk, count - k0);
+      const float2* p = reinterpret_cast<const float2*>(slot);
+      float2 m0 = p[0], m1 = p[1], m2 = p[2];
+      float d = ys[a];
+#pragma unroll 4
+      for (int kk = 0; kk < rows; ++kk) {
+        const int kn = min(kk + 1, rows - 1);
+        const float2* pn = reinterpret_cast<const float2*>(slot + kn * 36);
+        const float2 n0 = pn[0], n1 = pn[1], n2 = pn[2];
+        const float dn = ys[kn * 6 + a];
+        const float y0 = __shfl_sync(0xffffffffu, y, 0);
+        const float y1 = __shfl_sync(0xffffffffu, y, 1);
+        const float y2 = __shfl_sync(0xffffffffu, y, 2);
+        const float y3 = __shfl_sync(0xffffffffu, y, 3);
+        const float y4 = __shfl_sync(0xffffffffu, y, 4);
+        const float y5 = __shfl_sync(0xffffffffu, y, 5);
+        const float s0 = __fmaf_rn(m0.y, y1, __fmaf_rn(m0.x, y0, d));
+        const float s1 = __fmaf_rn(m1.y, y3, m1.x * y2);
+        const float s2 = __fmaf_rn(m2.y, y5, m2.x * y4);
+        y = s0 + (s1 + s2);
+        if (lane < 6) ys[kk * 6 + a] = y;
+        m0 = n0;
+        m1 = n1;
+        m2 = n2;
+        d = dn;
+      }
+      __syncwarp();
+      for (int q = lane; q < rows * 6; q += 32) {
+        vec[static_cast<size_t>(first + (k0 + q / 6) * step) * 6 + q % 6] =
+            ys[q];
+      }
+    }
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncwarp();
+  }
 };
 
 // For every live row i and component a:
@@ -261,11 +352,13 @@ __device__ __forceinline__ void rows_step(const float* __restrict__ mats,
 // Double the offsets in `cur` LEVELS - 1 times, alternating between vec
 // and alt and ending in vec, then march them there: backward (from row
 // n_live - 1 down, a row's step reaching up) or forward (from row 1).
-// `prep` is the direction's half of level 0.
+// `prep` is the direction's half of level 0. STAGED: vec is in device
+// memory and the march stages it through the warp's `offs`.
+template <bool STAGED>
 __device__ __forceinline__ void solve(const float* __restrict__ prep, int F,
                                       bool backward, const March& march,
                                       float* cur, float* vec, float* alt,
-                                      int n_live, int tid) {
+                                      float* offs, int n_live, int tid) {
   const size_t level = static_cast<size_t>(F) * 72;
   for (int l = 0; l + 1 < LEVELS; ++l) {
     float* nxt = cur == vec ? alt : vec;
@@ -274,17 +367,26 @@ __device__ __forceinline__ void solve(const float* __restrict__ prep, int F,
     __syncthreads();
     cur = nxt;
   }
-  if (march.count > 0) march.run(vec, tid & 31);
+  if (march.count > 0) {
+    if constexpr (STAGED) {
+      march.run_staged(vec, offs, tid & 31);
+    } else {
+      march.run(vec, tid & 31);
+    }
+  }
   __syncthreads();
 }
 
+// STAGED: the offsets in `scratch` (2, F, 6) in device memory (see the
+// head of the file); else in shared memory, and scratch is not read.
+template <bool STAGED>
 __global__ void __launch_bounds__(THREADS)
 chain_sweep_kernel(const float* __restrict__ jj_inv,
                    const float* __restrict__ prep,
                    const float* __restrict__ winv,
                    const float* __restrict__ v, int F,
                    const int* __restrict__ live, int rows, int chunk,
-                   int alt_in_smem, float* x) {
+                   int alt_in_smem, float* scratch, float* x) {
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x;
   const int n_live = *live;
@@ -308,13 +410,16 @@ chain_sweep_kernel(const float* __restrict__ jj_inv,
 
   constexpr int K = CHAINS;
   const int ring_floats = STAGES * chunk * 36;
-  float* vec = smem + K * ring_floats;           // (n_live, 6) offsets
-  float* alt = alt_in_smem ? vec + n_live * 6 : x;
+  float* vec = STAGED ? scratch : smem + K * ring_floats;  // (n_live, 6)
+  float* alt = STAGED ? scratch + static_cast<size_t>(F) * 6
+                      : (alt_in_smem ? vec + n_live * 6 : x);
   // Where the offsets start, so that LEVELS - 1 doublings end in vec.
   float* start = ((LEVELS - 1) & 1) ? alt : vec;
   // Warp w < K marches the chain of positions w, w + K, ... of the
   // n_live - 1 live rows; the other warps march nothing.
   const int w = tid >> 5;
+  // The warp's two offset slots after the rings (STAGED only).
+  float* offs = smem + K * ring_floats + w * (2 * chunk * 6);
   const int total = n_live - 1;
   const size_t last = static_cast<size_t>(LEVELS - 1) * F * 72;
   March march{prep + last, smem + w * ring_floats, chunk, n_live - 1 - w, -K,
@@ -325,7 +430,7 @@ chain_sweep_kernel(const float* __restrict__ jj_inv,
   rows_step<true>(jj_inv, v, 0, nullptr, nullptr, start, n_live, tid);
   __syncthreads();
   // Backward sweep: s_i = c_i + A_i s_{i+1}.
-  solve(prep, F, true, march, start, vec, alt, n_live, tid);
+  solve<STAGED>(prep, F, true, march, start, vec, alt, offs, n_live, tid);
 
   march.blocks += static_cast<size_t>(F) * 36;
   march.first = 1 + w;
@@ -335,8 +440,8 @@ chain_sweep_kernel(const float* __restrict__ jj_inv,
   rows_step<false>(jj_inv, vec, 0, nullptr, winv, start, n_live, tid);
   __syncthreads();
   // Forward sweep: x_i = e_i + A'_i x_{i-1}, then out of shared memory.
-  solve(prep + static_cast<size_t>(F) * 36, F, false, march, start, vec, alt,
-        n_live, tid);
+  solve<STAGED>(prep + static_cast<size_t>(F) * 36, F, false, march, start,
+                vec, alt, offs, n_live, tid);
   for (int k = 6 + tid; k < n_live * 6; k += THREADS) x[k] = vec[k];
 }
 
@@ -380,7 +485,8 @@ extern "C" int slam_chain_prepare(const float* jj_inv, const float* ji,
 // Levels of the prepared blocks (the leading extent of prep).
 extern "C" int slam_chain_levels() { return LEVELS; }
 
-// Largest n_live one launch can hold in shared memory.
+// Largest F whose offsets one launch holds in shared memory; a larger F
+// needs the scratch buffer of slam_chain_sweep.
 extern "C" int slam_chain_sweep_max_live() {
   const int rings = STAGES * CHAINS * 8 * 36;
   return (MAX_SMEM - rings * static_cast<int>(sizeof(float))) / 24;
@@ -388,34 +494,52 @@ extern "C" int slam_chain_sweep_max_live() {
 
 // jj_inv (F, 6, 6), prep (LEVELS, 2, F, 6, 6) from slam_chain_prepare
 // with the same jj_inv, ji and n_live; winv (F,); v (F, 6); n_live: one
-// int32 in device memory, 1 <= *n_live <= min(F,
-// slam_chain_sweep_max_live()) (else x is all NaN); output x (F, 6).
-// Returns the first CUDA error (0: none) after the launch.
+// int32 in device memory, 1 <= *n_live <= F (else x is all NaN);
+// scratch: (2, F, 6) floats in device memory where F >
+// slam_chain_sweep_max_live(), else not read (may be null); output x
+// (F, 6). Returns the first CUDA error (0: none) after the launch.
 extern "C" int slam_chain_sweep(const float* jj_inv, const float* prep,
                                 const float* winv, const float* v, int F,
-                                const int* n_live, float* x, void* stream) {
+                                const int* n_live, float* scratch, float* x,
+                                void* stream) {
   int alt_in_smem = 0;
   size_t smem = 0;
-  const int most = slam_chain_sweep_max_live();
-  const int rows = F < most ? F : most;
-  const int chunk = shared_layout(rows, &alt_in_smem, &smem);
+  int chunk = 0;
+  const bool staged = F > slam_chain_sweep_max_live();
+  if (!staged) {
+    chunk = shared_layout(F, &alt_in_smem, &smem);
+  } else if (scratch != nullptr) {
+    chunk = 16;
+    smem = static_cast<size_t>(CHAINS) * (STAGES * chunk * 36 + 2 * chunk * 6) *
+           sizeof(float);
+  }
   if (chunk == 0) return static_cast<int>(cudaErrorInvalidValue);
-  // The kernel's shared-memory limit is raised once on each device.
+  // The kernels' shared-memory limit is raised once on each device.
   constexpr int MAX_DEVICES = 64;
   static bool sized[MAX_DEVICES] = {};
   int device = 0;
   cudaError_t e = cudaGetDevice(&device);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (device >= MAX_DEVICES || !sized[device]) {
-    e = cudaFuncSetAttribute(chain_sweep_kernel,
+    e = cudaFuncSetAttribute(chain_sweep_kernel<false>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              MAX_SMEM);
+    if (e == cudaSuccess) {
+      e = cudaFuncSetAttribute(chain_sweep_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               MAX_SMEM);
+    }
     if (e != cudaSuccess) return static_cast<int>(e);
     if (device < MAX_DEVICES) sized[device] = true;
   }
   const int blocks = 1 + ((F - 1) * 6 + THREADS - 1) / THREADS;
-  chain_sweep_kernel<<<blocks, THREADS, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      jj_inv, prep, winv, v, F, n_live, rows, chunk, alt_in_smem, x);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (staged) {
+    chain_sweep_kernel<true><<<blocks, THREADS, smem, st>>>(
+        jj_inv, prep, winv, v, F, n_live, F, chunk, 0, scratch, x);
+  } else {
+    chain_sweep_kernel<false><<<blocks, THREADS, smem, st>>>(
+        jj_inv, prep, winv, v, F, n_live, F, chunk, alt_in_smem, nullptr, x);
+  }
   return static_cast<int>(cudaGetLastError());
 }

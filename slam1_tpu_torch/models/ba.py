@@ -16,8 +16,12 @@
     weights and a graduated outlier cut, fixed iteration counts, no
     value read back to the host: `lm_step` is one iteration (the
     reference's scan body, the iteration a device scalar) and
-    `bundle_adjust` a loop over it; on the card `global_ba_step`
-    replays `lm_step` as a captured graph (`models/pipeline.py`).
+    `bundle_adjust` a loop over it. On the card `bundle_adjust` replays
+    `lm_step` as a captured CUDA graph, as the reference jits it:
+    `ba_lm` (one iteration, `_graphed_ba_lm`, replayed `lm_iters` times)
+    and `ba_cost` (the final cost), cached in `BA_GRAPHS`;
+    `global_ba_step` (`models/pipeline.py`) replays the same `ba_lm`
+    function between graphs of its own.
 
 Every scatter-add accumulates in float64 and rounds once to the working
 dtype: CUDA's `index_add_` adds in the order its atomics land, and a
@@ -36,10 +40,12 @@ import torch
 
 from slam1_tpu_torch.config import BAConfig
 from slam1_tpu_torch.models import posegraph
-from slam1_tpu_torch.ops import se3
+from slam1_tpu_torch.ops import dispatch, se3
 from slam1_tpu_torch.ops.camera import StereoCamera
 from slam1_tpu_torch.ops.cg import cg
 from slam1_tpu_torch.ops.lsq import huber_weights, inv3x3, inv_spd6
+from slam1_tpu_torch.utils.graphs import StepGraph, copy_out
+from slam1_tpu_torch.utils.tree import flatten
 
 DIRECT_MAX_CAMS = 16       # dense reduced system up to this many cameras
 Z_MIN = 1e-3               # depth clamp of the projection
@@ -429,8 +435,93 @@ def final_cost(problem: BAProblem, cam: StereoCamera, cfg: BAConfig, poses,
     return _cost(out, cam, cfg.huber_delta)[0] + _prior_cost(problem, poses)
 
 
+class _LMCarry(NamedTuple):
+    """The state of the `ba_lm` graph: the problem and camera it reads,
+    the (poses, points, lam) carry, the iteration `t` (a 0-d int64
+    tensor) and the trace rows written so far (a BATrace of (lm_iters,)
+    tensors, or () without the trace)."""
+    problem: BAProblem
+    cam: StereoCamera
+    poses: torch.Tensor
+    points: torch.Tensor
+    lam: torch.Tensor
+    t: torch.Tensor
+    trace: tuple
+
+
+def _lm_carry(prob: BAProblem, cam: StereoCamera, cfg: BAConfig,
+              return_trace: bool) -> _LMCarry:
+    """The carry of LM iteration 0: the problem's poses and points,
+    lam = lm_lambda0, t = 0 and, with the trace, zeroed rows."""
+    dt, dev = prob.uv.dtype, prob.uv.device
+    trace = ()
+    if return_trace:
+        n = cfg.lm_iters
+        trace = BATrace(*[torch.zeros(n, dtype=d, device=dev) for d in (
+            dt, torch.int32, dt, torch.bool, dt)])
+    return _LMCarry(prob, cam, prob.poses, prob.points,
+                    torch.full((), cfg.lm_lambda0, dtype=dt, device=dev),
+                    torch.zeros((), dtype=torch.int64, device=dev), trace)
+
+
+def _graphed_ba_lm(cfg: BAConfig):
+    """One `lm_step` as a graph's function: (_LMCarry) -> (the carry one
+    iteration on, with `t` advanced and the iteration's trace row
+    written at `t`, ())."""
+    def step(carry):
+        (poses, points, lam), row = lm_step(
+            carry.problem, carry.cam, cfg, carry.poses, carry.points,
+            carry.lam, carry.t, trace=bool(carry.trace))
+        trace = carry.trace
+        if row is not None:
+            at = carry.t.reshape(1)
+            trace = BATrace(*[buf.index_copy(0, at, x.reshape(1))
+                              for buf, x in zip(trace, row)])
+        return carry._replace(poses=poses, points=points, lam=lam,
+                              t=carry.t + 1, trace=trace), ()
+    return step
+
+
+def _graphed_ba_cost(cfg: BAConfig):
+    """`final_cost` as a graph's function: (_LMCarry) -> (the same
+    carry, the cost ())."""
+    def step(carry):
+        return carry, final_cost(carry.problem, carry.cam, cfg, carry.poses,
+                                 carry.points)
+    return step
+
+
+# The standalone bundle_adjust graphs by their static arguments, as
+# jax.jit caches its programs: key -> {"ba_lm": ..., "ba_cost": ...}.
+BA_GRAPHS: dict = {}
+
+
+def _bundle_adjust_graphed(problem: BAProblem, cam: StereoCamera,
+                           cfg: BAConfig, return_trace: bool):
+    """bundle_adjust as `cfg.lm_iters` replays of `ba_lm` and one of
+    `ba_cost`, each captured at its first call for its key; nothing is
+    read back to the host between them. -> (poses, points, cost, trace),
+    copied out of the graphs' pools."""
+    shapes = tuple((tuple(x.shape), x.dtype) for x in flatten((problem, cam)))
+    key = (problem.uv.device, cfg, return_trace,
+           problem.poses.shape[0] <= DIRECT_MAX_CAMS, shapes)
+    graphs = BA_GRAPHS.get(key)
+    if graphs is None:
+        size = (f"[{problem.poses.shape[0]},{problem.points.shape[0]},"
+                f"{problem.uv.shape[0]}]")
+        graphs = BA_GRAPHS[key] = {
+            "ba_lm": StepGraph(_graphed_ba_lm(cfg), f"ba_lm{size}", key=key),
+            "ba_cost": StepGraph(_graphed_ba_cost(cfg), f"ba_cost{size}",
+                                 key=key)}
+    carry = _lm_carry(problem, cam, cfg, return_trace)
+    for _ in range(cfg.lm_iters):
+        carry, _ = graphs["ba_lm"](carry)
+    carry, cost = graphs["ba_cost"](carry)
+    return copy_out((carry.poses, carry.points, cost, carry.trace))
+
+
 def bundle_adjust(problem: BAProblem, cam: StereoCamera, cfg: BAConfig,
-                  return_trace: bool = False):
+                  return_trace: bool = False, graphs: bool = True):
     """Full LM bundle adjustment: `cfg.lm_iters` calls of `lm_step`.
     Camera 0 is gauge-fixed.
 
@@ -443,7 +534,22 @@ def bundle_adjust(problem: BAProblem, cam: StereoCamera, cfg: BAConfig,
     w_i min(huber(r_i), huber(cut)): excluded observations contribute
     the constant cap. The reported cost and trace stay the full Huber
     cost, comparable across iterations and runs.
+
+    On CUDA tensors it replays two CUDA graphs, as the reference runs one
+    compiled program: `ba_lm` (one `lm_step`, `cfg.lm_iters` times) and
+    `ba_cost` (the final cost), kept in BA_GRAPHS by the device, `cfg`,
+    `return_trace`, the dense-or-CG path and the problem's and camera's
+    shapes and dtypes, and captured at the first call with a new key;
+    their memory pools stay reserved until the graphs are dropped
+    (`BA_GRAPHS.clear()`). The camera is a graph input. On the CPU, and
+    with `graphs=False`, the same operations run eagerly (a caller that
+    is itself being captured passes `graphs=False`).
     """
+    if graphs and dispatch.use_cuda(problem.uv):
+        poses, points, cost, trace = _bundle_adjust_graphed(
+            problem, cam, cfg, return_trace)
+        out = problem._replace(poses=poses, points=points)
+        return (out, cost, trace) if return_trace else (out, cost)
     dt, dev = problem.uv.dtype, problem.uv.device
     poses, points = problem.poses, problem.points
     lam = torch.full((), cfg.lm_lambda0, dtype=dt, device=dev)

@@ -70,7 +70,7 @@ from slam1_tpu_torch.models.frontend import stereo_frontend
 from slam1_tpu_torch.models.loop_closure import place_query, \
     verify_loop_slate
 from slam1_tpu_torch.models.tracker import chain_pose, temporal_track
-from slam1_tpu_torch.ops import cuda_kernels, dispatch, se3
+from slam1_tpu_torch.ops import dispatch, se3
 from slam1_tpu_torch.ops.camera import StereoCamera
 from slam1_tpu_torch.ops.pnp import uniform
 from slam1_tpu_torch.runtime import default_device
@@ -454,7 +454,8 @@ def local_ba_step(state: SlamState, cam: StereoCamera, cfg: SlamConfig,
     prob = make_problem(poses, pts_local, cam_idx, lm_local, uv, w,
                         ur=ur, wr=wr)
     ba_cfg = dataclasses.replace(cfg.ba, lm_iters=cfg.ba.local_lm_iters)
-    out, cost = bundle_adjust(prob, cam, ba_cfg)
+    # Eager: on the card this runs inside the captured local_ba graph.
+    out, cost = bundle_adjust(prob, cam, ba_cfg, graphs=False)
 
     xyz_new = _set_rows(state.map.xyz, uniq, uniq_ok, out.points)
     traj = _set_rows(state.traj, frames, fr_ok, out.poses)
@@ -611,20 +612,6 @@ class _ApplyLeaves(NamedTuple):
     map: _MapXyz
 
 
-class _LMCarry(NamedTuple):
-    """The state of the `ba_lm` graph: the problem and camera it reads,
-    the (poses, points, lam) carry, the iteration `t` (a 0-d int64
-    tensor) and the trace rows written so far (a BATrace of (lm_iters,)
-    tensors, or () without the trace)."""
-    problem: ba.BAProblem
-    cam: StereoCamera
-    poses: torch.Tensor
-    points: torch.Tensor
-    lam: torch.Tensor
-    t: torch.Tensor
-    trace: tuple
-
-
 def _global_ba_leaves(state: SlamState):
     """(_BuildLeaves, _ApplyLeaves) of a SlamState."""
     kf, mp = state.kf, state.map
@@ -636,45 +623,12 @@ def _global_ba_leaves(state: SlamState):
                          _MapXyz(mp.xyz)))
 
 
-def _lm_carry(prob: ba.BAProblem, cam: StereoCamera, cfg: SlamConfig,
-              return_trace: bool) -> _LMCarry:
-    """The carry of LM iteration 0: the problem's poses and points,
-    lam = lm_lambda0, t = 0 and, with the trace, zeroed rows."""
-    dt, dev = prob.uv.dtype, prob.uv.device
-    trace = ()
-    if return_trace:
-        n = cfg.ba.lm_iters
-        trace = ba.BATrace(*[torch.zeros(n, dtype=d, device=dev) for d in (
-            dt, torch.int32, dt, torch.bool, dt)])
-    return _LMCarry(prob, cam, prob.poses, prob.points,
-                    torch.full((), cfg.ba.lm_lambda0, dtype=dt, device=dev),
-                    torch.zeros((), dtype=torch.int64, device=dev), trace)
-
-
 def _graphed_ba_build(cfg: SlamConfig, n_kf: int, obs_bucket: int):
     """_global_problem as a graph's function: (_BuildLeaves, cam,
     *loop_rows) -> (the same leaves, (problem, frames))."""
     def step(leaves, cam, *loop_rows):
         return leaves, _global_problem(leaves, cam, cfg, n_kf, obs_bucket,
                                        loop_rows or None)
-    return step
-
-
-def _graphed_ba_lm(cfg: SlamConfig):
-    """One `ba.lm_step` as a graph's function: (_LMCarry) -> (the carry
-    one iteration on, with `t` advanced and the iteration's trace row
-    written at `t`, ())."""
-    def step(carry):
-        (poses, points, lam), row = ba.lm_step(
-            carry.problem, carry.cam, cfg.ba, carry.poses, carry.points,
-            carry.lam, carry.t, trace=bool(carry.trace))
-        trace = carry.trace
-        if row is not None:
-            at = carry.t.reshape(1)
-            trace = ba.BATrace(*[buf.index_copy(0, at, x.reshape(1))
-                                 for buf, x in zip(trace, row)])
-        return carry._replace(poses=poses, points=points, lam=lam,
-                              t=carry.t + 1, trace=trace), ()
     return step
 
 
@@ -710,13 +664,13 @@ def _global_ba_graphed(state: SlamState, cam: StereoCamera,
     graphs = GLOBAL_BA_GRAPHS.get(key)
     if graphs is None:
         fns = {"ba_build": _graphed_ba_build(cfg, n_kf, obs_bucket),
-               "ba_lm": _graphed_ba_lm(cfg),
+               "ba_lm": ba._graphed_ba_lm(cfg.ba),
                "ba_apply": _graphed_ba_apply(cfg, n_kf)}
         graphs = GLOBAL_BA_GRAPHS[key] = {
             name: StepGraph(fn, f"{name}[{n_kf},{obs_bucket}]", key=key)
             for name, fn in fns.items()}
     _, (prob, frames) = graphs["ba_build"](build_in, cam, *loop)
-    carry = _lm_carry(prob, cam, cfg, return_trace)
+    carry = ba._lm_carry(prob, cam, cfg.ba, return_trace)
     for _ in range(cfg.ba.lm_iters):
         carry, _ = graphs["ba_lm"](carry)
     leaves, cost = graphs["ba_apply"](apply_in, carry.problem, frames,
@@ -757,7 +711,8 @@ def global_ba_step(state: SlamState, cam: StereoCamera, cfg: SlamConfig,
         prob, frames = _global_problem(state, cam, cfg, n_kf, obs_bucket,
                                        loop_rows)
         out, cost, *trace = bundle_adjust(prob, cam, cfg.ba,
-                                          return_trace=return_trace)
+                                          return_trace=return_trace,
+                                          graphs=False)
         new_state = _global_write_back(state, n_kf, frames, out.poses,
                                        out.points)
         trace = trace[0] if trace else None
@@ -1465,12 +1420,6 @@ class SlamSystem:
         a 0-d int32 device tensor) and `pgo_apply[bucket]` (the state's
         write-back) -> the cost, a 0-d tensor on the device. Nothing is
         read back to the host between them."""
-        # The kernel bounds n_live on the device (NaN past its most live
-        # rows); the host knows it here and says so at once.
-        if le_w.is_cuda and n_live > cuda_kernels.build().chain_max_live:
-            raise ValueError(f"a pose graph of {n_live} live poses exceeds "
-                             f"the chain sweep's "
-                             f"{cuda_kernels.build().chain_max_live}")
         graph = self._program(f"pgo_build[{bucket}]",
                               _graphed_pgo_build(bucket),
                               le_i, le_j, le_z, le_w)

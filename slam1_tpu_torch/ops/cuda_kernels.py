@@ -142,7 +142,7 @@ class _Kernels:
         self.slam_chain_prepare = chain.slam_chain_prepare
         self.slam_chain_prepare.argtypes = [p, p, i, p, p, p]
         self.slam_chain_sweep = chain.slam_chain_sweep
-        self.slam_chain_sweep.argtypes = [p, p, p, p, i, p, p, p]
+        self.slam_chain_sweep.argtypes = [p, p, p, p, i, p, p, p, p]
         for fn in (self.slam_fast_score, self.slam_fast_score_levels,
                    self.slam_hamming_top2,
                    self.slam_hamming_top2_batched, self.slam_chain_prepare,
@@ -150,7 +150,8 @@ class _Kernels:
             fn.restype = i
         if chain.slam_chain_levels() != CHAIN_LEVELS:
             raise RuntimeError("csrc/chain_sweep.cu and CHAIN_LEVELS disagree")
-        # Most live rows one chain_sweep launch holds in shared memory.
+        # Most rows (F) whose offsets one chain_sweep launch holds in
+        # shared memory; a larger F keeps them in a device scratch buffer.
         self.chain_max_live = chain.slam_chain_sweep_max_live()
 
 
@@ -541,9 +542,9 @@ def chain_sweep_fused_plain(jj_inv, ji, winv, v, n_live):
     return x
 
 
-def _live_arg(n_live, device, most: int, what: str) -> torch.Tensor:
+def _live_arg(n_live, device, f: int, what: str) -> torch.Tensor:
     """n_live as the chain kernels read it: a 0-d int32 tensor on
-    `device`. An int is checked against [1, most] here and filled on the
+    `device`. An int is checked against [1, f] here and filled on the
     device; a tensor is taken as it is (reading it would stall the host),
     and the kernels bound its value."""
     if isinstance(n_live, torch.Tensor):
@@ -552,8 +553,8 @@ def _live_arg(n_live, device, most: int, what: str) -> torch.Tensor:
             raise ValueError(f"{what}: n_live on {n_live.device}, the "
                              f"operands on {device}")
         return n_live
-    if not 1 <= n_live <= most:
-        raise ValueError(f"{what}: n_live={n_live} not in [1, {most}]")
+    if not 1 <= n_live <= f:
+        raise ValueError(f"{what}: n_live={n_live} not in [1, {f}]")
     return torch.full((), n_live, dtype=torch.int32, device=device)
 
 
@@ -583,33 +584,45 @@ def chain_prepare_cuda(jj_inv, ji, n_live):
 chain_prepare_cuda.launches = 0
 
 
+def chain_sweep_staged(f: int) -> bool:
+    """Whether chain_sweep_cuda keeps the offsets of an F-row chain in a
+    device scratch buffer (F above the kernel's shared-memory rows, 8533
+    on the H100) rather than in shared memory: decided by F alone."""
+    return f > build().chain_max_live
+
+
 def chain_sweep_cuda(jj_inv, ji, winv, v, n_live, prep=None):
     """The two chain sweeps in one launch of csrc/chain_sweep.cu. Same
-    contract as chain_sweep_plain. `n_live`: an int in [1, min(F, the
-    kernel's most live rows)], or a 0-d int32 tensor on the operands'
-    device, whose value the kernel bounds (outside that range x is all
-    NaN). `prep` is chain_prepare_cuda's result for the same jj_inv, ji
-    and n_live, which `posegraph.gn_step` makes once per Gauss-Newton
-    iteration. It is optional only so that the call without it keeps
-    working as it did before the blocks were fused: the blocks are then
-    prepared here, by one more counted call of chain_prepare_cuda."""
+    contract as chain_sweep_plain, for any F. `n_live`: an int in [1, F],
+    or a 0-d int32 tensor on the operands' device, whose value the
+    kernel bounds (outside [1, F] x is all NaN). Where F exceeds what
+    shared memory holds (chain_sweep_staged) the kernel's offsets go to
+    a (2, F, 6) scratch buffer allocated here. `prep` is
+    chain_prepare_cuda's result for the same jj_inv, ji and n_live,
+    which `posegraph.gn_step` makes once per Gauss-Newton iteration. It
+    is optional only so that the call without it keeps working as it
+    did before the blocks were fused: the blocks are then prepared here,
+    by one more counted call of chain_prepare_cuda."""
     f = v.shape[0]
     _check(jj_inv, "jj_inv", torch.float32, (f, 6, 6))
     _check(ji, "ji", torch.float32, (f, 6, 6))
     _check(winv, "winv", torch.float32, (f,))
     _check(v, "v", torch.float32, (f, 6))
     lib = build()
-    live = _live_arg(n_live, v.device, min(f, lib.chain_max_live),
-                     "chain_sweep_cuda")
+    live = _live_arg(n_live, v.device, f, "chain_sweep_cuda")
     if prep is None:
         prep = chain_prepare_cuda(jj_inv, ji, live)
     _check(prep, "prep", torch.float32, (CHAIN_LEVELS, 2, f, 6, 6))
     x = torch.empty_like(v)
+    scratch = None
+    if chain_sweep_staged(f):
+        scratch = torch.empty((2, f, 6), dtype=torch.float32,
+                              device=v.device)
     stream = torch.cuda.current_stream(v.device).cuda_stream
-    _raise_on(lib.slam_chain_sweep(jj_inv.data_ptr(), prep.data_ptr(),
-                                   winv.data_ptr(), v.data_ptr(), f,
-                                   live.data_ptr(), x.data_ptr(), stream),
-              "chain_sweep launch")
+    _raise_on(lib.slam_chain_sweep(
+        jj_inv.data_ptr(), prep.data_ptr(), winv.data_ptr(), v.data_ptr(),
+        f, live.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        x.data_ptr(), stream), "chain_sweep launch")
     chain_sweep_cuda.launches += 1
     return x
 

@@ -81,9 +81,9 @@ def test_global_ba_programs_read_nothing_back_to_the_host(carried, case):
     assert rec.ops == [], rec.ops
     assert (prob.poses.shape[0] <= ba.DIRECT_MAX_CAMS) == (case == "direct")
     assert prob.pe_i.shape[0] > 0
-    carry = tpipe._lm_carry(prob, tcam, tcfg, True)
+    carry = ba._lm_carry(prob, tcam, tcfg.ba, True)
     with HostReads() as rec:
-        carry, out = tpipe._graphed_ba_lm(tcfg)(carry)
+        carry, out = ba._graphed_ba_lm(tcfg.ba)(carry)
     assert rec.ops == [] and out == (), rec.ops
     assert int(carry.t) == 1
     with HostReads() as rec:

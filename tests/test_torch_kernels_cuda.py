@@ -609,3 +609,109 @@ def test_global_ba_graphs_replay_without_syncs_equal_to_eager(cuda_device,
         host = torch.full((), cfg.ba.outlier_px * max(1.0, 8.0 * 0.5 ** t))
         assert torch.equal(_bits(cut.cpu()), _bits(host)), t
     pipeline.GLOBAL_BA_GRAPHS.clear()
+
+
+@pytest.mark.parametrize("n_live", [2, 8533, 8534, 12000])
+def test_chain_sweep_cuda_past_shared_memory(cuda_device, n_live):
+    """At 12000 poses, past the 8533 rows whose offsets one launch holds
+    in shared memory, the sweep keeps them in device memory and equals
+    its plain twin within 1e-4 of max |x| for every live count; 8533
+    rows stay on the shared-memory path, and 8533 live rows give the
+    same bits on both paths."""
+    f = 12000
+    most = cuda_kernels.build().chain_max_live
+    assert most == 8533
+    assert cuda_kernels.chain_sweep_staged(f)
+    assert not cuda_kernels.chain_sweep_staged(most)
+    ops = [x.to(cuda_device)
+           for x in synthetic.chain_inputs(f, n_live, n_live)]
+    before = cuda_kernels.launch_counts()
+    xk = cuda_kernels.chain_sweep_cuda(*ops, n_live)
+    xp = cuda_kernels.chain_sweep_plain(*ops, n_live)
+    torch.cuda.synchronize()
+    assert torch.isfinite(xk).all()
+    assert (xk - xp).abs().max().item() <= 1e-4 * xp.abs().max().item()
+    after = cuda_kernels.launch_counts()
+    assert after["chain_sweep"] - before["chain_sweep"] == 1
+    if n_live <= most:
+        xs = cuda_kernels.chain_sweep_cuda(*[x[:most] for x in ops], n_live)
+        assert torch.equal(_bits(xs), _bits(xk[:most]))
+    live = torch.full((), f + 1, dtype=torch.int32, device=cuda_device)
+    assert torch.isnan(cuda_kernels.chain_sweep_cuda(*ops, live)).all()
+
+
+def _synced_call(fn):
+    """fn() under sync debug mode "error": a host sync raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.parametrize("live", ["none", "tensor"])
+def test_optimize_graphs_replay_without_syncs_equal_to_eager(cuda_device,
+                                                             live):
+    """posegraph.optimize on the 600-pose two-lap graph: the first call
+    captures pg_gn and pg_cost; a warm call makes no host sync, replays
+    pg_gn `iters` times and pg_cost once with one chain_prepare per
+    iteration and one chain_sweep per preconditioner application, and
+    equals graphs=False to the bit, poses and cost."""
+    from slam1_tpu_torch.models import posegraph
+    graph = synthetic.loop2_graph(device=cuda_device)
+    n = graph.poses.shape[0]
+    n_live = (torch.full((), n, dtype=torch.int32, device=cuda_device)
+              if live == "tensor" else None)
+    kw = dict(iters=4, cg_iters=30, n_live=n_live)
+    posegraph.POSEGRAPH_GRAPHS.clear()
+    eager = posegraph.optimize(graph, graphs=False, **kw)
+    captured = posegraph.optimize(graph, **kw)
+    assert len(posegraph.POSEGRAPH_GRAPHS) == 2
+    gn = next(g for k, g in posegraph.POSEGRAPH_GRAPHS.items()
+              if k[0] == "pg_gn")
+    assert gn.launches == {"chain_prepare": 1, "chain_sweep": 31}
+    replays = gn.replays
+    before = cuda_kernels.launch_counts()
+    graphed = _synced_call(lambda: posegraph.optimize(graph, **kw))
+    after = cuda_kernels.launch_counts()
+    assert gn.replays - replays == 4
+    assert {k: after[k] - before[k] for k in after
+            if after[k] != before[k]} == {"chain_prepare": 4,
+                                          "chain_sweep": 4 * 31}
+    for other in (captured, graphed):
+        for a, b in zip(eager, other, strict=True):
+            assert torch.equal(_bits(a), _bits(b))
+    assert float((graphed[0] - graph.poses).abs().max()) > 1e-3
+    posegraph.POSEGRAPH_GRAPHS.clear()
+
+
+@pytest.mark.parametrize("n_cams", [6, 24], ids=["dense", "cg"])
+def test_bundle_adjust_graphs_replay_without_syncs_equal_to_eager(
+        cuda_device, n_cams):
+    """ba.bundle_adjust on the seeded problem, dense and CG paths, with
+    the trace: the first call captures ba_lm and ba_cost; a warm call
+    makes no host sync, replays ba_lm lm_iters times and ba_cost once,
+    and equals graphs=False to the bit, problem, cost and trace."""
+    from slam1_tpu_torch.config import BAConfig
+    from slam1_tpu_torch.models import ba
+    cfg = BAConfig(lm_iters=6, cg_iters=30)
+    p, _, _, cam = synthetic.ba_problem(0, n_cams=n_cams, px_noise=0.3,
+                                        n_outliers=40, device=cuda_device)
+
+    def call(graphs=True):
+        return ba.bundle_adjust(p, cam, cfg, return_trace=True,
+                                graphs=graphs)
+    ba.BA_GRAPHS.clear()
+    eager = call(False)
+    captured = call()
+    (graphs,) = ba.BA_GRAPHS.values()
+    replays = [graphs[n].replays for n in ("ba_lm", "ba_cost")]
+    graphed = _synced_call(call)
+    assert [graphs[n].replays - r for n, r in
+            zip(("ba_lm", "ba_cost"), replays)] == [cfg.lm_iters, 1]
+    for other in (captured, graphed):
+        for a, b in zip(flatten(eager), flatten(other), strict=True):
+            assert torch.equal(_bits(a), _bits(b))
+    assert bool(eager[2].accept.any())
+    ba.BA_GRAPHS.clear()

@@ -7,8 +7,10 @@
   - the `emulated_graphs` fixture: `StepGraph`'s capture and replay run
     eagerly on the CPU, with the same static state (its own clone, or
     the state of the graph it runs over), loads and write-backs as on
-    the card, and the graphed paths of `SlamSystem`, `vo_block` and the
-    flow VO's `run_sequence` taken for CPU tensors.
+    the card, and the graphed paths of `SlamSystem`, `vo_block`, the
+    flow VO's `run_sequence`, `posegraph.optimize` and
+    `ba.bundle_adjust` taken for CPU tensors (the kernels' plain twins
+    still run: only the choice of the graphed path is patched).
 
 A test file takes them by importing them:
 
@@ -22,8 +24,11 @@ import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from slam1_tpu_torch.models import ba as tba
 from slam1_tpu_torch.models import pipeline as tpipe
+from slam1_tpu_torch.models import posegraph as tposegraph
 from slam1_tpu_torch.models import vo, vo_flow
+from slam1_tpu_torch.ops import dispatch
 from slam1_tpu_torch.utils import graphs, tree
 
 HOST_OPS = ("_local_scalar_dense", "nonzero", "masked_select", "unique",
@@ -58,8 +63,8 @@ def same_bits(a, b) -> bool:
 def emulated_graphs(monkeypatch):
     """StepGraph with its capture and replay run eagerly on the CPU: the
     same static state, loads and write-backs as on the card, and the
-    graphed paths of SlamSystem, vo_block and vo_flow.run_sequence taken
-    for CPU tensors."""
+    graphed paths of SlamSystem, vo_block, vo_flow.run_sequence,
+    posegraph.optimize and ba.bundle_adjust taken for CPU tensors."""
 
     def capture(self, state, inputs):
         graphs._check_tensors((state, inputs))
@@ -81,3 +86,9 @@ def emulated_graphs(monkeypatch):
     monkeypatch.setattr(tpipe, "dispatch", card)
     monkeypatch.setattr(vo, "dispatch", card)
     monkeypatch.setattr(vo_flow, "dispatch", card)
+    monkeypatch.setattr(tba, "dispatch", card)
+    # The pose graph's chain kernels stay dispatched by their tensors'
+    # device (the plain twins here).
+    monkeypatch.setattr(tposegraph, "dispatch", types.SimpleNamespace(
+        use_cuda=card.use_cuda, chain_prepare=dispatch.chain_prepare,
+        chain_sweep=dispatch.chain_sweep))

@@ -62,6 +62,7 @@ def _child(process_id: int, coord: str, device: str) -> int:
         ba_cfg = BAConfig(lm_iters=2, cg_iters=8)
         sharded, _ = partition_problem(prob, world)
         out, cost = distributed_bundle_adjust(sharded, cam, ba_cfg, mesh)
+        # The single-device baseline: graphed on a card, eager on the CPU.
         ref_out, _ref_cost = bundle_adjust(prob, cam, ba_cfg)
         terr = float((out.poses[:, :3, 3]
                       - ref_out.poses[:, :3, 3]).abs().max())
@@ -74,7 +75,9 @@ def _child(process_id: int, coord: str, device: str) -> int:
             "global_devices": world, "local_devices": 1,
             "mesh": dict(mesh.shape), "backend": backend,
             "device": str(mesh.device),
-            "ba_cost": float(cost), "ba_parity_terr": terr}))
+            "ba_cost": float(cost), "ba_parity_terr": terr,
+            "single_device_ba": ("graphed" if mesh.device.type == "cuda"
+                                 else "eager")}))
     finally:
         dist.destroy_process_group()
     return 0
