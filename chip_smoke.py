@@ -164,10 +164,19 @@ exits non-zero and never prints the final `ok` line:
                (2048 rows, 601 live, its loop edges, the live
                relaxation's 5 GN x 64 CG)
                against posegraph.optimize (cost, ATE <= odometry-only),
-               chain_prepare / chain_sweep launches per rank; then both
-               at two ranks spawned on the one card over gloo (joined
-               under a time limit) against one rank. Prints ms per LM /
-               GN iteration and all_reduce bytes per CG step.
+               chain_prepare / chain_sweep launches per rank. At one
+               rank both solvers run eagerly twice, then graphed twice
+               (`dba_lm` / `dpg_gn` replayed once per LM / GN iteration,
+               `dba_cost` / `dpg_cost` once, NCCL collectives inside):
+               graphed equal to eager to the bit (or within the eager
+               calls' spread where they differ), 0 host syncs in a warm
+               graphed call, the same `Mesh.comm` counts and launches;
+               the graphed results are the ones checked. Then both at
+               two ranks spawned on the one card over gloo (eager, as
+               gloo must; joined under a time limit) against one rank.
+               Prints ms per LM / GN iteration eager and graphed, the
+               graphs' nodes, capture s and pool bytes, and the
+               measured all_reduce bytes per CG step.
   9. async   — the first 100 frames at `SlamConfig()` unchanged (the
                bench phase runs all 600 at this config)
                (poll_lag_s=0.05): no metrics row lost, poses finite,
@@ -288,7 +297,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from slam1_tpu_torch import cli, runtime  # noqa: E402
+from slam1_tpu_torch import cli, parallel, runtime  # noqa: E402
 from slam1_tpu_torch.config import SlamConfig  # noqa: E402
 from slam1_tpu_torch.models import ba, pipeline, posegraph, ref_backend, \
     vo, vo_flow  # noqa: E402
@@ -2104,9 +2113,12 @@ def phase_tools(tmp):
                                "--span", "2"]),
         ("port_multihost_smoke.py", [])])
     times_s["dist_grid_multihost_together"] = time.perf_counter() - t0
-    for ranks, backend, rec in ((1, "nccl", d1), (2, "gloo", d2)):
-        say("tools-dist-ba-scale", ranks=ranks, record=rec)
+    for ranks, backend, mode, rec in ((1, "nccl", "graphed", d1),
+                                      (2, "gloo", "eager", d2)):
+        say("tools-dist-ba-scale", ranks=ranks, dist_mode=rec["dist_mode"],
+            single_mode=rec["single_mode"], record=rec)
         check(rec["shards"] == ranks and rec["backend"] == backend
+              and rec["dist_mode"] == mode
               and rec["n_dropped"] == 0 and rec["rel_cost_parity"] < 5e-2
               and rec["keyframes"] == gba["keyframes"],
               f"port_dist_ba_scale at {ranks} ranks: {rec}")
@@ -2612,6 +2624,86 @@ def pgo_graph(g):
         w=torch.cat([g["w"][:f - 1], g["le_w"]]))
 
 
+def dist_graph_mode(mesh, x):
+    """How the sharded solvers run for tensors like x on this mesh:
+    "graphed" (a card under NCCL) or "eager (<backend>)"."""
+    from slam1_tpu_torch.parallel import mesh as mesh_mod
+    return ("graphed" if mesh_mod.capturable(mesh, x)
+            else f"eager ({mesh.backend})")
+
+
+def dist_graph_runs(tag, call, cache, names, iters, mesh, smi):
+    """A sharded solver at one rank, as phase global-ba holds global BA:
+    two eager calls (`call(False)`), then two graphed ones (the first
+    captures `names`, the second replays them: the iteration graph
+    `iters` times, the end graph once); each timed on the host clock
+    ending in a synchronize, with its `mesh.comm` and kernel launches;
+    then the host syncs of a warm graphed call. Graphed is held to eager
+    to the bit where the two eager calls are equal to the bit, else to
+    their spread. Returns (graphed result, eager result, what is said)."""
+    def run(graphs):
+        mesh.comm.update({k: 0 for k in mesh.comm})
+        cuda_kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = call(graphs)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / iters
+        return res, ms, dict(mesh.comm), cuda_kernels.launch_counts()
+
+    cache.clear()
+    eager, eager_ms, comm, launches = run(False)
+    eager2, eager2_ms, comm2, launches2 = run(False)
+    captured, capture_ms, comm_c, launches_c = run(True)
+    check(len(cache) == 1, f"{tag}: a graphed call made {len(cache)} "
+          f"graph sets")
+    (graphs,) = cache.values()
+    replays = [graphs[n].replays for n in names]
+    graphed, graph_ms, comm_g, launches_g = run(True)
+    check([graphs[n].replays - r for n, r in zip(names, replays)]
+          == [iters, 1] and len(cache) == 1,
+          f"{tag}: the second graphed call was not {iters} replays of "
+          f"{names[0]} and one of {names[1]}")
+    syncs, where = count_syncs(lambda: call(True))
+    eager_diff = tree_diff(eager, eager2, "eager")
+    spread = max_abs_diff(eager, eager2)
+    graph_diff = tree_diff(eager, graphed, tag) + tree_diff(
+        eager, captured, tag)
+    graph_spread = max(max_abs_diff(eager, graphed),
+                       max_abs_diff(eager, captured))
+    said = dict(
+        card=smi, dist_mode=dist_graph_mode(mesh, flatten(eager)[0]),
+        ms_per_iteration_eager=[eager_ms, eager2_ms],
+        ms_per_iteration_graphed=graph_ms,
+        ms_per_iteration_capture_call=capture_ms,
+        eager_vs_eager_differing=eager_diff, eager_vs_eager_max_abs=spread,
+        graph_vs_eager_differing=graph_diff,
+        graph_vs_eager_max_abs=graph_spread, graph_warm_call_syncs=syncs,
+        comm_eager=comm, comm_eager2=comm2, comm_capture_call=comm_c,
+        comm_graphed=comm_g, launches_eager=launches,
+        launches_graphed=launches_g,
+        **{f"{n}_{k}": v for n in names for k, v in graphs[n].stats().items()
+           if k != "launches_per_replay"},
+        **{f"{n}_comm_per_replay": graphs[n].counted for n in names})
+    say(f"{tag}-graphs", **said)
+    check(said["dist_mode"] == "graphed",
+          f"{tag}: one rank over NCCL ran {said['dist_mode']}")
+    check(syncs == 0, f"{tag}: a warm graphed call made host syncs: {where}")
+    check(comm == comm2 == comm_c == comm_g,
+          f"{tag}: graphed calls counted other collectives than eager "
+          f"ones: {comm} {comm2} {comm_c} {comm_g}")
+    check(launches == launches2 == launches_c == launches_g,
+          f"{tag}: graphed calls launched other kernels than eager ones: "
+          f"{launches} {launches_g}")
+    if not eager_diff:
+        check(not graph_diff, f"{tag}: graphed differs from eager "
+              f"({graph_spread} at most): {graph_diff}")
+    else:
+        check(graph_spread <= spread, f"{tag}: graphed {graph_spread} off "
+              f"eager, beyond the eager calls' spread {spread}")
+    return graphed, eager, said
+
+
 def _dist_rank(rank, world, in_path, init_file, out_path):
     """One spawned rank of the dist phase: the sharded BA and pose graph
     of the parent's problem on the card, over gloo (ranks share it)."""
@@ -2631,6 +2723,8 @@ def _dist_rank(rank, world, in_path, init_file, out_path):
         g = data["graph"]
         pargs = [g[k] for k in ("poses", "z", "w", "le_i", "le_j", "le_z",
                                 "le_w")]
+        # Ranks sharing the card run gloo, which no graph can hold.
+        dist_mode = dist_graph_mode(mesh, sharded.uv)
         # One-off costs (the first collectives, first-call set-up) out of
         # the timed runs.
         dist_ba.distributed_bundle_adjust(
@@ -2658,9 +2752,10 @@ def _dist_rank(rank, world, in_path, init_file, out_path):
             dropped=int(dropped), ba_s=ba_s, ba_comm=ba_comm,
             pgo_poses=poses.cpu(), pgo_cost=float(pcost), pgo_s=pgo_s,
             pgo_comm=dict(mesh.comm), backend=mesh.backend,
-            device=str(dev), launches=cuda_kernels.launch_counts()),
-            f"{out_path}.{rank}")
+            dist_mode=dist_mode, device=str(dev),
+            launches=cuda_kernels.launch_counts()), f"{out_path}.{rank}")
     finally:
+        parallel.clear_graphs()
         torch.distributed.destroy_process_group()
 
 
@@ -2689,12 +2784,13 @@ def spawn_dist_ranks(world, data, tmp):
             for r in range(world)]
 
 
-def phase_dist(cfg, sys_, world, tmp):
+def phase_dist(cfg, sys_, world, tmp, smi):
     """The distributed layer on the finished 600-frame state: the
-    partitioners, the sharded BA at one rank over NCCL (this process)
+    partitioners, the sharded BA at one rank over NCCL (this process;
+    eager twice, then its captured graphs, held to the eager calls)
     against the single-device BA, at two ranks sharing the card over
-    gloo (spawned) against one rank, and the sharded pose graph at one
-    and two ranks against posegraph.optimize."""
+    gloo (spawned, eager) against one rank, and the sharded pose graph
+    likewise at one and two ranks against posegraph.optimize."""
     from slam1_tpu_torch.parallel import dist_ba, dist_pgo
     from slam1_tpu_torch.parallel import mesh as mesh_mod
     gt = world.poses.cpu().numpy()
@@ -2734,18 +2830,19 @@ def phase_dist(cfg, sys_, world, tmp):
     # One-off costs (the first collectives, first-call set-up) out of the
     # timed runs.
     dist_ba.distributed_bundle_adjust(
-        sharded, cam, dataclasses.replace(cfg.ba, lm_iters=1), mesh)
+        sharded, cam, dataclasses.replace(cfg.ba, lm_iters=1), mesh,
+        graphs=False)
     dist_pgo.optimize_sharded(*pargs, mesh=mesh, iters=1, cg_iters=1,
-                              n_live=g["n_live"])
-    mesh.comm.update({k: 0 for k in mesh.comm})
-    cuda_kernels.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out1, cost1, trace1 = dist_ba.distributed_bundle_adjust(
-        sharded, cam, cfg.ba, mesh, return_trace=True)
-    torch.cuda.synchronize()
-    d_ms = 1e3 * (time.perf_counter() - t0) / iters
-    ba_comm = dict(mesh.comm)
+                              n_live=g["n_live"], graphs=False)
+    # Eager twice, graphed twice (captured, then replayed): the graphed
+    # result is the one checked below.
+    (out1, cost1, trace1), _, ba_said = dist_graph_runs(
+        "dist-ba-1", lambda graphs: dist_ba.distributed_bundle_adjust(
+            sharded, cam, cfg.ba, mesh, return_trace=True, graphs=graphs),
+        dist_ba.DIST_BA_GRAPHS, ("dba_lm", "dba_cost"), iters, mesh, smi)
+    d_ms = ba_said["ms_per_iteration_graphed"]
+    d_eager_ms = min(ba_said["ms_per_iteration_eager"])
+    ba_comm = ba_said["comm_graphed"]
 
     # The single-device baseline as the reference runs it (graphs: the
     # first call captures, the second is timed) and op by op.
@@ -2776,20 +2873,23 @@ def phase_dist(cfg, sys_, world, tmp):
     t1, ts = trace1.cpu().numpy(), traces.cost.cpu().numpy()
     trace_rel = float(np.max(np.abs(t1 - ts) / np.maximum(np.abs(ts), 1.0)))
     cg_steps = iters * (cfg.ba.cg_iters + 1)
+    ba_bytes_per_cg_step = ba_comm["all_reduce_bytes"] / cg_steps
     say("dist-ba-1", backend=backend, keyframes=n_kf, camera_rows=bucket,
         observations=n_obs, lm_iters=iters, cost=float(cost1),
         cost_single=float(costs), trace=t1.tolist(), trace_single=ts.tolist(),
         trace_max_rel_diff=trace_rel, kf_ate_before_m=ate0,
         kf_ate_after_m=ate1, kf_ate_single_m=ate_s,
-        ms_per_lm_iteration=d_ms, ms_per_lm_iteration_single=s_ms,
+        dist_mode=ba_said["dist_mode"], ms_per_lm_iteration=d_ms,
+        ms_per_lm_iteration_eager=ba_said["ms_per_iteration_eager"],
+        ms_per_lm_iteration_single=s_ms,
         single_timed="graphed (CUDA graph replays)",
         ms_per_lm_iteration_single_eager=s_eager_ms,
         ms_per_lm_iteration_single_capture_call=s_capture_ms,
         single_graph_vs_eager_differing=single_diff,
         all_reduce_calls=ba_comm["all_reduce_calls"],
-        all_reduce_bytes_per_cg_step=6 * 8 * bucket,
+        all_reduce_bytes_per_cg_step=ba_bytes_per_cg_step,
         all_reduce_bytes_total=ba_comm["all_reduce_bytes"],
-        cg_steps=cg_steps, launches=cuda_kernels.launch_counts())
+        cg_steps=cg_steps, launches=ba_said["launches_graphed"])
     check(math.isfinite(float(cost1)) and trace_rel <= DIST_TRACE_TOL,
           f"distributed BA trace {trace_rel} relative off bundle_adjust")
     check(ate1 <= 1.05 * ate0, f"distributed BA keyframe ATE {ate0} -> "
@@ -2798,20 +2898,19 @@ def phase_dist(cfg, sys_, world, tmp):
     # (d) the pose graph at one rank, against posegraph.optimize, at the
     # live relaxation's Gauss-Newton count
     pg_it, pg_cg = max(cfg.ba.pg_iters // 5, 3), cfg.ba.cg_iters
-    mesh.comm.update({k: 0 for k in mesh.comm})
-    cuda_kernels.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    p1, pc1 = dist_pgo.optimize_sharded(*pargs, mesh=mesh, iters=pg_it,
-                                        cg_iters=pg_cg, n_live=g["n_live"])
-    torch.cuda.synchronize()
-    p_ms = 1e3 * (time.perf_counter() - t0) / pg_it
-    counts1 = cuda_kernels.launch_counts()
-    pgo_comm = dict(mesh.comm)
+    (p1, pc1), _, pgo_said = dist_graph_runs(
+        "dist-pgo-1", lambda graphs: dist_pgo.optimize_sharded(
+            *pargs, mesh=mesh, iters=pg_it, cg_iters=pg_cg,
+            n_live=g["n_live"], graphs=graphs),
+        dist_pgo.DIST_PGO_GRAPHS, ("dpg_gn", "dpg_cost"), pg_it, mesh, smi)
+    p_ms = pgo_said["ms_per_iteration_graphed"]
+    counts1 = pgo_said["launches_graphed"]
+    pgo_comm = pgo_said["comm_graphed"]
     graph = posegraph.PoseGraph(*[x.to(mesh.device) for x in pgo_graph(g)])
     ps, pcs = posegraph.optimize(graph, iters=pg_it, cg_iters=pg_cg,
                                  n_live=g["n_live"])
     posegraph.POSEGRAPH_GRAPHS.clear()
+    parallel.clear_graphs()
     torch.distributed.destroy_process_group()
     n = g["n_live"]
     ate_odo = ate_rmse(g["poses"][:n].numpy(), gt[:n], align=False)
@@ -2824,11 +2923,15 @@ def phase_dist(cfg, sys_, world, tmp):
         loop_edges=len(sys_.loop_edges), gn_iters=pg_it, cg_iters=pg_cg,
         cost=float(pc1), cost_single=float(pcs), cost_rel_diff=pgo_rel,
         ate_odometry_m=ate_odo, ate_m=ate_p1, ate_single_m=ate_ps,
-        ms_per_gn_iteration=p_ms, launches=counts1, expected=want,
+        dist_mode=pgo_said["dist_mode"], ms_per_gn_iteration=p_ms,
+        ms_per_gn_iteration_eager=pgo_said["ms_per_iteration_eager"],
+        launches=counts1, expected=want,
         all_reduce_bytes_per_cg_step=pgo_comm["all_reduce_bytes"] / cg_total,
         p2p_calls=pgo_comm["p2p_calls"])
-    check({k: counts1[k] for k in want} == want,
-          f"sharded PGO launches {counts1} != {want}")
+    check({k: counts1[k] for k in want} == want
+          and {k: pgo_said["launches_eager"][k] for k in want} == want,
+          f"sharded PGO launches {counts1} (eager "
+          f"{pgo_said['launches_eager']}) != {want}")
     check(pgo_rel <= DIST_PGO_COST_TOL and ate_p1 <= ate_odo,
           f"sharded PGO cost {float(pc1)} vs {float(pcs)}, ATE {ate_p1} vs "
           f"odometry {ate_odo}")
@@ -2847,12 +2950,15 @@ def phase_dist(cfg, sys_, world, tmp):
     pgo2_rel = abs(r0["pgo_cost"] - float(pcs)) / float(pcs)
     ate_p2 = ate_rmse(r0["pgo_poses"][:n].numpy(), gt[:n], align=False)
     for r, rr in enumerate(res):
-        say("dist-rank", rank=r, backend=rr["backend"], device=rr["device"],
+        say("dist-rank", rank=r, backend=rr["backend"],
+            dist_mode=rr["dist_mode"], device=rr["device"],
             ba_seconds=f"{rr['ba_s']:.3f}", pgo_seconds=f"{rr['pgo_s']:.3f}",
             dropped=rr["dropped"], launches=rr["launches"],
             ba_comm=rr["ba_comm"], pgo_comm=rr["pgo_comm"])
-        check(rr["backend"] == "gloo" and rr["dropped"] == 0,
-              f"rank {r}: backend {rr['backend']}, dropped {rr['dropped']}")
+        check(rr["backend"] == "gloo" and rr["dropped"] == 0
+              and rr["dist_mode"] == "eager (gloo)",
+              f"rank {r}: backend {rr['backend']} ({rr['dist_mode']}), "
+              f"dropped {rr['dropped']}")
         check({k: rr["launches"][k] for k in want} == want,
               f"rank {r}: chain launches {rr['launches']} != {want}")
         check(torch.equal(rr["poses"], r0["poses"]),
@@ -2874,12 +2980,16 @@ def phase_dist(cfg, sys_, world, tmp):
     by_path.update({f"dist_rank{r}": rr["launches"] for r, rr in
                     enumerate(res)})
     return by_path, dict(
-        dist_ba_ms_per_lm_iteration=d_ms, dist_ba_trace_max_rel_diff=trace_rel,
+        dist_ba_ms_per_lm_iteration=d_ms,
+        dist_ba_ms_per_lm_iteration_eager=d_eager_ms,
+        dist_ba_trace_max_rel_diff=trace_rel,
         dist_single_ba_ms_per_lm_iteration_graph=s_ms,
         dist_single_ba_ms_per_lm_iteration_eager=s_eager_ms,
         dist_ba_2_rank_cost_rel_diff=cost_rel,
-        dist_ba_all_reduce_bytes_per_cg_step=6 * 8 * bucket,
+        dist_ba_all_reduce_bytes_per_cg_step=ba_bytes_per_cg_step,
         dist_pgo_ms_per_gn_iteration=p_ms,
+        dist_pgo_ms_per_gn_iteration_eager=min(
+            pgo_said["ms_per_iteration_eager"]),
         dist_pgo_2_rank_ms_per_gn_iteration=1e3 * r0["pgo_s"] / pg_it,
         dist_pgo_cost_rel_diff=pgo_rel, dist_pgo_ate_m=ate_p1)
 
@@ -2999,7 +3109,8 @@ def main(argv=None):
     if "dist" in phases:
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as tmp:
-            dist_paths, dist_numbers = phase_dist(bcfg, sys_, sworld, tmp)
+            dist_paths, dist_numbers = phase_dist(bcfg, sys_, sworld, tmp,
+                                                    smi)
         by_path.update(dist_paths)
         numbers.update(dist_numbers)
         phase_s["dist"] = time.perf_counter() - t0

@@ -59,6 +59,7 @@ def _cmd_run(args):
     if args.multihost:
         import torch.distributed as dist
 
+        from slam1_tpu_torch import parallel
         from slam1_tpu_torch.parallel import mesh as mesh_mod
         own_group = not dist.is_initialized()
         mesh_mod.init_multihost(args.coordinator, args.num_processes,
@@ -159,6 +160,7 @@ def _cmd_run(args):
             result["decoder"] = decoder
         print(json.dumps(result, default=float))
     if own_group:
+        parallel.clear_graphs()
         dist.destroy_process_group()
     return 0
 
@@ -201,6 +203,7 @@ def _cmd_ba(args):
         if args.distributed:
             import torch.distributed as dist
 
+            from slam1_tpu_torch import parallel
             from slam1_tpu_torch.parallel import mesh as mesh_mod
             own_group = not dist.is_initialized()
             mesh = mesh_mod.make_mesh(lm_axis=args.lm_shards or None,
@@ -240,6 +243,7 @@ def _cmd_ba(args):
             print(json.dumps({"keyframes": n_kf, "final_cost": float(cost),
                               **extra}))
         if own_group:
+            parallel.clear_graphs()
             dist.destroy_process_group()
         return 0
 

@@ -8,3 +8,13 @@ One process is one device of the mesh: ranks launched by torchrun, by
 collectives become all_reduce over the axis's process group and, for
 the pose graph's ring halo, point-to-point sends.
 """
+
+
+def clear_graphs():
+    """Drop the distributed solvers' captured graphs (`dist_ba.
+    DIST_BA_GRAPHS`, `dist_pgo.DIST_PGO_GRAPHS`) and their memory pools.
+    A graph that captured NCCL kernels belongs to its communicator:
+    whoever destroys the process group calls this first."""
+    from slam1_tpu_torch.parallel import dist_ba, dist_pgo
+    dist_ba.DIST_BA_GRAPHS.clear()
+    dist_pgo.DIST_PGO_GRAPHS.clear()

@@ -21,26 +21,34 @@ repeat from run to run.
 `lm_idx` holds LOCAL indices into each shard's landmark block (the
 partitioners keep observations with their landmark); cameras may be
 observed from any shard. The problems carry no pose priors.
+
+`distributed_bundle_adjust` is a loop over `dist_lm_step`, one LM
+iteration that reads nothing back to the host; on a card under NCCL it
+replays that iteration as a captured CUDA graph, collectives inside.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from slam1_tpu_torch.config import BAConfig
 from slam1_tpu_torch.models.ba import (BAProblem, _diag_only, _linearize,
-                                       _obs_residual, make_problem)
+                                       _obs_residual, graduated_cut,
+                                       make_problem)
 from slam1_tpu_torch.ops import se3
 from slam1_tpu_torch.ops.camera import StereoCamera
 from slam1_tpu_torch.ops.cg import cg
 from slam1_tpu_torch.ops.lsq import huber_weights, inv3x3, inv_spd6
 from slam1_tpu_torch.parallel import mesh as mesh_mod
 from slam1_tpu_torch.parallel.mesh import Mesh
+from slam1_tpu_torch.utils.graphs import StepGraph, copy_out
+from slam1_tpu_torch.utils.tree import flatten
 
 _SHARDED = ("cam_idx", "lm_idx", "uv", "w", "ur", "wr")
+_PRIORS = ("pe_i", "pe_j", "pe_z", "pe_w")
 
 
 def partition_problem_device(problem: BAProblem, n_shards: int,
@@ -226,27 +234,182 @@ def _local_cost(mesh: Mesh, local: BAProblem, cam: StereoCamera, cap,
     return mesh_mod.all_reduce(mesh, torch.sum((local.w * contrib).double()))
 
 
-def _cut_cap(cfg: BAConfig, t: int, dt, dev):
-    """The graduated outlier cut of LM iteration t and the saturation
-    cap of the objective it is judged on, as models/ba.bundle_adjust
-    makes them (inf, inf without an outlier cut)."""
-    if not cfg.outlier_px:
-        inf = torch.full((), float("inf"), dtype=dt, device=dev)
-        return inf, inf
-    cut = torch.full((), cfg.outlier_px * max(1.0, 8.0 * 0.5 ** t),
-                     dtype=dt, device=dev)
-    cut2 = cut * cut
-    return cut, huber_weights(cut2, cfg.huber_delta) * cut2
+def _local_problem(mesh: Mesh, problem: BAProblem) -> BAProblem:
+    """This rank's shard of a partitioned problem, on `mesh.device`: the
+    poses (and the empty priors) replicated, its block of the points and
+    of the observation arrays."""
+    return problem._replace(
+        poses=mesh_mod.replicated(mesh, problem.poses),
+        points=mesh_mod.lm_shard(mesh, problem.points)[0],
+        **{k: mesh_mod.lm_shard(mesh, getattr(problem, k))[0]
+           for k in _SHARDED},
+        **{k: mesh_mod.replicated(mesh, getattr(problem, k))
+           for k in _PRIORS})
+
+
+def _inf(x):
+    """() +inf in x's dtype, on x's device."""
+    return torch.full((), float("inf"), dtype=x.dtype, device=x.device)
+
+
+def dist_lm_step(mesh: Mesh, local: BAProblem, cam: StereoCamera,
+                 cfg: BAConfig, poses, points, lam, t):
+    """One Levenberg-Marquardt iteration of the sharded solve, the
+    reference's `lm_iter`: the graduated cut and cap, the sharded step,
+    the accept test on the capped cost, the damping update. `local` is
+    this rank's shard, `t` the iteration as a 0-d integer tensor on the
+    device, from which the cut is made there (`ba.graduated_cut`, the
+    host's value to the bit). Nothing is read back to the host.
+
+    Returns ((poses, points, lam), the accepted full Huber cost () in
+    the working dtype)."""
+    dt = local.uv.dtype
+    inf = _inf(local.uv)
+    cut = cap = inf
+    if cfg.outlier_px:
+        cut = graduated_cut(cfg.outlier_px, t, dt)
+        cut2 = cut * cut
+        cap = huber_weights(cut2, cfg.huber_delta) * cut2
+    cur = local._replace(poses=poses, points=points)
+    cost_cur = _local_cost(mesh, cur, cam, cap, cfg)
+    dc, dl, _ = _local_shard_step(mesh, cur, cam, lam, cut, cfg)
+    dc = torch.where(torch.isfinite(dc), dc, torch.zeros_like(dc))
+    dl = torch.where(torch.isfinite(dl), dl, torch.zeros_like(dl))
+    new_poses = poses @ se3.exp_se3(dc)
+    new_points = points + dl
+    cost_new = _local_cost(mesh, local._replace(
+        poses=new_poses, points=new_points), cam, cap, cfg)
+    accept = cost_new < cost_cur
+    poses = torch.where(accept, new_poses, poses)
+    points = torch.where(accept, new_points, points)
+    lam = torch.clamp(torch.where(accept, lam / cfg.lm_lambda_down,
+                                  lam * cfg.lm_lambda_up), 1e-9, 1e6)
+    # The full Huber cost of the accepted point, comparable across
+    # iterations and with the single-device trace.
+    full = _local_cost(mesh, local._replace(poses=poses, points=points),
+                       cam, inf, cfg).to(dt)
+    return (poses, points, lam), full
+
+
+def _dist_end(mesh: Mesh, local: BAProblem, cam: StereoCamera,
+              cfg: BAConfig, points, cost):
+    """The end of the solve: (every shard's points, gathered over "lm",
+    the final cost): the last accepted cost, or without an LM iteration
+    the cost of the start."""
+    all_points = mesh_mod.gather_blocks(mesh, points[None])
+    if not cfg.lm_iters:
+        cost = _local_cost(mesh, local, cam, _inf(local.uv), cfg).to(
+            local.uv.dtype)
+    return all_points, cost
+
+
+class _DistLMCarry(NamedTuple):
+    """The state of the `dba_lm` and `dba_cost` graphs: this rank's shard
+    and the camera they read, the (poses, points, lam) carry, the
+    iteration `t` (a 0-d int64 tensor), the last accepted cost () and
+    the (lm_iters,) cost trace written so far (() without the trace)."""
+    local: BAProblem
+    cam: StereoCamera
+    poses: torch.Tensor
+    points: torch.Tensor
+    lam: torch.Tensor
+    t: torch.Tensor
+    cost: torch.Tensor
+    trace: tuple
+
+
+def _dist_lm_carry(local: BAProblem, cam: StereoCamera, cfg: BAConfig,
+                   return_trace: bool) -> _DistLMCarry:
+    """The carry of LM iteration 0: the shard's poses and points, lam =
+    lm_lambda0, t = 0, a zero cost and, with the trace, zeroed rows."""
+    dt, dev = local.uv.dtype, local.uv.device
+    trace = (torch.zeros(cfg.lm_iters, dtype=dt, device=dev)
+             if return_trace else ())
+    return _DistLMCarry(
+        local, cam, local.poses, local.points,
+        torch.full((), cfg.lm_lambda0, dtype=dt, device=dev),
+        torch.zeros((), dtype=torch.int64, device=dev),
+        torch.zeros((), dtype=dt, device=dev), trace)
+
+
+def _graphed_dist_lm(mesh: Mesh, cfg: BAConfig):
+    """One `dist_lm_step` as a graph's function: (_DistLMCarry) -> (the
+    carry one iteration on, `t` advanced and the cost written into the
+    trace at `t`, ())."""
+    def step(carry):
+        (poses, points, lam), cost = dist_lm_step(
+            mesh, carry.local, carry.cam, cfg, carry.poses, carry.points,
+            carry.lam, carry.t)
+        trace = carry.trace
+        if isinstance(trace, torch.Tensor):
+            trace = trace.index_copy(0, carry.t.reshape(1), cost.reshape(1))
+        return carry._replace(poses=poses, points=points, lam=lam,
+                              t=carry.t + 1, cost=cost, trace=trace), ()
+    return step
+
+
+def _graphed_dist_end(mesh: Mesh, cfg: BAConfig):
+    """`_dist_end` as a graph's function: (_DistLMCarry) -> (the same
+    carry, (all points, final cost))."""
+    def step(carry):
+        return carry, _dist_end(mesh, carry.local, carry.cam, cfg,
+                                carry.points, carry.cost)
+    return step
+
+
+# The sharded BA's graphs by their static arguments, as jax.jit caches
+# its programs: key -> {"dba_lm": ..., "dba_cost": ...}. They hold NCCL
+# kernels of the mesh's "lm" communicator: clear them (`parallel.
+# clear_graphs`) before the process group is destroyed.
+DIST_BA_GRAPHS: dict = {}
+
+
+def _dist_ba_graphed(mesh: Mesh, local: BAProblem, cam: StereoCamera,
+                     cfg: BAConfig, return_trace: bool):
+    """The LM loop as `cfg.lm_iters` replays of `dba_lm` and one of
+    `dba_cost`, each captured at its first call for its key; nothing is
+    read back to the host between them, and each replay adds its
+    collectives to `mesh.comm`. -> (poses, all points, cost, trace or
+    ()), copied out of the graphs' pools."""
+    shapes = tuple((tuple(x.shape), x.dtype) for x in flatten((local, cam)))
+    key = (local.uv.device, mesh.lm_group, mesh.shape["lm"], mesh.lm_index,
+           cfg, return_trace, shapes)
+    graphs = DIST_BA_GRAPHS.get(key)
+    if graphs is None:
+        size = (f"[{local.poses.shape[0]},{local.points.shape[0]},"
+                f"{local.uv.shape[0]}]")
+        graphs = DIST_BA_GRAPHS[key] = {
+            "dba_lm": StepGraph(_graphed_dist_lm(mesh, cfg),
+                                f"dba_lm{size}", key=key),
+            "dba_cost": StepGraph(_graphed_dist_end(mesh, cfg),
+                                  f"dba_cost{size}", key=key)}
+    carry = _dist_lm_carry(local, cam, cfg, return_trace)
+    for _ in range(cfg.lm_iters):
+        carry, _ = graphs["dba_lm"](carry, counters=mesh.comm)
+    carry, (points, cost) = graphs["dba_cost"](carry, counters=mesh.comm)
+    return copy_out((carry.poses, points, cost, carry.trace))
 
 
 def distributed_bundle_adjust(problem: BAProblem, cam: StereoCamera,
                               cfg: BAConfig, mesh: Mesh,
-                              return_trace: bool = False):
+                              return_trace: bool = False,
+                              graphs: bool = True):
     """LM around the sharded Gauss-Newton step, the same graduated cut,
-    cap, accept / reject and damping schedule as models/ba.bundle_adjust.
-    `problem` comes from a partitioner with n_shards == the mesh's "lm"
-    size; every rank passes the whole partitioned problem and works on
-    its own shard on `mesh.device`.
+    cap, accept / reject and damping schedule as models/ba.bundle_adjust:
+    `cfg.lm_iters` calls of `dist_lm_step`. `problem` comes from a
+    partitioner with n_shards == the mesh's "lm" size; every rank passes
+    the whole partitioned problem and works on its own shard on
+    `mesh.device`.
+
+    On a card under NCCL (`mesh.capturable`) it replays two CUDA graphs
+    with the collectives inside, as the reference runs one compiled
+    program: `dba_lm` (one `dist_lm_step`, `cfg.lm_iters` times) and
+    `dba_cost` (the points' gather and the final cost), kept in
+    DIST_BA_GRAPHS by the device, the "lm" group, its size and this
+    rank's index in it, `cfg`, `return_trace` and the shard's and
+    camera's shapes and dtypes, and captured at the first call with a
+    new key. On the CPU, under gloo, and with `graphs=False`, the same
+    functions run eagerly.
 
     Returns (problem with the optimised poses and all shards' points,
     final cost ()), plus the (lm_iters,) accepted full-Huber cost trace
@@ -256,41 +419,25 @@ def distributed_bundle_adjust(problem: BAProblem, cam: StereoCamera,
         raise ValueError(f"problem has {problem.points.shape[0]} shards, "
                          f"the mesh's lm axis {n_lm}")
     dev = mesh.device
-    local = problem._replace(
-        poses=mesh_mod.replicated(mesh, problem.poses),
-        points=mesh_mod.lm_shard(mesh, problem.points)[0],
-        **{k: mesh_mod.lm_shard(mesh, getattr(problem, k))[0]
-           for k in _SHARDED})
-    dt = local.uv.dtype
+    local = _local_problem(mesh, problem)
     cam = cam.to(dev)
-    poses, points = local.poses, local.points
-    lam = torch.full((), cfg.lm_lambda0, dtype=dt, device=dev)
-    inf = torch.full((), float("inf"), dtype=dt, device=dev)
-    costs = []
-    for t in range(cfg.lm_iters):
-        cut, cap = _cut_cap(cfg, t, dt, dev)
-        cur = local._replace(poses=poses, points=points)
-        cost_cur = _local_cost(mesh, cur, cam, cap, cfg)
-        dc, dl, _ = _local_shard_step(mesh, cur, cam, lam, cut, cfg)
-        dc = torch.where(torch.isfinite(dc), dc, torch.zeros_like(dc))
-        dl = torch.where(torch.isfinite(dl), dl, torch.zeros_like(dl))
-        new_poses = poses @ se3.exp_se3(dc)
-        new_points = points + dl
-        cost_new = _local_cost(mesh, local._replace(
-            poses=new_poses, points=new_points), cam, cap, cfg)
-        accept = cost_new < cost_cur
-        poses = torch.where(accept, new_poses, poses)
-        points = torch.where(accept, new_points, points)
-        lam = torch.clamp(torch.where(accept, lam / cfg.lm_lambda_down,
-                                      lam * cfg.lm_lambda_up), 1e-9, 1e6)
-        # The full Huber cost of the accepted point, comparable across
-        # iterations and with the single-device trace.
-        costs.append(_local_cost(mesh, local._replace(
-            poses=poses, points=points), cam, inf, cfg).to(dt))
-    all_points = mesh_mod.gather_blocks(mesh, points[None])
+    if graphs and mesh_mod.capturable(mesh, local.uv):
+        poses, all_points, cost, trace = _dist_ba_graphed(
+            mesh, local, cam, cfg, return_trace)
+    else:
+        poses, points = local.poses, local.points
+        lam = torch.full((), cfg.lm_lambda0, dtype=local.uv.dtype,
+                         device=dev)
+        steps = torch.arange(cfg.lm_iters, device=dev)
+        costs = []
+        for t in range(cfg.lm_iters):
+            (poses, points, lam), cost = dist_lm_step(
+                mesh, local, cam, cfg, poses, points, lam, steps[t])
+            costs.append(cost)
+        all_points, cost = _dist_end(mesh, local, cam, cfg, points,
+                                     costs[-1] if costs else None)
+        trace = torch.stack(costs) if return_trace else None
     out = problem._replace(poses=poses, points=all_points)
-    cost = costs[-1] if costs else _local_cost(mesh, local, cam, inf,
-                                               cfg).to(dt)
     if return_trace:
-        return out, cost, torch.stack(costs)
+        return out, cost, trace
     return out, cost

@@ -39,6 +39,14 @@ pool of the graph it runs over: the graphs replay one at a time on one
 stream, and what a replay returns is valid until the next replay of
 any graph of the pool, so a caller copies it first.
 
+A step that runs collectives (the distributed solvers under NCCL)
+counts them in Python too (`Mesh.comm`). A call given `counters` (such
+a dict of integer counters) has its capture record what the captured
+call added to them, which it then takes back, and each replay adds the
+same amounts, so the totals equal an eager run's. A graph of
+collectives belongs to the communicator it captured: whoever destroys
+the process group drops the graph first.
+
 A capture that fails, or a call whose state or inputs differ in
 structure, shape, dtype or device from the captured ones, raises;
 nothing falls back to eager execution.
@@ -140,14 +148,17 @@ class StepGraph:
         self.nodes = None            # nodes of the captured graph
         self.replays = 0
         self.loaded = 0              # state leaves copied by load()
+        self.counted = {}            # what one replay adds to `counters`
 
-    def __call__(self, state, *inputs):
+    def __call__(self, state, *inputs, counters=None):
         """(state, out) of one step: the captured graph replayed, or at
-        the first call the warm-up step followed by the capture."""
+        the first call the warm-up step followed by the capture.
+        `counters`: a dict of integer counters the step adds to (see the
+        module docstring), or None."""
         if self.graph is None:
-            return self._capture(state, inputs)
+            return self._capture(state, inputs, counters)
         self.load(state)
-        self.replay(*inputs)
+        self.replay(*inputs, counters=counters)
         return self._state_like, self._out
 
     def load(self, state):
@@ -173,7 +184,7 @@ class StepGraph:
         self._inputs = [x.clone() for x in flatten(inputs)]
         return unflatten(inputs, iter(self._inputs))
 
-    def replay(self, *inputs):
+    def replay(self, *inputs, counters=None):
         """Copy one frame's inputs into the static buffers and launch the
         graph on the current stream."""
         load_leaves(self._inputs, flatten(inputs))
@@ -181,8 +192,11 @@ class StepGraph:
         self.replays += 1
         for name, n in self.launches.items():
             cuda_kernels._COUNTED[name].launches += n
+        if counters is not None:
+            for name, n in self.counted.items():
+                counters[name] += n
 
-    def _capture(self, state, inputs):
+    def _capture(self, state, inputs, counters=None):
         _check_tensors((state, inputs))
         leaves = flatten(state) + flatten(inputs)
         dev = leaves[0].device
@@ -202,6 +216,7 @@ class StepGraph:
             _write_back(static, flatten(new))
         side.synchronize()
         counts = cuda_kernels.launch_counts()
+        before = dict(counters or {})
         # torch.cuda.graph empties the allocator's cache as it starts:
         # emptied here first, what the capture reserves is its pool.
         torch.cuda.empty_cache()
@@ -221,6 +236,10 @@ class StepGraph:
             captured = cuda_kernels.launch_counts()
             for name, fn in cuda_kernels._COUNTED.items():
                 fn.launches = counts[name]
+            if counters is not None:
+                self.counted = {k: counters[k] - n for k, n in before.items()
+                                if counters[k] != n}
+                counters.update(before)
         self.nodes = graph_nodes(graph)
         graph.instantiate()
         main.wait_stream(side)

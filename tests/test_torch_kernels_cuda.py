@@ -3,8 +3,9 @@ what else only a card can show (bundle adjustment on CUDA tensors
 against the CPU, a windowed BA without a host sync, the backend's
 graphs, the pose-graph relaxation's among them, replayed over the step
 graph's state, the chain kernels captured once and replayed with
-several live counts written into their device scalar, and global BA's
-own graphs replayed without a sync).
+several live counts written into their device scalar, global BA's own
+graphs replayed without a sync, and the sharded solvers' graphs under
+NCCL, collectives inside).
 
 Every test here is marked `cuda` and skips where there is no card (the
 kernels have no CPU mode). The file imports torch and the port only,
@@ -715,3 +716,112 @@ def test_bundle_adjust_graphs_replay_without_syncs_equal_to_eager(
             assert torch.equal(_bits(a), _bits(b))
     assert bool(eager[2].accept.any())
     ba.BA_GRAPHS.clear()
+
+
+def _sharded_pgo_args(graph):
+    """optimize_sharded's arguments from a synthetic.loop2_graph: its
+    first F-1 edges chain the F poses (slot F-1 padding), the rest are
+    loop edges."""
+    f = graph.poses.shape[0]
+    eye = torch.eye(4, device=graph.poses.device)
+    return (graph.poses, torch.cat([graph.z[:f - 1], eye[None]]),
+            torch.cat([graph.w[:f - 1], graph.w.new_zeros(1)]),
+            graph.ei[f - 1:], graph.ej[f - 1:], graph.z[f - 1:],
+            graph.w[f - 1:])
+
+
+def test_dist_solvers_graphs_under_nccl_equal_to_eager(cuda_device):
+    """At one rank over NCCL: distributed_bundle_adjust (trace, graduated
+    cut) and optimize_sharded (600-pose two-lap graph) capture dba_lm /
+    dba_cost and dpg_gn / dpg_cost at their first graphed call; a warm
+    call makes no host sync, replays the iteration graph once per
+    iteration and the end graph once, counts the same collectives in
+    mesh.comm and the same chain launches as graphs=False, and equals
+    it to the bit."""
+    import torch.distributed as dist
+
+    from slam1_tpu_torch import parallel
+    from slam1_tpu_torch.config import BAConfig
+    from slam1_tpu_torch.parallel import dist_ba, dist_pgo
+    from slam1_tpu_torch.parallel import mesh as mesh_mod
+    assert mesh_mod.init_multihost(device="cuda") == "nccl"
+    try:
+        mesh = mesh_mod.make_mesh(lm_axis=1, device="cuda")
+        p, _, _, cam = synthetic.ba_problem(0, n_cams=24, px_noise=0.3,
+                                            n_outliers=40,
+                                            device=cuda_device)
+        sp, _, _ = dist_ba.partition_problem_device(p, 1)
+        cfg = BAConfig(lm_iters=6, cg_iters=30)
+        graph = synthetic.loop2_graph(device=cuda_device)
+        pargs = _sharded_pgo_args(graph)
+
+        def ba_call(graphs=True):
+            return dist_ba.distributed_bundle_adjust(
+                sp, cam, cfg, mesh, return_trace=True, graphs=graphs)
+
+        def pgo_call(graphs=True):
+            return dist_pgo.optimize_sharded(
+                *pargs, mesh=mesh, iters=4, cg_iters=30,
+                n_live=graph.poses.shape[0], graphs=graphs)
+
+        for call, cache, names, iters in (
+                (ba_call, dist_ba.DIST_BA_GRAPHS, ("dba_lm", "dba_cost"),
+                 cfg.lm_iters),
+                (pgo_call, dist_pgo.DIST_PGO_GRAPHS, ("dpg_gn", "dpg_cost"),
+                 4)):
+            def counted(fn):
+                mesh.comm.update({k: 0 for k in mesh.comm})
+                before = cuda_kernels.launch_counts()
+                out = fn()
+                after = cuda_kernels.launch_counts()
+                return out, dict(mesh.comm), {
+                    k: after[k] - before[k] for k in after}
+            eager, comm, launches = counted(lambda: call(False))
+            captured, comm_c, launches_c = counted(call)
+            (graphs,) = cache.values()
+            replays = [graphs[n].replays for n in names]
+            graphed, comm_g, launches_g = counted(lambda: _synced_call(call))
+            assert [graphs[n].replays - r for n, r in
+                    zip(names, replays)] == [iters, 1]
+            assert comm["all_reduce_calls"] > 0
+            assert comm_c == comm and comm_g == comm
+            assert launches_c == launches and launches_g == launches
+            for other in (captured, graphed):
+                for a, b in zip(flatten(eager), flatten(other), strict=True):
+                    assert torch.equal(_bits(a), _bits(b))
+    finally:
+        parallel.clear_graphs()
+        dist.destroy_process_group()
+
+
+def test_dist_solvers_stay_eager_under_gloo(cuda_device, monkeypatch):
+    """Under gloo (ranks sharing a card) the sharded solvers on CUDA
+    tensors never attempt a capture: both run eagerly and cache no
+    graph."""
+    import torch.distributed as dist
+
+    from slam1_tpu_torch import parallel
+    from slam1_tpu_torch.config import BAConfig
+    from slam1_tpu_torch.parallel import dist_ba, dist_pgo
+    from slam1_tpu_torch.parallel import mesh as mesh_mod
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a capture under gloo")
+    monkeypatch.setattr(StepGraph, "_capture", refuse)
+    dist.init_process_group("gloo", store=dist.HashStore(), world_size=1,
+                            rank=0)
+    try:
+        mesh = mesh_mod.make_mesh(lm_axis=1, device="cuda")
+        assert mesh.backend == "gloo"
+        p, _, _, cam = synthetic.ba_problem(0, n_cams=8, device=cuda_device)
+        sp, _, _ = dist_ba.partition_problem_device(p, 1)
+        _, cost = dist_ba.distributed_bundle_adjust(
+            sp, cam, BAConfig(lm_iters=2, cg_iters=8), mesh)
+        graph = synthetic.loop2_graph(device=cuda_device)
+        _, pcost = dist_pgo.optimize_sharded(
+            *_sharded_pgo_args(graph), mesh=mesh, iters=1, cg_iters=8)
+        assert bool(torch.isfinite(cost)) and bool(torch.isfinite(pcost))
+        assert not dist_ba.DIST_BA_GRAPHS and not dist_pgo.DIST_PGO_GRAPHS
+    finally:
+        parallel.clear_graphs()
+        dist.destroy_process_group()

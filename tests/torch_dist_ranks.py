@@ -105,12 +105,76 @@ def _case_dist_ba_scale(mesh_mod, inputs):
     return {"record": rec}
 
 
+def _graph_counts(cache):
+    """Per graph set of a cache, {graph name: (captured, replays)}."""
+    return [{name: (g.graph is not None, g.replays)
+             for name, g in graphs.items()} for graphs in cache.values()]
+
+
+def _case_dist_graphs(mesh_mod, inputs):
+    """The sharded solvers at each lm axis of inputs["lms"], eagerly
+    (`graphs=False`) and twice through emulated graphs
+    (`torch_graph_helpers.emulate_graphs`; the first call captures):
+    per run the outputs and `mesh.comm`, per axis the graphs' keys,
+    captures and replays."""
+    import pytest
+    from torch_graph_helpers import emulate_graphs
+
+    from slam1_tpu_torch.config import BAConfig
+    from slam1_tpu_torch.ops.camera import StereoCamera
+    from slam1_tpu_torch.parallel import dist_ba, dist_pgo
+    prob = _ba_problem(inputs["ba"])
+    cam = StereoCamera(*[_t(x) for x in inputs["cam"]])
+    g = inputs["pgo"]
+    pargs = [_t(g[k]) for k in ("poses", "z", "w", "le_i", "le_j", "le_z",
+                                "le_w")]
+    runs = (("eager", False), ("graphed", True), ("replayed", True))
+    out = {}
+    patch = pytest.MonkeyPatch()
+    emulate_graphs(patch)
+    try:
+        for lm in inputs["lms"]:
+            mesh = mesh_mod.make_mesh(lm_axis=lm, device="cpu")
+            sp, _ = dist_ba.partition_problem(prob, lm)
+            dist_ba.DIST_BA_GRAPHS.clear()
+            dist_pgo.DIST_PGO_GRAPHS.clear()
+            for name, opx in (("cut", 8.0), ("nocut", 0.0)):
+                cfg = BAConfig(lm_iters=int(inputs["lm_iters"]),
+                               cg_iters=int(inputs["cg_iters"]),
+                               outlier_px=opx)
+                for run, graphs in runs:
+                    mesh.comm.update({k: 0 for k in mesh.comm})
+                    res, cost, trace = dist_ba.distributed_bundle_adjust(
+                        sp, cam, cfg, mesh, return_trace=True,
+                        graphs=graphs)
+                    out[f"ba{lm}_{name}_{run}"] = dict(
+                        poses=res.poses.numpy(), points=res.points.numpy(),
+                        cost=cost.numpy(), trace=trace.numpy(),
+                        comm=dict(mesh.comm))
+            for run, graphs in runs:
+                mesh.comm.update({k: 0 for k in mesh.comm})
+                poses, cost = dist_pgo.optimize_sharded(
+                    *pargs, mesh=mesh, axis="lm", iters=int(g["iters"]),
+                    cg_iters=int(g["cg_iters"]), n_live=int(g["n_live"]),
+                    graphs=graphs)
+                out[f"pgo{lm}_{run}"] = dict(poses=poses.numpy(),
+                                             cost=cost.numpy(),
+                                             comm=dict(mesh.comm))
+            out[f"ba{lm}_graphs"] = _graph_counts(dist_ba.DIST_BA_GRAPHS)
+            out[f"pgo{lm}_graphs"] = _graph_counts(dist_pgo.DIST_PGO_GRAPHS)
+    finally:
+        patch.undo()
+    return out
+
+
 CASES = {"ba": _case_ba, "pgo": _case_pgo, "mesh": _case_mesh,
-         "cli": _case_cli, "dist_ba_scale": _case_dist_ba_scale}
+         "cli": _case_cli, "dist_ba_scale": _case_dist_ba_scale,
+         "dist_graphs": _case_dist_graphs}
 
 
 def _rank_main(rank, world, cases, in_path, init_file, out_dir):
     torch.set_num_threads(1)
+    from slam1_tpu_torch import parallel
     from slam1_tpu_torch.parallel import mesh as mesh_mod
     with open(in_path, "rb") as f:
         inputs = pickle.load(f)
@@ -119,6 +183,7 @@ def _rank_main(rank, world, cases, in_path, init_file, out_dir):
     try:
         out = {case: CASES[case](mesh_mod, inputs[case]) for case in cases}
     finally:
+        parallel.clear_graphs()
         torch.distributed.destroy_process_group()
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)

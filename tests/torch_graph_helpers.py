@@ -8,9 +8,16 @@
     eagerly on the CPU, with the same static state (its own clone, or
     the state of the graph it runs over), loads and write-backs as on
     the card, and the graphed paths of `SlamSystem`, `vo_block`, the
-    flow VO's `run_sequence`, `posegraph.optimize` and
-    `ba.bundle_adjust` taken for CPU tensors (the kernels' plain twins
-    still run: only the choice of the graphed path is patched).
+    flow VO's `run_sequence`, `posegraph.optimize`, `ba.bundle_adjust`
+    and the sharded solvers (`mesh.capturable`) taken for CPU tensors
+    (the kernels' plain twins still run and the collectives go to the
+    backend: only the choice of the graphed path is patched);
+  - `emulate_graphs(monkeypatch)`, the fixture's patches as a plain
+    function, for processes that take no fixture (the spawned ranks of
+    `torch_dist_ranks.py`, given a `pytest.MonkeyPatch()`).
+
+An emulated replay runs the step function again, so it counts the
+collectives it makes itself and ignores a call's `counters`.
 
 A test file takes them by importing them:
 
@@ -29,6 +36,7 @@ from slam1_tpu_torch.models import pipeline as tpipe
 from slam1_tpu_torch.models import posegraph as tposegraph
 from slam1_tpu_torch.models import vo, vo_flow
 from slam1_tpu_torch.ops import dispatch
+from slam1_tpu_torch.parallel import mesh as mesh_mod
 from slam1_tpu_torch.utils import graphs, tree
 
 HOST_OPS = ("_local_scalar_dense", "nonzero", "masked_select", "unique",
@@ -64,9 +72,16 @@ def emulated_graphs(monkeypatch):
     """StepGraph with its capture and replay run eagerly on the CPU: the
     same static state, loads and write-backs as on the card, and the
     graphed paths of SlamSystem, vo_block, vo_flow.run_sequence,
-    posegraph.optimize and ba.bundle_adjust taken for CPU tensors."""
+    posegraph.optimize, ba.bundle_adjust and the sharded solvers taken
+    for CPU tensors."""
+    emulate_graphs(monkeypatch)
 
-    def capture(self, state, inputs):
+
+def emulate_graphs(monkeypatch):
+    """The `emulated_graphs` fixture's patches, made with `monkeypatch`
+    (a pytest.MonkeyPatch; its `undo()` takes them back)."""
+
+    def capture(self, state, inputs, counters=None):
         graphs._check_tensors((state, inputs))
         self._inputs_like = self._bind(state, inputs)
         new, out = self.fn(self._state_like, *self._inputs_like)
@@ -74,7 +89,7 @@ def emulated_graphs(monkeypatch):
         self.graph = "emulated"
         return self._state_like, out
 
-    def replay(self, *inputs):
+    def replay(self, *inputs, counters=None):
         graphs.load_leaves(self._inputs, tree.flatten(inputs))
         new, self._out = self.fn(self._state_like, *self._inputs_like)
         graphs._write_back(self._state, tree.flatten(new))
@@ -92,3 +107,4 @@ def emulated_graphs(monkeypatch):
     monkeypatch.setattr(tposegraph, "dispatch", types.SimpleNamespace(
         use_cuda=card.use_cuda, chain_prepare=dispatch.chain_prepare,
         chain_sweep=dispatch.chain_sweep))
+    monkeypatch.setattr(mesh_mod, "capturable", lambda mesh, x: True)

@@ -18,11 +18,13 @@ problem:
 Both sides run with outlier_px=0 (the graduated outlier cut exists only
 in the single-device LM loop): the point is solver parity at scale.
 
-The single-device baseline runs as the reference runs it: on a card
-`bundle_adjust` replays its captured CUDA graphs (`ba_lm`, `ba_cost`),
-captured by an untimed first call with the same arguments; on the CPU
-it runs op by op. The record's `single_mode` says which ("graphed" or
-"eager").
+Both solvers run as the reference runs them where they can: on a card
+`bundle_adjust` replays its captured CUDA graphs (`ba_lm`, `ba_cost`)
+and, under NCCL, `distributed_bundle_adjust` its own (`dba_lm`,
+`dba_cost`), each captured by an untimed first call with the same
+arguments; on the CPU, and the sharded solver under gloo, they run op
+by op. The record's `single_mode` and `dist_mode` say which ("graphed"
+or "eager").
 
 Ranks (see `parallel/mesh.py` for the backend rule): `--ranks 1` (the
 default) is a world of one in this process (NCCL on a card); `--ranks N`
@@ -52,6 +54,7 @@ sys.path.insert(0, _REPO)
 
 import torch  # noqa: E402
 
+from slam1_tpu_torch import parallel  # noqa: E402
 from tools.port_global_ba_scale import (SCRATCH, default_ckpt,  # noqa: E402
                                         make_scale_world, obs_bucket_for,
                                         row_bucket, scale_config)
@@ -107,10 +110,16 @@ def run(ckpt: str, device="cuda", tiny: bool = False, lm_iters: int = 6,
                            "at full headroom")
 
     cam = sys_.cam
-    # One LM iteration of each first: the first collectives and the
-    # solvers' first-call set-up stay out of the timed runs.
-    warm_cfg = dataclasses.replace(ba_cfg, lm_iters=1)
-    distributed_bundle_adjust(sharded, cam, warm_cfg, mesh)
+    # Graphed, the first call with the timed call's arguments captures
+    # the graphs and the timed call only replays them; eager, one LM
+    # iteration first keeps the first collectives and the first-call
+    # set-up out of the timed run.
+    dist_mode = "graphed" if mesh_mod.capturable(mesh, sharded.uv) \
+        else "eager"
+    warm_cfg = (ba_cfg if dist_mode == "graphed"
+                else dataclasses.replace(ba_cfg, lm_iters=1))
+    distributed_bundle_adjust(sharded, cam, warm_cfg, mesh,
+                              return_trace=True)
     sync(dev)
     t0 = time.perf_counter()
     out_d, cost_d, trace_d = distributed_bundle_adjust(
@@ -166,6 +175,7 @@ def run(ckpt: str, device="cuda", tiny: bool = False, lm_iters: int = 6,
         "dist_wall_s": round(t_dist, 2),
         "single_wall_s": round(t_single, 2),
         "single_mode": "graphed" if graphed else "eager",
+        "dist_mode": dist_mode,
         "backend": mesh.backend,
         "note": (f"{shards} rank(s), {mesh.backend}, rank 0 on "
                  + (torch.cuda.get_device_name(dev) if dev.type == "cuda"
@@ -180,6 +190,7 @@ def _rank(rank, world, init_file, out_path, kw):
     try:
         rec = run(**kw)
     finally:
+        parallel.clear_graphs()
         torch.distributed.destroy_process_group()
     if rec is not None:
         with open(out_path, "w") as f:
@@ -237,6 +248,7 @@ def main(argv=None) -> int:
         rec = spawn(args.ranks, kw)
     else:
         rec = run(**kw)
+        parallel.clear_graphs()
         torch.distributed.destroy_process_group()
         if rec is None:
             return 0

@@ -40,6 +40,7 @@ def _child(process_id: int, coord: str, device: str) -> int:
     import torch
     import torch.distributed as dist
 
+    from slam1_tpu_torch import parallel
     from slam1_tpu_torch.config import BAConfig
     from slam1_tpu_torch.models.ba import bundle_adjust
     from slam1_tpu_torch.parallel.dist_ba import (distributed_bundle_adjust,
@@ -79,6 +80,7 @@ def _child(process_id: int, coord: str, device: str) -> int:
             "single_device_ba": ("graphed" if mesh.device.type == "cuda"
                                  else "eager")}))
     finally:
+        parallel.clear_graphs()
         dist.destroy_process_group()
     return 0
 
