@@ -308,7 +308,7 @@ from slam1_tpu_torch.ops import cuda_kernels, detector, epipolar, fast, \
 from slam1_tpu_torch.ops.camera import StereoCamera  # noqa: E402
 from slam1_tpu_torch.ops.detector import _downsample2  # noqa: E402
 from slam1_tpu_torch.ops.pnp import draw_uniform  # noqa: E402
-from slam1_tpu_torch.utils import kitti, native_loader, \
+from slam1_tpu_torch.utils import kitti, metrics, native_loader, \
     synthetic  # noqa: E402
 from slam1_tpu_torch.utils.bounds import bound_ba_matvec, \
     bound_chain_prepare, bound_chain_sweep, bound_fast_score, \
@@ -744,6 +744,20 @@ def run_blocks(sys_, lefts, rights, first, ckpt_path=None):
     return t_ckpt
 
 
+def _span_ms(spans):
+    """span name -> host ms of each; a relaxation's (`host:slam.pgo`)
+    less its uploads (`host:wait.pgo_inputs`), which wait for every step
+    queued before it."""
+    inputs = {}
+    for sp in spans:
+        if sp.name == "host:wait.pgo_inputs":
+            inputs[sp.parent] = inputs.get(sp.parent, 0.0) + sp.ms
+    out = {}
+    for sp in spans:
+        out.setdefault(sp.name, []).append(sp.ms - inputs.get(sp.id, 0.0))
+    return out
+
+
 def run_slam(cfg, world, lefts, rights, ckpt_path=None):
     """One pass of the clip through SlamSystem (bootstrap, blocks,
     finalize) with the launch counters reset just before and read just
@@ -777,8 +791,8 @@ def slam_numbers(sys_, cfg, pre, post, gt):
         Z_true = np.linalg.inv(gt[i]) @ gt[j]
         edges.append((i, j, float(np.linalg.norm(Z[:3, 3] - Z_true[:3, 3]))))
     # Gauss-Newton iterations: every live relaxation but the last entry
-    # of stage_seconds["pgo"], which is finalize's.
-    pgo_runs = len(sys_.stage_seconds["pgo"])
+    # of pgo_costs, which is finalize's.
+    pgo_runs = len(sys_.pgo_costs)
     gn_iters = ((pgo_runs - 1) * max(cfg.ba.pg_iters // 5, 3)
                 + cfg.ba.pg_iters)
     want = {"fast_score": f, "hamming_top2": 2 * f - 1,
@@ -1630,13 +1644,12 @@ def phase_graphs(cfg, world, lefts, rights, bcfg, sworld, slefts, srights,
     # Every relaxation (the live ones, finalize's) ran as the PGO
     # programs: one call of pgo_gn per Gauss-Newton iteration, each
     # bucket's first call its capture.
-    runs = len(gsys.stage_seconds["pgo"])
+    runs = len(gsys.pgo_costs)
     gn_iters = (runs - 1) * max(bcfg.ba.pg_iters // 5, 3) + bcfg.ba.pg_iters
     calls = {p: sum(n + 1 for name, n in replays.items()
                     if name.startswith(f"pgo_{p}["))
              for p in ("build", "gn", "apply")}
-    check(calls == {"build": runs, "gn": gn_iters, "apply": runs}
-          and len(gsys.pgo_costs) == runs,
+    check(calls == {"build": runs, "gn": gn_iters, "apply": runs},
           f"PGO graph calls {calls}, relaxations {runs}, Gauss-Newton "
           f"iterations {gn_iters}")
     out = dict(backend_t)
@@ -1932,8 +1945,7 @@ def phase_cli(world, lefts, rights, tmp):
         "run", "--data", root, "--poses", poses_txt, "--out", traj,
         "--metrics", mpath, "--checkpoint-every", str(CLI_CKPT_EVERY),
         "--checkpoint-dir", ckdir)
-    timing = run["timing"]["frame"]
-    fps = timing["count"] / timing["total_s"]
+    fps = run["timing"]["frames_per_s"]
     rows = len(open(mpath).readlines())
     say("cli-run", frames=run["frames"], ate_rmse_m=run["ate_rmse_m"],
         rpe_trans_m=run["rpe_trans_m"], loop_closures=run["loop_closures"],
@@ -2176,10 +2188,10 @@ def time_kernel(name, plain, kern, bound_ms, bound_by, plain_reps=10,
     return out
 
 
-def phase_times_slam(cfg, sys_, world):
+def phase_times_slam(cfg, sys_, world, lefts, rights):
     """ms per place_query, slate and PGO on the final SLAM state, the
     backend's kernels against their plain twins, and the per-stage host
-    times of the SLAM run."""
+    times of a pass of the clip with its spans recorded."""
     st = sys_.state
     kf_n = int(st.kf.n)
     q_row = kf_n - 1
@@ -2199,7 +2211,12 @@ def phase_times_slam(cfg, sys_, world):
     slate_ms = event_ms(lambda: verify_loop_slate(
         u, st.kf, torch.tensor(cs, device=dev), torch.tensor(hfs, device=dev),
         sys_.cam, cfg), reps=5, warm=1)
-    pgo = sys_.stage_seconds["pgo"]
+    metrics.clear()
+    with metrics.recording():
+        run_slam(cfg, world, lefts, rights)
+    host = _span_ms(metrics.recorded())
+    metrics.clear()
+    pgo = host.get("host:slam.pgo", [])
 
     times = {}
     rng = np.random.default_rng(5)
@@ -2231,14 +2248,15 @@ def phase_times_slam(cfg, sys_, world):
         lambda: cuda_kernels.chain_sweep_plain(*cargs, CHAIN_LIVE),
         lambda: cuda_kernels.chain_sweep_cuda(*cargs, live, prep=prep),
         *bound_chain_sweep(CHAIN_F, CHAIN_LIVE), plain_reps=3)
-    stage = {k: (1e3 * float(np.median(v)) if v else None, len(v))
-             for k, v in sys_.stage_seconds.items()}
-    live = [1e3 * t for t in pgo[:-1]]
+    stage = {k: (float(np.median(v)) if v else None, len(v))
+             for k, v in ((k, host.get(f"host:slam.{k}", []))
+                          for k in ("place_query", "pgo"))}
+    live = pgo[:-1]
     say("times-slam", place_query_ms=pq_ms, place_query_rows=n_rows,
         slate_ms=slate_ms, slate_pairs=len(pairs),
         pgo_ms_median_live=float(np.median(live)) if live else None,
         pgo_ms_live=live, pgo_runs=len(pgo),
-        pgo_ms_finalize=1e3 * pgo[-1] if pgo else None,
+        pgo_ms_finalize=pgo[-1] if pgo else None,
         pgo_graphs=sorted(n for n in sys_.backend_graphs
                           if n.startswith("pgo_")),
         run_stage_ms_median_and_count=stage)
@@ -3139,7 +3157,8 @@ def main(argv=None):
                                      hamming_inputs)
         times.update(new_times)
     if "times-slam" in phases:
-        new_times, stages = phase_times_slam(bcfg, sys_, sworld)
+        new_times, stages = phase_times_slam(bcfg, sys_, sworld, slefts,
+                                             srights)
         times.update(new_times)
         numbers.update(stages)
     for profiled in late:

@@ -5,7 +5,11 @@ run|ba|eval|bench` (counterpart of `slam1_tpu/cli.py`).
            `--multihost [--coordinator H:P --num-processes N
            --process-id R]` brings up the torch.distributed process
            group first (torchrun's environment when no coordinator is
-           given) and prints this process's rank and device
+           given) and prints this process's rank and device; its
+           `timing` is the frames and wall seconds of the loop, ending
+           in the trajectory's read-back; `--trace DIR` profiles the
+           loop into DIR/trace.json and DIR/spans.json
+           (`utils/metrics.profiler_trace`)
   ba     — offline pose-graph / global bundle-adjustment pass;
            `--state ckpt --distributed [--lm-shards S]` runs the
            landmark-sharded BA of `parallel/dist_ba.py` over the ranks
@@ -46,13 +50,14 @@ def _launch_line(dev):
 
 def _cmd_run(args):
     import dataclasses
+    import time
 
     import torch
 
     from slam1_tpu_torch import runtime
     from slam1_tpu_torch.models import pipeline, vo
     from slam1_tpu_torch.utils import evalmetrics
-    from slam1_tpu_torch.utils.metrics import MetricsLogger, StageTimers
+    from slam1_tpu_torch.utils.metrics import MetricsLogger, profiler_trace
 
     dev = runtime.device(args.device)
     own_group = False
@@ -77,7 +82,6 @@ def _cmd_run(args):
     # --log-every-th (the reference's logger thins them once more).
     log = MetricsLogger(args.metrics,
                         stream=sys.stderr if args.verbose else None)
-    timers = StageTimers()
     decoder = None
 
     if args.synthetic:
@@ -104,41 +108,43 @@ def _cmd_run(args):
         frames = ((torch.as_tensor(l).to(dev), torch.as_tensor(r).to(dev))
                   for l, r in seq.frames())
 
-    if args.vo_only:
-        state = None
-        poses = []      # device tensors; one host transfer at the end
-        last_m = None
-        for i, (l, r) in enumerate(frames):
-            with timers.stage("frame"):
+    system, skip = None, 0
+    if args.resume and not args.vo_only:
+        system = pipeline.SlamSystem.resume(args.resume, cam, cfg, device=dev)
+        skip = system.frame_count + 1
+        print(f"resumed at frame {system.frame_count}", file=sys.stderr)
+    elif not args.vo_only:
+        system = pipeline.SlamSystem(cam, cfg, seed=args.seed)
+    # Timed: the frames' loop, ending in the trajectory's read-back.
+    ran = 0
+    with profiler_trace(args.trace):
+        t0 = time.perf_counter()
+        if system is None:
+            state = None
+            poses = []      # device tensors; one host transfer at the end
+            last_m = None
+            for i, (l, r) in enumerate(frames):
                 if state is None:
                     state = vo.init_state(l, r, cam, cfg, args.seed)
                 else:
                     state, last_m = vo.vo_step(state, l, r, cam, cfg)
-            poses.append(state.T_w_cam)
-            # Read back only at the logging cadence: a per-frame read
-            # would wait for the card every frame.
-            if last_m is not None and i % args.log_every == 0:
-                log.log(frame=i, inliers=int(last_m.num_inliers),
-                        err=float(last_m.mean_reproj_err))
-        with timers.stage("sync"):
+                poses.append(state.T_w_cam)
+                ran += 1
+                # Read back only at the logging cadence: a per-frame read
+                # would wait for the card every frame.
+                if last_m is not None and i % args.log_every == 0:
+                    log.log(frame=i, inliers=int(last_m.num_inliers),
+                            err=float(last_m.mean_reproj_err))
             poses = torch.stack(poses).cpu().numpy()
-        system = None
-    else:
-        if args.resume:
-            system = pipeline.SlamSystem.resume(args.resume, cam, cfg,
-                                                device=dev)
-            skip = system.frame_count + 1
-            print(f"resumed at frame {system.frame_count}", file=sys.stderr)
         else:
-            system = pipeline.SlamSystem(cam, cfg, seed=args.seed)
-            skip = 0
-        for i, (l, r) in enumerate(frames):
-            if i < skip:
-                continue
-            with timers.stage("frame"):
+            for i, (l, r) in enumerate(frames):
+                if i < skip:
+                    continue
                 system.process(l, r)
-        with timers.stage("sync"):
+                ran += 1
             poses = system.finalize()
+        wall = time.perf_counter() - t0
+    if system is not None:
         for m in system.metrics[::args.log_every]:
             log.log(frame=m.frame, inliers=int(m.num_inliers),
                     err=float(m.mean_reproj_err))
@@ -153,7 +159,8 @@ def _cmd_run(args):
         t_rpe, r_rpe = evalmetrics.rpe(poses, gt)
         result = {"frames": n_frames, "ate_rmse_m": ate,
                   "rpe_trans_m": t_rpe, "rpe_rot_deg": r_rpe,
-                  "timing": timers.summary()}
+                  "timing": {"frames": ran, "seconds": wall,
+                             "frames_per_s": ran / wall}}
         if system is not None:
             result["loop_closures"] = len(system.loop_edges)
         if decoder is not None:
@@ -356,6 +363,12 @@ def main(argv=None):
     pr.add_argument("--resume", help="resume from a checkpoint .npz")
     pr.add_argument("--checkpoint-every", type=int, default=0)
     pr.add_argument("--checkpoint-dir", default="checkpoints")
+    pr.add_argument("--trace", metavar="DIR",
+                    help="profile the run into DIR: trace.json (device "
+                         "operations and the program's spans, one "
+                         "clock) and spans.json (each span's count, "
+                         "total and self ms, the counters, each graph's "
+                         "replay ms on the card at p50 and p95)")
     _device_arg(pr)
     pr.add_argument("--multihost", action="store_true",
                     help="bring up the torch.distributed process group "

@@ -45,6 +45,7 @@ from slam1_tpu_torch.ops.camera import StereoCamera
 from slam1_tpu_torch.ops.cg import cg
 from slam1_tpu_torch.ops.lsq import huber_weights, inv3x3, inv_spd6
 from slam1_tpu_torch.utils.graphs import StepGraph, copy_out
+from slam1_tpu_torch.utils.metrics import traced
 from slam1_tpu_torch.utils.tree import flatten
 
 DIRECT_MAX_CAMS = 16       # dense reduced system up to this many cameras
@@ -520,6 +521,7 @@ def _bundle_adjust_graphed(problem: BAProblem, cam: StereoCamera,
     return copy_out((carry.poses, carry.points, cost, carry.trace))
 
 
+@traced("host:ba.pass")
 def bundle_adjust(problem: BAProblem, cam: StereoCamera, cfg: BAConfig,
                   return_trace: bool = False, graphs: bool = True):
     """Full LM bundle adjustment: `cfg.lm_iters` calls of `lm_step`.
@@ -543,7 +545,8 @@ def bundle_adjust(problem: BAProblem, cam: StereoCamera, cfg: BAConfig,
     their memory pools stay reserved until the graphs are dropped
     (`BA_GRAPHS.clear()`). The camera is a graph input. On the CPU, and
     with `graphs=False`, the same operations run eagerly (a caller that
-    is itself being captured passes `graphs=False`).
+    is itself being captured passes `graphs=False`). Each call is the
+    span `host:ba.pass` (`utils/metrics.py`).
     """
     if graphs and dispatch.use_cuda(problem.uv):
         poses, points, cost, trace = _bundle_adjust_graphed(

@@ -52,7 +52,6 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import os
-import time
 import warnings
 from typing import NamedTuple, Optional
 
@@ -77,6 +76,7 @@ from slam1_tpu_torch.runtime import default_device
 from slam1_tpu_torch.types import StereoObservations
 from slam1_tpu_torch.utils import checkpoint as ckpt_mod
 from slam1_tpu_torch.utils.graphs import StepGraph, copy_out
+from slam1_tpu_torch.utils.metrics import span, traced, wait
 from slam1_tpu_torch.utils.tree import flatten
 
 MAX_LOOP_EDGES = 128
@@ -863,6 +863,14 @@ class LoopEvent:
     accepted: bool
 
 
+def _upload(what: str, values, device) -> torch.Tensor:
+    """`values` (a list or an array) as a tensor on `device`. From
+    pageable host memory to a card the copy synchronizes the stream, so
+    it runs as the read-back `host:wait.<what>` (`metrics.wait`)."""
+    with wait(what):
+        return torch.as_tensor(values, device=device)
+
+
 class SlamSystem:
     """Host-side orchestrator (the `slam.run(config)` API).
 
@@ -889,6 +897,23 @@ class SlamSystem:
     Write-backs from outside the graphs (BoW training, a backend program
     that ran before the step graph existed) replace state tensors; the
     next replay copies them into the graphs' state (`StepGraph.load`).
+
+    Its host work runs in spans (`utils/metrics.py`; recorded while a
+    profiler records or inside `metrics.recording()`):
+    `host:slam.process` (its frame, which the spans inside it share:
+    the frame processed), `.step`, `.after_frames`, `.train_bow`,
+    `.poll`, `.drain_rows`, `.place_query`, `.slate` (the dispatch),
+    `.consume`, `.local_ba`, `.pgo`, `.finalize`, `.checkpoint`, and
+    `host:worker.fetch` on the worker thread (its frame: the one whose
+    poll handed it over). Every blocking read-back on the calling
+    thread goes through `metrics.wait`, which counts a host sync and
+    opens `host:wait.<what>`: `poll` (the query keyframe's frame),
+    `place_query` (its two results), `ring` and `slate` (in the
+    synchronous mode, or under `force`), `fetch` (a worker's fetch
+    awaited under `force`), `pgo`, `loop_edge_rows`, `detect_loops`,
+    `poses` and `pose_graph`; so does every copy of host values to the
+    card (`_upload`), which waits for the stream as a read-back does:
+    `slate_inputs`, `pgo_inputs` and `loop_edge_inputs`.
     """
 
     def __init__(self, cam: StereoCamera, cfg: Optional[SlamConfig] = None,
@@ -921,7 +946,6 @@ class SlamSystem:
         self._last_place_kf = 0
         self._defer_pgo = False
         self.n_slates = 0                # slates dispatched
-        self.stage_seconds = {"place_query": [], "pgo": []}  # host s/call
         # poll_lag_s > 0 selects the batched asynchronous drain; 0 drains
         # at every poll (synchronous, deterministic).
         self._async = self.cfg.bow.poll_lag_s > 0.0
@@ -941,23 +965,41 @@ class SlamSystem:
         """A future of `tensor` as a numpy array on the host, fetched by
         the worker thread. `tensor` must not be written afterwards: the
         worker reads it whenever the device gets there."""
-        return self._pool.submit(lambda: tensor.cpu().numpy())
+        frame = self.frame_count
+
+        def fetch():
+            with span("host:worker.fetch", frame=frame):
+                return tensor.cpu().numpy()
+        return self._pool.submit(fetch)
+
+    @staticmethod
+    def _landed(fut, force: bool):
+        """A fetch's array; under `force` a wait for the worker's
+        read-back, else one that has landed."""
+        if not force:
+            return fut.result()
+        with wait("fetch"):
+            return fut.result()
 
     # ------------------------------------------------------------- core
     def process(self, left, right):
-        cfg = self.cfg
-        if self.state is None:
-            self.state = _init_state(left, right, self.cam, cfg, self.draws)
-            self.frame_count = 0
-            return None
-        if (self.frame_count - self._last_drained) + 1 > ROW_RING:
-            self._poll(force=True)       # never let the ring wrap
-        out_row = self._step(left, right)
-        if self.step_graph is not None:  # the next replay overwrites it
-            out_row = out_row.clone()
-        self._after_frames(1)
-        return out_row
+        first = self.state is None
+        with span("host:slam.process",
+                  frame=0 if first else self.frame_count + 1):
+            if first:
+                self.state = _init_state(left, right, self.cam, self.cfg,
+                                         self.draws)
+                self.frame_count = 0
+                return None
+            if (self.frame_count - self._last_drained) + 1 > ROW_RING:
+                self._poll(force=True)       # never let the ring wrap
+            out_row = self._step(left, right)
+            if self.step_graph is not None:  # the next replay overwrites it
+                out_row = out_row.clone()
+            self._after_frames(1)
+            return out_row
 
+    @traced("host:slam.step")
     def _step(self, left, right):
         """One frame after the bootstrap: its draws, then the step (a
         graph replay on the card) -> the packed row."""
@@ -1023,6 +1065,7 @@ class SlamSystem:
         return every > 0 and (self.frame_count // every
                               != (self.frame_count - k) // every)
 
+    @traced("host:slam.after_frames")
     def _after_frames(self, k: int):
         self.frame_count += k
         if (not self._bow_trained
@@ -1038,6 +1081,7 @@ class SlamSystem:
             self.save_checkpoint(os.path.join(
                 rt.checkpoint_dir, f"ckpt_{self.frame_count:06d}.npz"))
 
+    @traced("host:slam.drain_rows")
     def _drain_rows(self, force=False):
         """Undrained metrics rows from the device ring, oldest first,
         one transfer per drain. In the asynchronous mode a drain hands a
@@ -1050,7 +1094,7 @@ class SlamSystem:
             fut, first, last = self._ring_inflight
             if not (force or fut.done()):
                 return rows
-            ring = fut.result()
+            ring = self._landed(fut, force)
             self._ring_inflight = None
             rows = [ring[f % ROW_RING] for f in range(first, last + 1)]
             self._last_drained = last
@@ -1065,7 +1109,8 @@ class SlamSystem:
                     self._fetch(self.state.rows.clone()),
                     self._last_drained + 1, self.frame_count)
             return rows
-        ring = self.state.rows.cpu().numpy()
+        with wait("ring"):
+            ring = self.state.rows.cpu().numpy()
         start = self._last_drained + 1
         if n_new > ROW_RING:
             warnings.warn(f"metrics ring overflowed: "
@@ -1076,6 +1121,7 @@ class SlamSystem:
         self._last_drained = self.frame_count
         return rows
 
+    @traced("host:slam.poll")
     def _poll(self, force=False):
         """Consume landed metrics rows and launch backend work; `force`
         (finalize, checkpoints) drains everything, waiting for fetches
@@ -1095,7 +1141,8 @@ class SlamSystem:
                 and kf_n >= 2):
             self._last_place_kf = kf_n
             q_row = kf_n - 1
-            q_frame = int(self.state.kf.frame_of_row[q_row])
+            with wait("poll"):
+                q_frame = int(self.state.kf.frame_of_row[q_row])
             max_frame = q_frame - cfg.bow.query_exclude
             if max_frame > 0:
                 pairs = self._place_pairs(q_row, q_frame, max_frame, kf_n)
@@ -1152,26 +1199,30 @@ class SlamSystem:
         if cfg.ba.local_every:
             while kf_n - self._kf_at_last_ba >= cfg.ba.local_every:
                 self._kf_at_last_ba += cfg.ba.local_every
-                cost = self._backend(
-                    "local_ba", _graphed_local_ba(self.cam, cfg),
-                    self._device_int(self._kf_at_last_ba))
+                with span("host:slam.local_ba"):
+                    cost = self._backend(
+                        "local_ba", _graphed_local_ba(self.cam, cfg),
+                        self._device_int(self._kf_at_last_ba))
                 self.ba_costs.append(cost)   # stays on the device
 
+    @traced("host:slam.place_query")
     def _place_pairs(self, q_row, q_frame, max_frame, kf_n):
         """place_query of keyframe row q_row -> [(q_frame, cand, score)]."""
         cfg = self.cfg
         cap = self.state.kf.desc.shape[0]
         n_rows = next((b for b in (128, 512, 1024, 2048, 8192)
                        if b >= kf_n and b <= cap), cap)
-        t0 = time.perf_counter()
         cands, scores = self._backend(
             f"place_query[{n_rows}]", _graphed_place_query(cfg, n_rows),
             self._device_int(q_row), self._device_int(max_frame))
-        cands, scores = cands.cpu().numpy(), scores.cpu().numpy()
-        self.stage_seconds["place_query"].append(time.perf_counter() - t0)
+        with wait("place_query"):
+            cands = cands.cpu().numpy()
+        with wait("place_query"):
+            scores = scores.cpu().numpy()
         return [(q_frame, int(c), float(s))
                 for c, s in zip(cands, scores) if c >= 0]
 
+    @traced("host:slam.train_bow")
     def _train_bow(self):
         u = self.draws.train(self.state.bow.reservoir.shape[0])
         bw = bow_mod.train(self.state.bow, u, self.cfg.bow)
@@ -1223,6 +1274,7 @@ class SlamSystem:
         if todo:
             self._dispatch_slate(todo, depth=0)
 
+    @traced("host:slam.slate")
     def _dispatch_slate(self, rows, depth=0, salt=0):
         """Verify a slate of [(hit_frame, cand_frame, chi2)] as one
         batch, padded to SLATE_K with cand=-1 (ok=False rows); the
@@ -1236,7 +1288,8 @@ class SlamSystem:
                              self.state.kf.xyz.shape[1])
         packed = self._backend(
             "slate", _graphed_slate(self.cam, self.cfg), u,
-            torch.tensor(cs, device=dev), torch.tensor(hfs, device=dev))
+            _upload("slate_inputs", cs, dev),
+            _upload("slate_inputs", hfs, dev))
         self.n_slates += 1
         self._verifying.append((rows, packed, depth))
 
@@ -1296,6 +1349,7 @@ class SlamSystem:
                     uniq.append((hf, c, v))
             self._dispatch_slate(uniq, depth=1, salt=1)
 
+    @traced("host:slam.consume")
     def _consume_verifications(self, force=False):
         """Apply dispatched slates (retries dispatched meanwhile extend
         the list: drain until empty). In the asynchronous mode one
@@ -1305,8 +1359,9 @@ class SlamSystem:
             while self._verifying:
                 pending, self._verifying = self._verifying, []
                 for rows, packed, depth in pending:
-                    self._apply_slate(rows, packed.cpu().numpy(),
-                                      depth=depth)
+                    with wait("slate"):
+                        fetched = packed.cpu().numpy()
+                    self._apply_slate(rows, fetched, depth=depth)
             return
         while True:
             if self._verify_inflight is not None:
@@ -1314,7 +1369,8 @@ class SlamSystem:
                 if not (force or fut.done()):
                     return
                 self._verify_inflight = None
-                self._apply_slate(rows, fut.result(), depth=depth)
+                self._apply_slate(rows, self._landed(fut, force),
+                                  depth=depth)
             if not self._verifying:
                 return
             rows, packed, depth = self._verifying.pop(0)
@@ -1325,7 +1381,8 @@ class SlamSystem:
     def loop_edge_rows(self, cap: int = MAX_LOOP_EDGES):
         """Fixed-capacity (le_i, le_j, le_z, le_w) loop edges with
         endpoints as keyframe-row indices."""
-        rof = self.state.kf.row_of_frame.cpu().numpy()
+        with wait("loop_edge_rows"):
+            rof = self.state.kf.row_of_frame.cpu().numpy()
         le_i = np.zeros(cap, np.int32)
         le_j = np.zeros(cap, np.int32)
         le_z = np.tile(np.eye(4, dtype=np.float32), (cap, 1, 1))
@@ -1339,7 +1396,7 @@ class SlamSystem:
             le_i[k], le_j[k], le_z[k], le_w[k] = ri, rj, Z, w
             k += 1
         dev = self.state.traj.device
-        return tuple(torch.as_tensor(a, device=dev)
+        return tuple(_upload("loop_edge_inputs", a, dev)
                      for a in (le_i, le_j, le_z, le_w))
 
     def detect_loops_offline(self, stride_kf: int = 8,
@@ -1349,10 +1406,12 @@ class SlamSystem:
         verified; one full relaxation at the end. Returns the number of
         loop edges added."""
         cfg = self.cfg
-        kf_n = int(self.state.kf.n)
+        with wait("detect_loops"):
+            kf_n = int(self.state.kf.n)
         if kf_n < 2:
             return 0
-        fo = self.state.kf.frame_of_row[:kf_n].cpu().numpy()
+        with wait("detect_loops"):
+            fo = self.state.kf.frame_of_row[:kf_n].cpu().numpy()
         n0 = len(self.loop_edges)
         self._defer_pgo = True
         try:
@@ -1372,20 +1431,20 @@ class SlamSystem:
             self._run_pgo(iters=self.cfg.ba.pg_iters)
         return added
 
+    @traced("host:slam.pgo")
     def _run_pgo(self, iters: Optional[int] = None):
         """Relax the pose graph of the trajectory so far and its newest
         MAX_LOOP_EDGES loop edges: `iters` Gauss-Newton iterations
         (default: the live budget, max(pg_iters // 5, 3)); the host
         waits for the result."""
         bucket, n_live, edges = self._pgo_inputs()
-        t0 = time.perf_counter()
         self.pgo_costs.append(self._pgo(
             bucket, iters or max(self.cfg.ba.pg_iters // 5, 3), n_live,
             *edges))
         dev = self.state.traj.device
         if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        self.stage_seconds["pgo"].append(time.perf_counter() - t0)
+            with wait("pgo"):
+                torch.cuda.synchronize(dev)
 
     def _pgo_inputs(self):
         """What a relaxation now takes: the smallest PGO bucket that holds
@@ -1410,7 +1469,7 @@ class SlamSystem:
             le_i[k], le_j[k], le_z[k], le_w[k] = i, j, Z, w
         dev = self.state.traj.device
         return bucket, min(n, bucket), tuple(
-            torch.as_tensor(a, device=dev) for a in (le_i, le_j, le_z, le_w))
+            _upload("pgo_inputs", a, dev) for a in (le_i, le_j, le_z, le_w))
 
     def _pgo(self, bucket: int, iters: int, n_live: int, le_i, le_j, le_z,
              le_w) -> torch.Tensor:
@@ -1431,6 +1490,7 @@ class SlamSystem:
                              _graphed_pgo_apply(bucket), graph)
 
     # ------------------------------------------------ checkpoint/resume
+    @traced("host:slam.checkpoint")
     def save_checkpoint(self, path: str):
         """Snapshot the state, the step stream's generator and the
         host-side bookkeeping into one npz. Pending rows are drained
@@ -1485,6 +1545,7 @@ class SlamSystem:
         return sys_
 
     # ------------------------------------------------------------ final
+    @traced("host:slam.finalize")
     def finalize(self, run_pgo: bool = True):
         self._poll(force=True)                  # catch a trailing loop hit
         self._consume_verifications(force=True)  # ... and its verification
@@ -1493,7 +1554,8 @@ class SlamSystem:
         return self.poses()
 
     def poses(self) -> np.ndarray:
-        return self.state.traj[:self.frame_count + 1].cpu().numpy()
+        with wait("poses"):
+            return self.state.traj[:self.frame_count + 1].cpu().numpy()
 
     def pose_graph(self, poses) -> posegraph.PoseGraph:
         """The run's pose graph (odometry and loop edges, as _run_pgo
@@ -1505,15 +1567,19 @@ class SlamSystem:
         le = self.loop_edges
         z_loop = np.stack([z for _, _, z, _ in le]) if le else np.zeros(
             (0, 4, 4), np.float32)
+        with wait("pose_graph"):
+            rel = st.rel[1:f].cpu()
+        with wait("pose_graph"):
+            rel_mask = st.rel_mask[1:f].cpu()
         return posegraph.PoseGraph(
             poses=torch.as_tensor(poses, dtype=torch.float32),
             ei=torch.cat([ei, torch.tensor([i for i, _, _, _ in le],
                                            dtype=torch.long)]),
             ej=torch.cat([ei + 1, torch.tensor([j for _, j, _, _ in le],
                                                dtype=torch.long)]),
-            z=torch.cat([se3.exp_se3(-st.rel[1:f].cpu()),
+            z=torch.cat([se3.exp_se3(-rel),
                          torch.as_tensor(z_loop, dtype=torch.float32)]),
-            w=torch.cat([st.rel_mask[1:f].cpu().float(),
+            w=torch.cat([rel_mask.float(),
                          torch.tensor([w for _, _, _, w in le],
                                       dtype=torch.float32)]))
 

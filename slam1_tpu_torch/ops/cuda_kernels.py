@@ -19,7 +19,10 @@ CUDA C++ kernels for sm_90a live in `slam1_tpu_torch/csrc/`:
 Each source is compiled with nvcc into its own shared library with a
 plain C interface at first use (all sources at once, from the repo's
 sources only, into `slam1_tpu_torch/build/`, each keyed by a hash of
-its source) and called through ctypes on PyTorch's current stream.
+its source) and called through ctypes on PyTorch's current stream;
+a build that compiles runs inside the span `host:kernels.build` and
+adds the sources it compiled to the counter `kernel_builds`
+(`utils/metrics.py`).
 Each launch returns `cudaGetLastError()`; the wrapper raises when it is
 not 0. Wrappers
 allocate every output and scratch buffer with `torch.empty`; the
@@ -45,6 +48,7 @@ import time
 import torch
 
 from slam1_tpu_torch.ops.brief import unpack_bits
+from slam1_tpu_torch.utils import metrics
 
 BIG = 1 << 20
 # Levels of the chain sweep's prepared blocks (strides 1, 2, 4, 8): it
@@ -159,16 +163,27 @@ def build(verbose: bool = False) -> _Kernels:
     """Compile (where needed: one nvcc per source, all started together)
     and load the kernel libraries. `verbose` adds -Xptxas=-v and prints
     what the compiler says (registers, shared memory, spills)."""
-    global _lib, build_seconds
+    global _lib
     if _lib is not None:
         return _lib
     os.makedirs(BUILD_DIR, exist_ok=True)
+    todo = [src for src in SOURCES if not os.path.exists(library_path(src))]
+    if todo:
+        with metrics.span("host:kernels.build"):
+            _compile(todo, verbose)
+        metrics.count("kernel_builds", len(todo))
+    _lib = _Kernels({src: ctypes.CDLL(library_path(src)) for src in SOURCES})
+    return _lib
+
+
+def _compile(sources, verbose: bool):
+    """nvcc of each of `sources`, all started together, into
+    `library_path`."""
+    global build_seconds
     procs = []
     t0 = time.perf_counter()
-    for src in SOURCES:
+    for src in sources:
         path = library_path(src)
-        if os.path.exists(path):
-            continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, src)]
@@ -187,12 +202,9 @@ def build(verbose: bool = False) -> _Kernels:
         if verbose:
             print(f"nvcc {src}:\n{out}", flush=True)
         os.replace(tmp, path)
-    if procs:
-        build_seconds = time.perf_counter() - t0
+    build_seconds = time.perf_counter() - t0
     if failed:
         raise RuntimeError("\n".join(failed))
-    _lib = _Kernels({src: ctypes.CDLL(library_path(src)) for src in SOURCES})
-    return _lib
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape=None):

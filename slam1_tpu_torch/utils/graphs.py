@@ -30,6 +30,13 @@ count in Python (`ops/cuda_kernels.py`). The graph records how many
 launches of each kernel it captured and adds them to the counters at
 each replay, so the counts equal an eager run's.
 
+Each replay runs inside the span `replay:<name>` (`utils/metrics.py`),
+which holds `host:load.<base>` (the copies of the state and the inputs)
+and `host:launch.<base>` (the launch, timed on the card by an event pair
+while spans record); a capture runs inside `host:capture.<base>`, where
+`<base>` is the name up to its first `[`. The counters `graph_captures`
+and `graph_replays` count them.
+
 A graph may be captured over another graph's static state (`over`):
 the SLAM backend's programs (local BA, the loop slate, the place query)
 read the step graph's static state as their state input and write
@@ -60,6 +67,7 @@ import time
 import torch
 
 from slam1_tpu_torch.ops import cuda_kernels
+from slam1_tpu_torch.utils import metrics
 from slam1_tpu_torch.utils.tree import flatten, unflatten
 
 
@@ -149,6 +157,9 @@ class StepGraph:
         self.replays = 0
         self.loaded = 0              # state leaves copied by load()
         self.counted = {}            # what one replay adds to `counters`
+        base = name.split("[", 1)[0]
+        self._spans = (f"replay:{name}", f"host:load.{base}",
+                       f"host:launch.{base}", f"host:capture.{base}")
 
     def __call__(self, state, *inputs, counters=None):
         """(state, out) of one step: the captured graph replayed, or at
@@ -156,10 +167,27 @@ class StepGraph:
         `counters`: a dict of integer counters the step adds to (see the
         module docstring), or None."""
         if self.graph is None:
-            return self._capture(state, inputs, counters)
-        self.load(state)
-        self.replay(*inputs, counters=counters)
+            with metrics.span(self._spans[3]):
+                return self._capture(state, inputs, counters)
+        with metrics.span(self._spans[0]):
+            with metrics.span(self._spans[1]):
+                self.load(state)
+                load_leaves(self._inputs, flatten(inputs))
+            with metrics.span(self._spans[2], device=True):
+                self._launch()
+        self.replays += 1
+        metrics.count("graph_replays")
+        for name, n in self.launches.items():
+            cuda_kernels._COUNTED[name].launches += n
+        if counters is not None:
+            for name, n in self.counted.items():
+                counters[name] += n
         return self._state_like, self._out
+
+    def _launch(self):
+        """Launch the captured graph on the current stream (the CPU
+        tests' emulated graphs run the step eagerly here instead)."""
+        self.graph.replay()
 
     def load(self, state):
         """Make the static state hold `state`: copy each leaf that is not
@@ -183,18 +211,6 @@ class StepGraph:
             self._state_like = self.over._state_like
         self._inputs = [x.clone() for x in flatten(inputs)]
         return unflatten(inputs, iter(self._inputs))
-
-    def replay(self, *inputs, counters=None):
-        """Copy one frame's inputs into the static buffers and launch the
-        graph on the current stream."""
-        load_leaves(self._inputs, flatten(inputs))
-        self.graph.replay()
-        self.replays += 1
-        for name, n in self.launches.items():
-            cuda_kernels._COUNTED[name].launches += n
-        if counters is not None:
-            for name, n in self.counted.items():
-                counters[name] += n
 
     def _capture(self, state, inputs, counters=None):
         _check_tensors((state, inputs))
@@ -248,6 +264,7 @@ class StepGraph:
                          if captured[k] != counts[k]}
         self.graph = graph
         self._out = g_out
+        metrics.count("graph_captures")
         torch.cuda.synchronize(dev)
         self.capture_seconds = time.perf_counter() - t0
         return state_like, out

@@ -198,10 +198,10 @@ def test_slam_system_backend_graphs_equal_eager(emulated_graphs, tmp_path):
     # every relaxation (the live ones and finalize's) ran as the PGO
     # programs, the first of them as their captures: one pgo_gn replay
     # per Gauss-Newton iteration after the first
-    runs = len(g.stage_seconds["pgo"])
+    runs = len(g.pgo_costs)
     live_iters = max(cfg.ba.pg_iters // 5, 3)
     gn = g.backend_graphs["pgo_gn[512]"]
-    assert runs >= 2 and runs == len(e.stage_seconds["pgo"])
+    assert runs >= 2 and runs == len(e.pgo_costs)
     assert gn.replays == (runs - 1) * live_iters + cfg.ba.pg_iters - 1
     assert g.backend_graphs["pgo_build[512]"].replays == runs - 1
     assert g.backend_graphs["pgo_apply[512]"].replays == runs - 1

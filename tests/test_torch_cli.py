@@ -162,16 +162,25 @@ def test_metrics_logger_and_stage_timers(tmp_path):
     log.close()
     rows = [json.loads(x) for x in open(path)]
     assert [r["frame"] for r in rows] == [1, 3] and rows[0]["err"] == 0.5
-    timers = metrics.StageTimers()
-    for _ in range(3):
-        with timers.stage("a"):
-            pass
-    s = timers.summary()["a"]
-    assert s["count"] == 3 and s["total_s"] >= 0.0
+    metrics.clear()
+    with metrics.recording():
+        for _ in range(3):
+            with metrics.span("host:a"):
+                with metrics.span("host:b"):
+                    pass
+    s = metrics.summary()
+    assert s["host:a"]["count"] == s["host:b"]["count"] == 3
+    assert 0.0 <= s["host:a"]["self_ms"] <= s["host:a"]["total_ms"]
+    assert s["host:b"]["self_ms"] == s["host:b"]["total_ms"]
     with metrics.profiler_trace(str(tmp_path / "prof")) as prof:
-        torch.ones(8).sum()
+        with metrics.span("host:c"):
+            torch.ones(8).sum()
     assert prof is not None
     assert os.path.getsize(tmp_path / "prof" / "trace.json") > 0
+    with open(tmp_path / "prof" / "spans.json") as f:
+        spans = json.load(f)
+    assert spans["spans"]["host:c"]["count"] == 1
+    assert "host_syncs" in spans["counters"]
     with metrics.profiler_trace(None) as prof:
         assert prof is None
 
@@ -200,6 +209,7 @@ def test_run_synthetic_tiny(tmp_path, capsys):
                            "cpu", "--out", traj, "--log-every", "100"])
     assert res["frames"] == 24 and "loop_closures" in res
     assert res["ate_rmse_m"] < 2.0
+    assert res["timing"]["frames"] == 24 and res["timing"]["frames_per_s"] > 0
     assert np.load(traj).shape == (24, 4, 4)
 
 

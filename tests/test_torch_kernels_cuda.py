@@ -4,8 +4,10 @@ against the CPU, a windowed BA without a host sync, the backend's
 graphs, the pose-graph relaxation's among them, replayed over the step
 graph's state, the chain kernels captured once and replayed with
 several live counts written into their device scalar, global BA's own
-graphs replayed without a sync, and the sharded solvers' graphs under
-NCCL, collectives inside).
+graphs replayed without a sync, the sharded solvers' graphs under
+NCCL, collectives inside, the tracer's spans against the CUDA
+profiler's annotations, and every stream synchronization of the SLAM
+driver counted as a wait).
 
 Every test here is marked `cuda` and skips where there is no card (the
 kernels have no CPU mode). The file imports torch and the port only,
@@ -15,6 +17,9 @@ so it also runs on a machine without jax:
 """
 
 import dataclasses
+import threading
+import traceback
+import warnings
 
 import numpy as np
 import pytest
@@ -317,7 +322,7 @@ def test_slam_system_launches_the_kernels(cuda_device):
     counts = cuda_kernels.launch_counts()
     assert counts["fast_score"] == 24 and counts["hamming_top2"] == 47
     assert counts["hamming_top2_batched"] == sys_.n_slates
-    runs = len(sys_.stage_seconds["pgo"])
+    runs = len(sys_.pgo_costs)
     if runs:
         gn = (runs - 1) * max(cfg.ba.pg_iters // 5, 3) + cfg.ba.pg_iters
         assert counts["chain_prepare"] == gn
@@ -325,6 +330,149 @@ def test_slam_system_launches_the_kernels(cuda_device):
     else:
         assert counts["chain_prepare"] == counts["chain_sweep"] == 0
     assert np.isfinite(poses).all()
+
+
+def test_spans_agree_with_the_cuda_profiler(cuda_device):
+    """A clip through SlamSystem on CUDA tensors, its graphs captured
+    before a CUDA torch.profiler starts: every `slam_step` replay's
+    event pair resolves, every span recorded meanwhile is one of the
+    profiler's user annotations of its name, starting and ending within
+    20 us of it at the median and 200 us at the 99th percentile, and
+    nothing is captured or built inside the window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from slam1_tpu_torch.utils import metrics
+    cfg = tiny_config()
+    h, w = cfg.image.height, cfg.image.width
+    n = 40
+    world = synthetic.make_world(3, n_frames=n, n_points=1200,
+                                 trajectory="straight", image_hw=(h, w),
+                                 speed=0.9, device=cuda_device)
+    lefts, rights = synthetic.render_sequence(world, h, w)
+    sys_ = pipeline.SlamSystem(world.cam, cfg, bow_train_frame=8)
+    for i in range(12):
+        sys_.process(lefts[i], rights[i])
+    torch.cuda.synchronize()
+    metrics.clear()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(12, n):
+            sys_.process(lefts[i], rights[i])
+        torch.cuda.synchronize()
+    spans = metrics.recorded()
+    steps = [s for s in spans if s.name == "host:launch.slam_step"]
+    assert len(steps) == n - 12
+    assert all(s.device_ms is not None and s.device_ms > 0 for s in steps)
+    assert not any(s.name.startswith(("host:capture.", "host:kernels."))
+                   for s in spans)
+    # The host's annotations (the card's copies of them aside).
+    ann = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+           for e in prof.profiler.kineto_results.events()
+           if e.is_user_annotation() and e.device_type() != DeviceType.CUDA
+           and e.name().startswith(("host:", "replay:", "graph:"))]
+    assert not any(a[0].startswith("graph:") for a in ann)
+    assert sorted(a[0] for a in ann) == sorted(s.name for s in spans), (
+        len(ann), len(spans))
+    gaps = []
+    for name in {s.name for s in spans}:
+        mine = sorted((s.start_ns, s.end_ns) for s in spans
+                      if s.name == name)
+        theirs = sorted((a, b) for m, a, b in ann if m == name)
+        for (x, y), (a, b) in zip(mine, theirs):
+            gaps += [abs(a - x), abs(b - y)]
+    print(f"spans {len(spans)}: start and end to annotation, median "
+          f"{np.median(gaps) / 1e3:.2f} us, p99 "
+          f"{np.percentile(gaps, 99) / 1e3:.2f} us, max "
+          f"{np.max(gaps) / 1e3:.2f} us")
+    assert np.median(gaps) <= 20_000, np.median(gaps)
+    assert np.percentile(gaps, 99) <= 200_000, np.percentile(gaps, 99)
+
+
+# Waits whose synchronization the sync debug mode may not report: a
+# device-wide `torch.cuda.synchronize` and a worker's future.
+UNSEEN_WAITS = ("host:wait.pgo", "host:wait.fetch")
+
+
+def test_every_stream_sync_of_the_driver_is_a_wait(cuda_device):
+    """A loop clip through SlamSystem in the synchronous mode, its graphs
+    captured first; then, with the sync debug mode on ("warn"), frames,
+    a slate, a relaxation, the loop-edge rows and `finalize`. Every
+    synchronization the mode reports on the driver's thread falls inside
+    a `host:wait.*` span (or a capture, set-up), one to a span, and
+    the waits number the change in `host_syncs`; a wait the mode does
+    not report is one it cannot see (`UNSEEN_WAITS`)."""
+    from slam1_tpu_torch.utils import metrics
+    cfg = tiny_config()
+    cfg = cfg.replace(bow=dataclasses.replace(cfg.bow, place_query=True))
+    h, w = cfg.image.height, cfg.image.width
+    n = 24
+    world = synthetic.make_world(3, n_frames=n, n_points=1200,
+                                 trajectory="loop", image_hw=(h, w),
+                                 speed=0.9, device=cuda_device)
+    lefts, rights = synthetic.render_sequence(world, h, w)
+    sys_ = pipeline.SlamSystem(world.cam, cfg, bow_train_frame=8)
+    for i in range(12):
+        sys_.process(lefts[i], rights[i])
+    sys_._dispatch_slate([(11, 2, 0.0)])
+    sys_._consume_verifications(force=True)
+    sys_._run_pgo()
+    torch.cuda.synchronize()
+
+    main = threading.get_ident()
+    syncs = []                      # (thread, open spans, where) a report
+
+    def report(message, category, filename, lineno, *args, **kwargs):
+        # (the mode's own notice when it is set is no synchronization)
+        if "called a synchronizing CUDA operation" in str(message):
+            stack = metrics._state.local.stack
+            syncs.append((threading.get_ident(),
+                          [(s.id, s.name) for s in stack],
+                          "".join(traceback.format_stack(limit=12)[:-1])))
+
+    metrics.clear()
+    before = metrics.counters()["host_syncs"]
+    slates = sys_.n_slates
+    with warnings.catch_warnings(), metrics.recording():
+        warnings.simplefilter("always")
+        warnings.showwarning = report
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for i in range(12, n):
+                sys_.process(lefts[i], rights[i])
+            sys_._dispatch_slate([(n - 1, 3, 0.0)])
+            sys_._consume_verifications(force=True)
+            sys_._run_pgo()
+            sys_.loop_edge_rows()
+            sys_.finalize()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    delta = metrics.counters()["host_syncs"] - before
+    spans = metrics.recorded()
+    waits = [s for s in spans if s.name.startswith(metrics.WAIT)]
+    assert sys_.n_slates > slates and waits
+    assert all(t == main for t, _, _ in syncs)
+    hidden = [(names, where) for _, names, where in syncs
+              if not any(nm.startswith((metrics.WAIT, "host:capture.",
+                                        "host:kernels."))
+                         for _, nm in names)]
+    assert not hidden, "\n\n".join(f"{n}\n{w}" for n, w in hidden)
+    per_wait = {s.id: 0 for s in waits}
+    for _, names, _ in syncs:
+        for sid, nm in names:
+            if sid in per_wait:
+                per_wait[sid] += 1
+    by_name = {}
+    for s in waits:
+        by_name.setdefault(s.name, []).append(per_wait[s.id])
+    print(f"{len(syncs)} synchronizations reported, {len(waits)} waits, "
+          f"host_syncs +{delta}: {by_name}")
+    assert all(c <= 1 for c in per_wait.values()), by_name
+    assert all(per_wait[s.id] == 1 for s in waits
+               if s.name not in UNSEEN_WAITS), by_name
+    assert len(waits) == delta
+    assert {"host:wait.slate_inputs", "host:wait.pgo_inputs",
+            "host:wait.loop_edge_inputs"} <= set(by_name)
 
 
 def test_bundle_adjust_cuda_matches_cpu(cuda_device):

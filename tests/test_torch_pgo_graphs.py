@@ -237,7 +237,7 @@ def _pgo_run(world, lefts, rights, cfg, graphed):
     sys_.process(lefts[0], rights[0])
     for s in range(1, lefts.shape[0], 8):
         sys_.process_block(lefts[s:s + 8], rights[s:s + 8])
-    live_runs = len(sys_.stage_seconds["pgo"])
+    live_runs = len(sys_.pgo_costs)
     added = sys_.detect_loops_offline(stride_kf=8)
     return sys_, sys_.finalize(), live_runs, added
 
@@ -261,8 +261,8 @@ def test_slam_system_pgo_graphs_equal_eager(emulated_graphs):
         runs[True], runs[False])
     assert (g_live, g_added) == (e_live, e_added)
     assert g_live >= 2 and g_added >= 1
-    runs_all = len(g.stage_seconds["pgo"])
-    assert runs_all == len(e.stage_seconds["pgo"]) == g_live + 2
+    runs_all = len(g.pgo_costs)
+    assert runs_all == len(e.pgo_costs) == g_live + 2
     names = ("pgo_build[512]", "pgo_gn[512]", "pgo_apply[512]")
     assert set(names) <= set(g.backend_graphs) and e.backend_graphs == {}
     gn = g.backend_graphs["pgo_gn[512]"]

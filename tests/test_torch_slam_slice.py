@@ -208,13 +208,14 @@ def test_slice_loop_edge_rows_match_jax(loop_clip):
 
 
 def _without_loops(system):
-    """A shallow copy with no loop edges or events of its own: the
-    offline sweep below appends to those, and its relaxation replaces
-    the state's tensors without writing into them."""
+    """A shallow copy with no loop edges or events of its own and a list
+    of relaxation costs of its own: the offline sweep below appends to
+    those, and its relaxation replaces the state's tensors without
+    writing into them."""
     c = copy.copy(system)
     c.loop_edges, c.loop_events, c._verifying = [], [], []
-    if hasattr(c, "stage_seconds"):
-        c.stage_seconds = {k: [] for k in system.stage_seconds}
+    if hasattr(c, "pgo_costs"):
+        c.pgo_costs = list(system.pgo_costs)
     return c
 
 
