@@ -43,7 +43,11 @@ exits non-zero and never prints the final `ok` line:
                pairs and ties); chain_prepare and chain_sweep at 2048
                poses (601 live rows, all rows, 1 and 2 live rows; the
                live count a 0-d int32 tensor on the card, as the PGO
-               graphs pass it).
+               graphs pass it); both halves of BA's reduced-system
+               product (ba_schur) on shuffled observations with unseen
+               cameras and landmarks, product and right-side forms (the
+               global-ba phase holds them on its own system and times
+               them).
   4. slice   — renders the 24-frame arc clip (6000 points) at the
                default config, runs VO `run_sequence` on CUDA tensors
                with the launch counters reset just before, checks the
@@ -136,7 +140,18 @@ exits non-zero and never prints the final `ok` line:
                <= 1.05 x before. Prints the trace, ms per LM iteration
                eager and graphed (CUDA events and host clock), each
                graph's capture s, nodes and pool bytes, and ms per CG
-               matvec with its byte bound.
+               matvec with its byte bound. The replays launch the
+               reduced-system halves (ba_schur) 2 (cg_iters + 1) + 3
+               times an LM iteration (counters reset before); both
+               halves against their plain twins on the phase's own
+               system at its initial point (product and right-side
+               forms, pose priors present), and one product of both
+               halves and each half timed against their twins and
+               bounds (`ba_matvec_work`; each half's own bytes; the
+               `kernels` line's ba_schur row and its `halves`), at the
+               phase's sizes and at the ba-global-2048 cell's (512 000
+               observations, 1000 of 2048 camera rows observed, 79 000
+               landmarks seen by ~6.5 neighbouring cameras).
   traj-ba  — `slam-torch ba <traj.npy>` in process on float64 files of
                a noisy two-lap trajectory at 4661 poses (KITTI 02's
                length) and 12000 (past the 8533 rows whose chain offsets
@@ -253,7 +268,8 @@ exits non-zero and never prints the final `ok` line:
                published peak for their type) and the share of the bound
                reached; chain_sweep also at 12000 poses, its offsets in
                device memory (against its twin; device time of the
-               shared-memory path at 8533 poses beside it);
+               shared-memory path at 8533 poses beside it); ba_schur's
+               times are phase global-ba's (one product of both halves);
                the VO frames/s of the per-frame loop, the SLAM frames/s
                of the process loop, and ms per place_query, per slate
                and per PGO (the last three: phase times-slam; the PGO's
@@ -307,12 +323,14 @@ from slam1_tpu_torch.ops import cuda_kernels, detector, epipolar, fast, \
     hamming, lk, se3, triangulate  # noqa: E402
 from slam1_tpu_torch.ops.camera import StereoCamera  # noqa: E402
 from slam1_tpu_torch.ops.detector import _downsample2  # noqa: E402
+from slam1_tpu_torch.ops.lsq import inv3x3  # noqa: E402
 from slam1_tpu_torch.ops.pnp import draw_uniform  # noqa: E402
+from slam1_tpu_torch.ops.segment import seg_sum  # noqa: E402
 from slam1_tpu_torch.utils import kitti, metrics, native_loader, \
     synthetic  # noqa: E402
-from slam1_tpu_torch.utils.bounds import bound_ba_matvec, \
-    bound_chain_prepare, bound_chain_sweep, bound_fast_score, \
-    bound_hamming  # noqa: E402
+from slam1_tpu_torch.utils.bounds import PEAK_F32_FLOPS, bound, \
+    bound_ba_matvec, bound_chain_prepare, bound_chain_sweep, \
+    bound_fast_score, bound_hamming  # noqa: E402
 from slam1_tpu_torch.utils.evalmetrics import ate_rmse  # noqa: E402
 from slam1_tpu_torch.utils.timing import device_busy_ms, device_launches, \
     event_ms, graph_ms  # noqa: E402
@@ -330,6 +348,16 @@ SLAM_BLOCK = 32
 SLATE_B = 8
 CHAIN_F, CHAIN_LIVE = 2048, 601
 CHAIN_TOL = 1e-4             # max |kernel - twin| / max |twin|
+# BA's reduced-system halves: max |kernel - twin| over the terms'
+# magnitude (tests/test_torch_kernels_cuda.py's SCHUR_TOL, with its
+# reason); observations, camera rows (half of them observed), landmarks.
+SCHUR_TOL = 1e-5
+SCHUR_SHAPE = (4099, 300, 977)
+# The ba-global-2048 cell's sizes: observations, camera rows, cameras
+# observed, landmarks (each camera's observations drawn from a window of
+# landmarks that moves on by L / observed cameras a camera, so that a
+# landmark is seen by ~6.5 neighbouring cameras, as along a drive).
+SCHUR_CELL = (512000, 2048, 1000, 79000)
 SAME_ATE_TOL = 1e-6          # m, between two runs of the same clip
 CKPT_FRAME = 320             # a block boundary of the slam-ba pass
 RESUME_TOL = 1e-3            # m, resumed run against the straight run
@@ -395,6 +423,11 @@ KERNELS = {
     "chain_sweep": ("slam1_tpu_torch/csrc/chain_sweep.cu",
                     "slam1_tpu/models/posegraph.py:74",
                     "one launch, 2048 poses, 601 live"),
+    # not a TPU kernel: the reference's einsums of the CG product
+    "ba_schur": ("slam1_tpu_torch/csrc/ba_schur.cu",
+                 "slam1_tpu/models/ba.py:256",
+                 "one CG product, both halves, on phase global-ba's "
+                 "reduced system"),
 }
 class CheckFailed(RuntimeError):
     pass
@@ -661,7 +694,135 @@ def phase_kernels_backend(dev):
                synthetic.chain_inputs(CHAIN_F, n_live, n_live)]
         keep_worst(errs, rel_errs,
                    check_chain(ops, n_live, f"poses={CHAIN_F}"))
+    keep_worst(errs, rel_errs, check_ba_schur(dev))
     return errs, rel_errs
+
+
+def check_ba_schur(dev):
+    """Both halves of BA's reduced-system product on shuffled
+    observations over cameras and landmarks some of which nothing
+    observes: {"ba_schur": schur_errors(...)}."""
+    o, c, n_l = SCHUR_SHAPE
+    g = torch.Generator().manual_seed(5)
+    ci = torch.randperm(c, generator=g)[:c // 2][
+        torch.randint(0, c // 2, (o,), generator=g)].to(dev)
+    li = torch.randint(0, n_l, (o,), generator=g).to(dev)
+    W, hinv, hcc, x, a, b = [torch.randn(s, generator=g).to(dev) for s in (
+        (o, 6, 3), (n_l, 3, 3), (c, 6, 6), (c, 6), (n_l, 3), (c, 6))]
+    order = cuda_kernels.schur_order(ci, li, c, n_l, kernels=True)
+    return {"ba_schur": schur_errors("shuffled", W, hinv, hcc, order, x, a,
+                                     b)}
+
+
+def schur_errors(case, W, hinv, hcc, order, x, a, b):
+    """Both halves of BA's reduced-system product (csrc/ba_schur.cu) on
+    the kernels' ordering `order` against their plain twins, in the
+    product's form (x) and the right side's (a, then b) -> (max abs
+    error, the same over the terms' magnitude); the latter is what
+    SCHUR_TOL bounds."""
+    ci, li = order.cam_idx, order.lm_idx
+    o, c, n_l = W.shape[0], hcc.shape[0], hinv.shape[0]
+    plain = cuda_kernels.SchurOrder(ci, li)
+    absW = W.double().abs()
+    worst = (0.0, 0.0)
+    for form, lm_kw, cam_kw in (("product", dict(x=x), dict(hcc=hcc, x=x)),
+                                ("right side", dict(a=a), dict(b=b))):
+        v = cuda_kernels.ba_schur_landmarks_plain(W, hinv, plain, **lm_kw)
+        outs = [cuda_kernels.ba_schur_landmarks_cuda(W, hinv, order, **lm_kw),
+                cuda_kernels.ba_schur_cameras_cuda(W, v, order, **cam_kw)]
+        twins = [v, cuda_kernels.ba_schur_cameras_plain(W, v, plain,
+                                                        **cam_kw)]
+        if "x" in lm_kw:
+            m_t = seg_sum(n_l, li, torch.einsum(
+                "oij,oi->oj", absW, x.double().abs()[ci]))
+            m_h = torch.einsum("cij,cj->ci", hcc.double().abs(),
+                               x.double().abs())
+        else:
+            m_t, m_h = a.double().abs(), b.double().abs()
+        m_v = torch.einsum("lij,lj->li", hinv.double().abs(), m_t)
+        mags = [m_v, m_h + seg_sum(c, ci, torch.einsum(
+            "oij,oj->oi", absW, m_v[li]))]
+        torch.cuda.synchronize()
+        for half, k, p, m in zip(("landmarks", "cameras"), outs, twins, mags):
+            diff = (k.double() - p.double()).abs()
+            err = diff.max().item()
+            rel = (diff / m.clamp_min(1e-30)).max().item()
+            say("kernels", kernel="ba_schur", case=case, half=half,
+                form=form, shape=(o, c, n_l), max_abs_err=err, rel_err=rel)
+            check(bool(torch.isfinite(k).all()) and rel <= SCHUR_TOL,
+                  f"ba_schur {half} ({form}, {case}): error {rel} of the "
+                  f"terms")
+            worst = (max(worst[0], err), max(worst[1], rel))
+    return worst
+
+
+def time_ba_schur(W, hinv, hcc, order, x, sizes):
+    """time_kernel of one product (the landmark half, then the camera
+    half) against its plain twins, bound by `ba_matvec_work` without
+    priors, with each half's own times under "halves", each bound by the
+    bytes it moves (`schur_half_bytes`)."""
+    o, c, n_l = W.shape[0], hcc.shape[0], hinv.shape[0]
+    plain = cuda_kernels.SchurOrder(order.cam_idx, order.lm_idx)
+    v = cuda_kernels.ba_schur_landmarks_plain(W, hinv, plain, x=x)
+
+    def product(landmarks, cameras, ordering):
+        return lambda: cameras(W, landmarks(W, hinv, ordering, x=x),
+                               ordering, hcc=hcc, x=x)
+    out = time_kernel(
+        "ba_schur",
+        product(cuda_kernels.ba_schur_landmarks_plain,
+                cuda_kernels.ba_schur_cameras_plain, plain),
+        product(cuda_kernels.ba_schur_landmarks_cuda,
+                cuda_kernels.ba_schur_cameras_cuda, order),
+        *bound_ba_matvec(o, c, n_l, 0),
+        per=f"one CG product, both halves: {sizes}")
+    lm_bytes, cam_bytes = schur_half_bytes(o, c, n_l)
+    out["halves"] = {
+        "landmarks": time_kernel(
+            "ba_schur",
+            lambda: cuda_kernels.ba_schur_landmarks_plain(W, hinv, plain,
+                                                          x=x),
+            lambda: cuda_kernels.ba_schur_landmarks_cuda(W, hinv, order,
+                                                         x=x),
+            *bound(lm_bytes, 0, PEAK_F32_FLOPS),
+            per=f"the landmark half of one CG product: {sizes}"),
+        "cameras": time_kernel(
+            "ba_schur",
+            lambda: cuda_kernels.ba_schur_cameras_plain(W, v, plain, hcc=hcc,
+                                                        x=x),
+            lambda: cuda_kernels.ba_schur_cameras_cuda(W, v, order, hcc=hcc,
+                                                       x=x),
+            *bound(cam_bytes, 0, PEAK_F32_FLOPS),
+            per=f"the camera half of one CG product: {sizes}")}
+    return out
+
+
+def schur_half_bytes(o: int, c: int, n_l: int):
+    """(landmark half, camera half) bytes of one call each: W and its
+    ordering's two int32 vectors read once, the offsets, Hll_inv (L,3,3)
+    and x read and v written (landmark half); v, Hcc_d (C,6,6) and x read
+    and the result written (camera half). Rows the orderings leave out
+    are counted too."""
+    lm = o * (72 + 8) + (n_l + 1) * 4 + n_l * (36 + 12) + c * 24
+    cam = o * (72 + 8) + (c + 1) * 4 + n_l * 12 + c * (144 + 24 + 24)
+    return lm, cam
+
+
+def schur_cell_inputs(dev):
+    """Operands of the reduced-system product at SCHUR_CELL's sizes
+    (seeded): W, Hll_inv, Hcc_d, the kernels' ordering and x."""
+    o, c, live, n_l = SCHUR_CELL
+    g = torch.Generator().manual_seed(7)
+    rank = torch.sort(torch.randint(0, live, (o,), generator=g)).values
+    cams = torch.sort(torch.randperm(c, generator=g)[:live]).values
+    step = n_l // live
+    li = (rank * step + torch.randint(0, int(6.5 * step), (o,),
+                                      generator=g)) % n_l
+    W, hinv, hcc, x = [torch.randn(s, generator=g).to(dev) for s in (
+        (o, 6, 3), (n_l, 3, 3), (c, 6, 6), (c, 6))]
+    order = cuda_kernels.schur_order(cams[rank].to(dev), li.to(dev), c, n_l,
+                                     kernels=True)
+    return W, hinv, hcc, order, x
 
 
 def keep_worst(errs, rel_errs, new):
@@ -795,10 +956,12 @@ def slam_numbers(sys_, cfg, pre, post, gt):
     pgo_runs = len(sys_.pgo_costs)
     gn_iters = ((pgo_runs - 1) * max(cfg.ba.pg_iters // 5, 3)
                 + cfg.ba.pg_iters)
+    # No pass reaches the reduced-system kernels: finalize relaxes the
+    # pose graph, and local BA's windows take the dense path.
     want = {"fast_score": f, "hamming_top2": 2 * f - 1,
             "hamming_top2_batched": sys_.n_slates,
             "chain_prepare": gn_iters,
-            "chain_sweep": gn_iters * (cfg.ba.cg_iters + 1)}
+            "chain_sweep": gn_iters * (cfg.ba.cg_iters + 1), "ba_schur": 0}
     return dict(ate_pre=ate_rmse(pre, gt, align=False),
                 ate_post=ate_rmse(post, gt, align=False),
                 ate_odo=ate_rmse(odometry_poses(sys_), gt, align=False),
@@ -1023,8 +1186,12 @@ def phase_global_ba(cfg, sys_, world, smi):
     offline pass drives it: two eager calls (`graphs=False`) held to each
     other, the graphed call that captures `ba_build`, `ba_lm` and
     `ba_apply`, a second graphed call made only of replays held to the
-    eager one, the calls timed eager against graphed and the graphs'
-    stats; then one CG matvec timed against its bound."""
+    eager one (and its ba_schur launches counted), the calls timed eager
+    against graphed and the graphs' stats; then one CG matvec timed
+    against its bound, and the reduced-system halves held to their twins
+    and timed on the same system and at the offline cell's sizes.
+    -> (launch counts of the replayed call, {"ba_schur": times,
+    "ba_schur_cell": times}, {"ba_schur": errors}, numbers)."""
     st = sys_.state
     f = sys_.frame_count + 1
     gt = world.poses.cpu().numpy()
@@ -1070,11 +1237,21 @@ def phase_global_ba(cfg, sys_, world, smi):
     (graphs,) = pipeline.GLOBAL_BA_GRAPHS.values()
     names = ("ba_build", "ba_lm", "ba_apply")
     replays = [graphs[n].replays for n in names]
+    cuda_kernels.reset_launch_counts()
     graphed, graphed_ms = timed(True)
+    counts = cuda_kernels.launch_counts()
     check([graphs[n].replays - r for n, r in zip(names, replays)]
           == [1, iters, 1] and len(pipeline.GLOBAL_BA_GRAPHS) == 1,
           f"the second graphed call was not one replay of ba_build, "
           f"{iters} of ba_lm and one of ba_apply")
+    # The CG path (more than DIRECT_MAX_CAMS rows) launches both halves
+    # for each product, twice for the right side and the landmark half
+    # once for the back-substitution, in every LM iteration.
+    per_iter = (2 * (cfg.ba.cg_iters + 1) + 3
+                if bucket > ba.DIRECT_MAX_CAMS else 0)
+    want = {**{k: 0 for k in counts}, "ba_schur": iters * per_iter}
+    check(counts == want, f"the replayed global BA launched {counts}, "
+          f"not {want}")
     graph_diff = tree_diff(eager, graphed, "global_ba")
     graph_spread = max_abs_diff(eager, graphed)
     capture_diff = tree_diff(captured, graphed, "global_ba")
@@ -1120,12 +1297,29 @@ def phase_global_ba(cfg, sys_, world, smi):
     r, Jc, Jl, w = ba._linearize(prob, sys_.cam, prob.w * hw)
     lam = torch.full((), cfg.ba.lm_lambda0, device=r.device)
     matvec, btil, _, _ = ba._reduced_system(prob, r, Jc, Jl, w, lam)
+    Hcc, Hll, W, bc, bl, _ = ba._normal_blocks(prob, r, Jc, Jl, w)
+    Hcc_d = ba._damped(Hcc, lam)
+    Hll_inv = inv3x3(ba._damped(Hll, lam))
+    order = cuda_kernels.schur_order(prob.cam_idx, prob.lm_idx,
+                                     prob.poses.shape[0],
+                                     prob.points.shape[0], kernels=True, W=W)
+    schur_err = schur_errors("global-ba", W, Hll_inv, Hcc_d, order, btil,
+                             bl, bc)
+    o, c, l, e = (prob.uv.shape[0], prob.poses.shape[0],
+                  prob.points.shape[0], prob.pe_i.shape[0])
+    schur_times = {"ba_schur": time_ba_schur(
+        W, Hll_inv, Hcc_d, order, btil,
+        f"{o} observations, {c} camera rows, {l} landmarks (phase "
+        f"global-ba)")}
+    schur_times["ba_schur_cell"] = time_ba_schur(
+        *schur_cell_inputs(r.device),
+        "{} observations, {} camera rows of which {} observed, {} "
+        "landmarks (ba-global-2048's sizes, synthetic operands)".format(
+            *SCHUR_CELL))
     mv_ms = event_ms(lambda: matvec(btil), reps=20, warm=3)
     mv_device_ms = graph_ms(lambda: matvec(btil))
     lin_ms = event_ms(lambda: ba._linearize(prob, sys_.cam, prob.w * hw),
                       reps=10, warm=2)
-    o, c, l, e = (prob.uv.shape[0], prob.poses.shape[0],
-                  prob.points.shape[0], prob.pe_i.shape[0])
     mv_bound_ms, mv_by = bound_ba_matvec(o, c, l, e)
     say("global-ba", keyframes=n_kf, camera_rows=bucket,
         observations=n_obs_real, observation_bucket=obs_bucket,
@@ -1137,8 +1331,9 @@ def phase_global_ba(cfg, sys_, world, smi):
         matvec_ms=mv_ms, matvec_device_ms=mv_device_ms,
         matvec_bound_ms=mv_bound_ms, matvec_bound_by=mv_by,
         matvec_share_of_bound=mv_bound_ms / mv_device_ms,
-        linearize_ms=lin_ms, final_cost=cost, trace=tr,
-        ate_before_m=ate_before, ate_after_m=ate_after)
+        linearize_ms=lin_ms, launches=counts, expected=want,
+        final_cost=cost, trace=tr, ate_before_m=ate_before,
+        ate_after_m=ate_after)
     check(math.isfinite(cost) and cost <= tr["cost"][0],
           f"global BA cost {cost} not finite or above the first trace "
           f"entry {tr['cost'][0]}")
@@ -1166,7 +1361,7 @@ def phase_global_ba(cfg, sys_, world, smi):
                 for k in ("capture_seconds", "nodes", "pool_bytes")})
     # The graphs' pools are not needed by the later phases.
     pipeline.GLOBAL_BA_GRAPHS.clear()
-    return out
+    return counts, schur_times, {"ba_schur": schur_err}, out
 
 
 def traj_file(n, path):
@@ -3112,7 +3307,11 @@ def main(argv=None):
                     (slam_ba["slam_ba_ate_before_m"],
                      slam_ba["slam_ba_ate_after_m"])))
     if "global-ba" in phases:
-        numbers.update(phase_global_ba(bcfg, sys_, sworld, smi))
+        by_path["global_ba"], gba_times, gba_errs, gba = phase_global_ba(
+            bcfg, sys_, sworld, smi)
+        numbers.update(gba)
+        times.update(gba_times)
+        keep_worst(errs, rel_errs, gba_errs)
     if "traj-ba" in phases:
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as tmp:
@@ -3183,6 +3382,9 @@ def main(argv=None):
                 "per": per, **times.get(name, unmeasured),
                 **({"past_shared_memory": times["chain_sweep_long"]}
                    if name == "chain_sweep" and "chain_sweep_long" in times
+                   else {}),
+                **({"at_offline_cell_sizes": times["ba_schur_cell"]}
+                   if name == "ba_schur" and "ba_schur_cell" in times
                    else {}),
                 "library_ms": None}
                for name, (src, rep, per) in KERNELS.items()]

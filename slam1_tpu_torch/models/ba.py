@@ -11,7 +11,10 @@
   - per-landmark elimination with batched closed-form 3x3 inverses;
   - the reduced camera system solved densely for a local window
     (C <= 16, `_schur_solve_direct`) and matrix-free with block-Jacobi
-    preconditioned CG otherwise (`_schur_solve`);
+    preconditioned CG otherwise (`_schur_solve`), whose product with
+    the system is two hand-written kernels on the card
+    (`csrc/ba_schur.cu`: a landmark half and a camera half, through
+    `ops/dispatch.py`) and their plain twins on the CPU;
   - outer Levenberg-Marquardt with accept/reject damping, Huber IRLS
     weights and a graduated outlier cut, fixed iteration counts, no
     value read back to the host: `lm_step` is one iteration (the
@@ -24,9 +27,10 @@
     function between graphs of its own.
 
 Every scatter-add accumulates in float64 and rounds once to the working
-dtype: CUDA's `index_add_` adds in the order its atomics land, and a
-float32 sum that depends on that order flips strict LM accept decisions
-between two runs of the same clip.
+dtype (`ops/segment.seg_sum`): CUDA's `index_add_` adds in the order
+its atomics land, and a float32 sum that depends on that order flips
+strict LM accept decisions between two runs of the same clip. The
+reduced-system kernels sum in float64 too, in a fixed order.
 
 Camera 0 is gauge-fixed. Intrinsics are fixed (`models/bal.py` is the
 variant with 9-parameter cameras).
@@ -40,10 +44,11 @@ import torch
 
 from slam1_tpu_torch.config import BAConfig
 from slam1_tpu_torch.models import posegraph
-from slam1_tpu_torch.ops import dispatch, se3
+from slam1_tpu_torch.ops import cuda_kernels, dispatch, se3
 from slam1_tpu_torch.ops.camera import StereoCamera
 from slam1_tpu_torch.ops.cg import cg
 from slam1_tpu_torch.ops.lsq import huber_weights, inv3x3, inv_spd6
+from slam1_tpu_torch.ops.segment import seg_sum
 from slam1_tpu_torch.utils.graphs import StepGraph, copy_out
 from slam1_tpu_torch.utils.metrics import traced
 from slam1_tpu_torch.utils.tree import flatten
@@ -173,15 +178,6 @@ def _linearize(problem: BAProblem, cam: StereoCamera, w_irls):
     return r, Jc, Jl, w_irls
 
 
-def _seg_sum(n: int, idx, vals):
-    """(n, ...) sums of `vals` (O, ...) by segment id `idx` (O,),
-    accumulated in float64 and rounded once (see the module docstring)."""
-    out = torch.zeros((n,) + vals.shape[1:], dtype=torch.float64,
-                      device=vals.device)
-    out.index_add_(0, idx, vals.double())
-    return out.to(vals.dtype)
-
-
 def _diag_only(blocks):
     n = blocks.shape[-1]
     return blocks * torch.eye(n, dtype=blocks.dtype, device=blocks.device)
@@ -198,11 +194,11 @@ def _normal_blocks(problem, r, Jc, Jl, w):
     ci, li = problem.cam_idx.long(), problem.lm_idx.long()
     w2 = w[:, None, None]
     rw = r * w[:, None]
-    Hcc = _seg_sum(C, ci, torch.einsum("oai,oaj->oij", Jc, Jc) * w2)
-    Hll = _seg_sum(L, li, torch.einsum("oai,oaj->oij", Jl, Jl) * w2)
+    Hcc = seg_sum(C, ci, torch.einsum("oai,oaj->oij", Jc, Jc) * w2)
+    Hll = seg_sum(L, li, torch.einsum("oai,oaj->oij", Jl, Jl) * w2)
     W = torch.einsum("oai,oaj->oij", Jc, Jl) * w2                # (O,6,3)
-    bc = -_seg_sum(C, ci, torch.einsum("oai,oa->oi", Jc, rw))
-    bl = -_seg_sum(L, li, torch.einsum("oai,oa->oi", Jl, rw))
+    bc = -seg_sum(C, ci, torch.einsum("oai,oa->oi", Jc, rw))
+    bl = -seg_sum(L, li, torch.einsum("oai,oa->oi", Jl, rw))
     prior = None
     if problem.pe_i.shape[0] > 0:
         rp, Jpi, Jpj, wp = _prior_terms(problem, problem.poses)
@@ -210,10 +206,10 @@ def _normal_blocks(problem, r, Jc, Jl, w):
         pij = torch.cat([pi, pj])
         rpw = rp * wp[:, None]
         wp3 = wp[:, None, None]
-        bc = bc - _seg_sum(C, pij, torch.cat([
+        bc = bc - seg_sum(C, pij, torch.cat([
             torch.einsum("eab,ea->eb", Jpi, rpw),
             torch.einsum("eab,ea->eb", Jpj, rpw)]))
-        Hcc = Hcc + _seg_sum(C, pij, torch.cat([
+        Hcc = Hcc + seg_sum(C, pij, torch.cat([
             torch.einsum("eai,eaj->eij", Jpi, Jpi) * wp3,
             torch.einsum("eai,eaj->eij", Jpj, Jpj) * wp3]))
         prior = (pi, pj, Jpi, Jpj, wp)
@@ -226,50 +222,45 @@ def _damped(H, lam):
         n, dtype=H.dtype, device=H.device)
 
 
-def _back_substitute(problem, W, Hll_inv, bl, dc):
-    ci, li = problem.cam_idx.long(), problem.lm_idx.long()
-    u = torch.einsum("oij,oi->oj", W, dc[ci])
-    s = _seg_sum(problem.points.shape[0], li, u)
-    return torch.einsum("lij,lj->li", Hll_inv, bl - s)
-
-
 def _reduced_system(problem, r, Jc, Jl, w, lam):
     """The damped reduced camera system after landmark elimination,
     matrix-free: (matvec, btil (C,6), Minv (C,6,6), back), where
-    matvec(x) is gather -> block products -> scatter-add over the
-    observations (nothing bigger than (C,6,6) is materialised), Minv the
-    block-Jacobi preconditioner and back(dc) the landmark step (L,3)
-    that goes with a camera step. Camera 0's block is the identity."""
+    matvec(x) is the landmark half then the camera half of the product
+    (`dispatch.ba_schur_landmarks`, `ba_schur_cameras`: gather -> block
+    products -> segment sums over the observations; nothing bigger than
+    (C,6,6) is materialised), Minv the block-Jacobi preconditioner and
+    back(dc) the landmark step (L,3) that goes with a camera step.
+    Camera 0's block is the identity. The observations' ordering is made
+    once here for every product (`dispatch.schur_order`; the kernels'
+    leaves out the observations whose W block is zero)."""
     C = problem.poses.shape[0]
     L = problem.points.shape[0]
-    ci, li = problem.cam_idx.long(), problem.lm_idx.long()
     Hcc, Hll, W, bc, bl, prior = _normal_blocks(problem, r, Jc, Jl, w)
     Hcc_d = _damped(Hcc, lam)
     Hll_inv = inv3x3(_damped(Hll, lam))                          # (L,3,3)
+    order = dispatch.schur_order(problem.cam_idx, problem.lm_idx, C, L, W)
 
-    btil = bc - _seg_sum(C, ci, torch.einsum(
-        "oij,oj->oi", W, torch.einsum("lij,lj->li", Hll_inv, bl)[li]))
-    btil[0].zero_()                                              # gauge
+    btil = dispatch.ba_schur_cameras(
+        W, dispatch.ba_schur_landmarks(W, Hll_inv, order, a=bl), order,
+        b=bc)                                                    # gauge 0
 
     def matvec(x):
-        u = torch.einsum("oij,oi->oj", W, x[ci])                 # (O,3)
-        v = torch.einsum("lij,lj->li", Hll_inv, _seg_sum(L, li, u))
-        y = torch.einsum("oij,oj->oi", W, v[li])                 # (O,6)
-        out = torch.einsum("cij,cj->ci", Hcc_d, x) - _seg_sum(C, ci, y)
+        v = dispatch.ba_schur_landmarks(W, Hll_inv, order, x=x)
+        out = dispatch.ba_schur_cameras(W, v, order, hcc=Hcc_d, x=x)
         if prior is not None:
             # Cross blocks only: the diagonal blocks are inside Hcc_d.
             pi, pj, Jpi, Jpj, wp = prior
             wp2 = wp[:, None]
-            out = out + _seg_sum(C, torch.cat([pi, pj]), torch.cat([
+            out = out + seg_sum(C, torch.cat([pi, pj]), torch.cat([
                 torch.einsum("eab,ea->eb", Jpi, wp2 * torch.einsum(
                     "eab,eb->ea", Jpj, x[pj])),
                 torch.einsum("eab,ea->eb", Jpj, wp2 * torch.einsum(
                     "eab,eb->ea", Jpi, x[pi]))]))
-        out[0] = x[0]                                            # gauge
+            out[0] = x[0]                                        # gauge
         return out
 
     def back(dc):
-        return _back_substitute(problem, W, Hll_inv, bl, dc)
+        return dispatch.ba_schur_landmarks(W, Hll_inv, order, x=dc, a=bl)
 
     return matvec, btil, inv_spd6(Hcc_d), back
 
@@ -298,7 +289,7 @@ def _schur_solve_direct(problem, r, Jc, Jl, w, lam):
     Hll_inv = inv3x3(_damped(Hll, lam))                          # (L,3,3)
 
     # U[l, c] = sum over the observations of l by c of W.
-    U = _seg_sum(L * C, li * C + ci, W).reshape(L, C, 6, 3)
+    U = seg_sum(L * C, li * C + ci, W).reshape(L, C, 6, 3)
     UH = torch.einsum("lcij,ljk->lcik", U, Hll_inv)              # (L,C,6,3)
     S = -torch.einsum("lcik,ldjk->cidj", UH, U)                  # (C,6,C,6)
     idx = torch.arange(C, device=dev)
@@ -309,10 +300,10 @@ def _schur_solve_direct(problem, r, Jc, Jl, w, lam):
         # Cross blocks only: diagonal blocks already damped in Hcc_d.
         pi, pj, Jpi, Jpj, wp = prior
         wp3 = wp[:, None, None]
-        cross = _seg_sum(C * C, torch.cat([pi * C + pj, pj * C + pi]),
-                         torch.cat([
-                             torch.einsum("eai,eaj->eij", Jpi, Jpj * wp3),
-                             torch.einsum("eai,eaj->eij", Jpj, Jpi * wp3)]))
+        cross = seg_sum(C * C, torch.cat([pi * C + pj, pj * C + pi]),
+                        torch.cat([
+                            torch.einsum("eai,eaj->eij", Jpi, Jpj * wp3),
+                            torch.einsum("eai,eaj->eij", Jpj, Jpi * wp3)]))
         S = S + cross.reshape(C, C, 6, 6).permute(0, 2, 1, 3)
 
     # Gauge: camera 0's block acts as the identity, as the CG path's.
@@ -326,7 +317,10 @@ def _schur_solve_direct(problem, r, Jc, Jl, w, lam):
     dc = torch.linalg.solve_ex(S.reshape(C * 6, C * 6),
                                btil.reshape(C * 6, 1))[0].reshape(C, 6)
     dc[0].zero_()
-    return dc, _back_substitute(problem, W, Hll_inv, bl, dc)
+    # The landmark step: the landmark half's plain twin, on every device
+    # (a local window's graph launches none of the CG path's kernels).
+    return dc, cuda_kernels.ba_schur_landmarks_plain(
+        W, Hll_inv, cuda_kernels.SchurOrder(ci, li), x=dc, a=bl)
 
 
 def _cost(problem: BAProblem, cam: StereoCamera, huber_delta: float):

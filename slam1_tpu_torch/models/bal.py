@@ -24,10 +24,11 @@ import numpy as np
 import torch
 
 from slam1_tpu_torch.config import BAConfig
-from slam1_tpu_torch.models.ba import _damped, _seg_sum
+from slam1_tpu_torch.models.ba import _damped
 from slam1_tpu_torch.ops import se3
 from slam1_tpu_torch.ops.cg import cg
 from slam1_tpu_torch.ops.lsq import huber_weights, inv3x3
+from slam1_tpu_torch.ops.segment import seg_sum
 from slam1_tpu_torch.runtime import default_device
 
 
@@ -96,28 +97,28 @@ def _schur_solve9(problem, r, Jc, Jl, w, lam, cg_iters: int):
     ci, li = problem.cam_idx, problem.lm_idx
     w2 = w[:, None, None]
     rw = r * w[:, None]
-    Hcc = _seg_sum(C, ci, torch.einsum("oai,oaj->oij", Jc, Jc) * w2)
-    Hll = _seg_sum(L, li, torch.einsum("oai,oaj->oij", Jl, Jl) * w2)
+    Hcc = seg_sum(C, ci, torch.einsum("oai,oaj->oij", Jc, Jc) * w2)
+    Hll = seg_sum(L, li, torch.einsum("oai,oaj->oij", Jl, Jl) * w2)
     W = torch.einsum("oai,oaj->oij", Jc, Jl) * w2                # (O,9,3)
-    bc = -_seg_sum(C, ci, torch.einsum("oai,oa->oi", Jc, rw))
-    bl = -_seg_sum(L, li, torch.einsum("oai,oa->oi", Jl, rw))
+    bc = -seg_sum(C, ci, torch.einsum("oai,oa->oi", Jc, rw))
+    bl = -seg_sum(L, li, torch.einsum("oai,oa->oi", Jl, rw))
     Hcc_d = _damped(Hcc, lam)
     Hll_inv = inv3x3(_damped(Hll, lam))
 
-    btil = bc - _seg_sum(C, ci, torch.einsum(
+    btil = bc - seg_sum(C, ci, torch.einsum(
         "oij,oj->oi", W, torch.einsum("lij,lj->li", Hll_inv, bl)[li]))
 
     def matvec(x):
         u = torch.einsum("oij,oi->oj", W, x[ci])
-        v = torch.einsum("lij,lj->li", Hll_inv, _seg_sum(L, li, u))
+        v = torch.einsum("lij,lj->li", Hll_inv, seg_sum(L, li, u))
         y = torch.einsum("oij,oj->oi", W, v[li])
-        return torch.einsum("cij,cj->ci", Hcc_d, x) - _seg_sum(C, ci, y)
+        return torch.einsum("cij,cj->ci", Hcc_d, x) - seg_sum(C, ci, y)
 
     Minv = torch.linalg.inv_ex(Hcc_d)[0]
     dc = cg(matvec, btil, iters=cg_iters,
             precond=lambda v: torch.einsum("cij,cj->ci", Minv, v))
     u = torch.einsum("oij,oi->oj", W, dc[ci])
-    dl = torch.einsum("lij,lj->li", Hll_inv, bl - _seg_sum(L, li, u))
+    dl = torch.einsum("lij,lj->li", Hll_inv, bl - seg_sum(L, li, u))
     return dc, dl
 
 

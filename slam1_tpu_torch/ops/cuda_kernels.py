@@ -15,6 +15,10 @@ CUDA C++ kernels for sm_90a live in `slam1_tpu_torch/csrc/`:
     `slam1_tpu/models/posegraph.py:_chain_sqrt_solve`), and the
     `chain_prepare` launch that fuses the chain's 6x6 blocks once per
     Gauss-Newton iteration.
+  - `ba_schur.cu`     — the two halves of the product with bundle
+    adjustment's reduced camera system (landmarks, then cameras) that
+    its CG path takes 65 times an LM iteration; replaces no TPU kernel
+    but the reference's einsums (`slam1_tpu/models/ba.py:256-265`).
 
 Each source is compiled with nvcc into its own shared library with a
 plain C interface at first use (all sources at once, from the repo's
@@ -44,10 +48,12 @@ import shutil
 import subprocess
 import tempfile
 import time
+from typing import NamedTuple
 
 import torch
 
 from slam1_tpu_torch.ops.brief import unpack_bits
+from slam1_tpu_torch.ops.segment import seg_sum
 from slam1_tpu_torch.utils import metrics
 
 BIG = 1 << 20
@@ -61,7 +67,8 @@ FAST_MAX_LEVELS = 8
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("fast_score.cu", "hamming_top2.cu", "chain_sweep.cu")
+SOURCES = ("fast_score.cu", "hamming_top2.cu", "chain_sweep.cu",
+           "ba_schur.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -119,7 +126,7 @@ class _FastLevel(ctypes.Structure):
 
 
 class _Kernels:
-    """The C entry points of the three libraries, argtypes declared."""
+    """The C entry points of the four libraries, argtypes declared."""
 
     def __init__(self, libs):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -147,10 +154,17 @@ class _Kernels:
         self.slam_chain_prepare.argtypes = [p, p, i, p, p, p]
         self.slam_chain_sweep = chain.slam_chain_sweep
         self.slam_chain_sweep.argtypes = [p, p, p, p, i, p, p, p, p]
+        schur = libs["ba_schur.cu"]
+        self.slam_ba_schur_landmarks = schur.slam_ba_schur_landmarks
+        self.slam_ba_schur_landmarks.argtypes = [p, p, p, p, p, p, p, i, p, p]
+        self.slam_ba_schur_cameras = schur.slam_ba_schur_cameras
+        self.slam_ba_schur_cameras.argtypes = [p, p, p, p, p, p, p, p, i, p,
+                                               p]
         for fn in (self.slam_fast_score, self.slam_fast_score_levels,
                    self.slam_hamming_top2,
                    self.slam_hamming_top2_batched, self.slam_chain_prepare,
-                   self.slam_chain_sweep):
+                   self.slam_chain_sweep, self.slam_ba_schur_landmarks,
+                   self.slam_ba_schur_cameras):
             fn.restype = i
         if chain.slam_chain_levels() != CHAIN_LEVELS:
             raise RuntimeError("csrc/chain_sweep.cu and CHAIN_LEVELS disagree")
@@ -641,10 +655,187 @@ def chain_sweep_cuda(jj_inv, ji, winv, v, n_live, prep=None):
 
 chain_sweep_cuda.launches = 0
 
+
+# ---------------------------------------------------------------------------
+# Bundle adjustment's reduced camera system
+# ---------------------------------------------------------------------------
+#
+# S x = Hcc_d x - sum_o W_o Hll_inv_{l_o} sum_{o' in l_o} W_o'^T x_{c_o'}
+# in two halves: the landmark half v = Hll_inv (a - s) and the camera
+# half out = h - sum_o W_o v_{l_o} (see csrc/ba_schur.cu). The plain
+# twins are the einsums and float64 segment sums `models/ba.py` wrote
+# before the kernels, operation for operation.
+
+
+class SchurOrder(NamedTuple):
+    """BA's observations as the reduced-system product visits them:
+    `cam_idx`, `lm_idx` (O,) int64, which the plain twins index with, and
+    for the kernels (None where the twins run) the observation rows
+    sorted stably by landmark (`lm_rows`, each row's camera `lm_cams`,
+    offsets `lm_off` (L+1,)) and by camera (`cam_rows`, each row's
+    landmark `cam_lms`, offsets `cam_off` (C+1,)), all int32."""
+    cam_idx: torch.Tensor
+    lm_idx: torch.Tensor
+    lm_rows: torch.Tensor | None = None
+    lm_cams: torch.Tensor | None = None
+    lm_off: torch.Tensor | None = None
+    cam_rows: torch.Tensor | None = None
+    cam_lms: torch.Tensor | None = None
+    cam_off: torch.Tensor | None = None
+
+
+def segment_order(idx, n: int):
+    """(rows, off): the positions of `idx` (O,) sorted stably by value,
+    int32, and offsets (n+1,) int32 such that rows[off[s]:off[s+1]] are
+    the positions whose value is s, in their order. Made on idx's device
+    with nothing read back (no bincount): a captured graph can hold it.
+    Values outside [0, n) fall outside every segment. The keys are
+    sorted as int32 (half the radix passes of int64)."""
+    keys, rows = torch.sort(idx.int(), stable=True)
+    bounds = torch.arange(n + 1, dtype=keys.dtype, device=keys.device)
+    return rows.int(), torch.searchsorted(keys, bounds, out_int32=True)
+
+
+def schur_order(cam_idx, lm_idx, n_cams: int, n_lms: int,
+                kernels: bool, W=None) -> SchurOrder:
+    """The SchurOrder of observations (cam_idx, lm_idx) over n_cams
+    cameras and n_lms landmarks; the kernels' orderings only where
+    `kernels` (made once per reduced system, read by every product).
+
+    Given the blocks W (O,6,3), the kernels' orderings leave out every
+    observation whose block is all zero (a bucket's padding, an
+    observation the outlier cut or its weight removed): it adds a zero
+    to each sum, and a problem's padding all points at one landmark,
+    whose thread in the landmark half would walk every padded row."""
+    ci, li = cam_idx.long(), lm_idx.long()
+    if not kernels:
+        return SchurOrder(ci, li)
+    if ci.shape[0] >= 1 << 31:
+        raise ValueError(f"schur_order: {ci.shape[0]} observations do not "
+                         f"fit int32 rows")
+    lm_key, cam_key = li, ci
+    if W is not None:
+        zero = ~(W != 0).flatten(1).any(1)
+        lm_key = torch.where(zero, n_lms, li)
+        cam_key = torch.where(zero, n_cams, ci)
+    lm_rows, lm_off = segment_order(lm_key, n_lms)
+    cam_rows, cam_off = segment_order(cam_key, n_cams)
+    return SchurOrder(ci, li, lm_rows, ci.index_select(0, lm_rows).int(),
+                      lm_off, cam_rows, li.index_select(0, cam_rows).int(),
+                      cam_off)
+
+
+def ba_schur_landmarks_plain(W, hll_inv, order, x=None, a=None):
+    """Plain twin of ba_schur_landmarks_cuda: v (L,3) = Hll_inv t with
+    s = seg_sum_l(W^T x[c]) and t = a - s (x and a given), s (x alone:
+    the product's own term) or a (a alone)."""
+    if x is None:
+        t = a
+    else:
+        u = torch.einsum("oij,oi->oj", W, x[order.cam_idx])        # (O,3)
+        s = seg_sum(hll_inv.shape[0], order.lm_idx, u)
+        t = s if a is None else a - s
+    return torch.einsum("lij,lj->li", hll_inv, t)
+
+
+def ba_schur_cameras_plain(W, v, order, hcc=None, x=None, b=None):
+    """Plain twin of ba_schur_cameras_cuda: out (C,6) = Hcc_d x - y
+    (hcc and x given: the product; row 0, the gauge, x_0) or b - y (b
+    given: the right side; row 0 zero), y = seg_sum_c(W v[l])."""
+    y = torch.einsum("oij,oj->oi", W, v[order.lm_idx])             # (O,6)
+    if hcc is not None:
+        out = torch.einsum("cij,cj->ci", hcc, x) - seg_sum(
+            hcc.shape[0], order.cam_idx, y)
+        out[0] = x[0]
+    else:
+        out = b - seg_sum(b.shape[0], order.cam_idx, y)
+        out[0].zero_()
+    return out
+
+
+def _check_order(order, o: int):
+    """The kernels' orderings of a SchurOrder over O observations ->
+    (C, L)."""
+    if order.lm_rows is None:
+        raise ValueError("order: made without the kernels' orderings")
+    for name in ("lm_rows", "lm_cams", "cam_rows", "cam_lms"):
+        _check(getattr(order, name), f"order.{name}", torch.int32, (o,))
+    n_cams, n_lms = order.cam_off.shape[0] - 1, order.lm_off.shape[0] - 1
+    _check(order.cam_off, "order.cam_off", torch.int32, (n_cams + 1,))
+    _check(order.lm_off, "order.lm_off", torch.int32, (n_lms + 1,))
+    return n_cams, n_lms
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def ba_schur_landmarks_cuda(W, hll_inv, order, x=None, a=None):
+    """The landmark half in one launch of csrc/ba_schur.cu. Same
+    contract as ba_schur_landmarks_plain; `order` holds the kernels'
+    orderings (schur_order with kernels=True)."""
+    o = W.shape[0]
+    _check(W, "W", torch.float32, (o, 6, 3))
+    n_cams, n_lms = _check_order(order, o)
+    _check(hll_inv, "hll_inv", torch.float32, (n_lms, 3, 3))
+    if x is None and a is None:
+        raise ValueError("ba_schur_landmarks_cuda: give x, a or both")
+    if x is not None:
+        _check(x, "x", torch.float32, (n_cams, 6))
+        _check_aligned(8, x=x)
+    if a is not None:
+        _check(a, "a", torch.float32, (n_lms, 3))
+    _check_aligned(8, W=W)
+    v = torch.empty((n_lms, 3), dtype=torch.float32, device=W.device)
+    if n_lms == 0:
+        return v
+    lib = build()
+    stream = torch.cuda.current_stream(W.device).cuda_stream
+    _raise_on(lib.slam_ba_schur_landmarks(
+        W.data_ptr(), order.lm_rows.data_ptr(), order.lm_cams.data_ptr(),
+        order.lm_off.data_ptr(), _ptr(x), _ptr(a), hll_inv.data_ptr(), n_lms,
+        v.data_ptr(), stream), "ba_schur landmarks launch")
+    ba_schur_landmarks_cuda.launches += 1
+    return v
+
+
+# Launches of both halves.
+ba_schur_landmarks_cuda.launches = 0
+
+
+def ba_schur_cameras_cuda(W, v, order, hcc=None, x=None, b=None):
+    """The camera half in one launch of csrc/ba_schur.cu. Same contract
+    as ba_schur_cameras_plain; `order` as for ba_schur_landmarks_cuda."""
+    o = W.shape[0]
+    _check(W, "W", torch.float32, (o, 6, 3))
+    n_cams, n_lms = _check_order(order, o)
+    _check(v, "v", torch.float32, (n_lms, 3))
+    if (hcc is None) != (x is None) or (hcc is None) == (b is None):
+        raise ValueError("ba_schur_cameras_cuda: give hcc and x, or b")
+    if hcc is not None:
+        _check(hcc, "hcc", torch.float32, (n_cams, 6, 6))
+        _check(x, "x", torch.float32, (n_cams, 6))
+    else:
+        _check(b, "b", torch.float32, (n_cams, 6))
+    _check_aligned(8, W=W)
+    out = torch.empty((n_cams, 6), dtype=torch.float32, device=W.device)
+    if n_cams == 0:
+        return out
+    lib = build()
+    stream = torch.cuda.current_stream(W.device).cuda_stream
+    _raise_on(lib.slam_ba_schur_cameras(
+        W.data_ptr(), order.cam_rows.data_ptr(), order.cam_lms.data_ptr(),
+        order.cam_off.data_ptr(), v.data_ptr(), _ptr(hcc), _ptr(x), _ptr(b),
+        n_cams, out.data_ptr(), stream), "ba_schur cameras launch")
+    ba_schur_landmarks_cuda.launches += 1
+    return out
+
+
 _COUNTED = {"fast_score": fast_score_cuda, "hamming_top2": hamming_top2_cuda,
             "hamming_top2_batched": hamming_top2_batched_cuda,
             "chain_prepare": chain_prepare_cuda,
-            "chain_sweep": chain_sweep_cuda}
+            "chain_sweep": chain_sweep_cuda,
+            "ba_schur": ba_schur_landmarks_cuda}
 
 
 def launch_counts() -> dict:

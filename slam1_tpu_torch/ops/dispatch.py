@@ -79,3 +79,36 @@ def chain_sweep(jj_inv, ji, winv, v, n_live, prep=None):
     if use_cuda(v):
         return cuda_kernels.chain_sweep_cuda(*args, prep=prep)
     return cuda_kernels.chain_sweep_plain(*args)
+
+
+def schur_order(cam_idx, lm_idx, n_cams: int, n_lms: int, W=None):
+    """The ordering of BA's observations that the reduced-system product
+    takes (`cuda_kernels.SchurOrder`): with the kernels' sorted rows and
+    offsets for CUDA tensors (without the observations whose block in W
+    is all zero), the indices alone on the CPU."""
+    return cuda_kernels.schur_order(cam_idx, lm_idx, n_cams, n_lms,
+                                    kernels=use_cuda(cam_idx), W=W)
+
+
+def _contiguous(t):
+    return None if t is None else t.contiguous()
+
+
+def ba_schur_landmarks(W, hll_inv, order, x=None, a=None):
+    """The landmark half of BA's reduced-system product -> v (L,3) =
+    Hll_inv (a - s), Hll_inv s or Hll_inv a, s the sums of W^T x by
+    landmark."""
+    fn = (cuda_kernels.ba_schur_landmarks_cuda if use_cuda(W)
+          else cuda_kernels.ba_schur_landmarks_plain)
+    return fn(W.contiguous(), hll_inv.contiguous(), order, x=_contiguous(x),
+              a=_contiguous(a))
+
+
+def ba_schur_cameras(W, v, order, hcc=None, x=None, b=None):
+    """The camera half of BA's reduced-system product -> (C,6): Hcc x -
+    y with row 0 x_0, or b - y with row 0 zero, y the sums of W v by
+    camera."""
+    fn = (cuda_kernels.ba_schur_cameras_cuda if use_cuda(W)
+          else cuda_kernels.ba_schur_cameras_plain)
+    return fn(W.contiguous(), v.contiguous(), order, hcc=_contiguous(hcc),
+              x=_contiguous(x), b=_contiguous(b))

@@ -6,8 +6,9 @@ graph's state, the chain kernels captured once and replayed with
 several live counts written into their device scalar, global BA's own
 graphs replayed without a sync, the sharded solvers' graphs under
 NCCL, collectives inside, the tracer's spans against the CUDA
-profiler's annotations, and every stream synchronization of the SLAM
-driver counted as a wait).
+profiler's annotations, every stream synchronization of the SLAM
+driver counted as a wait, and BA's reduced-system halves counted per
+LM iteration).
 
 Every test here is marked `cuda` and skips where there is no card (the
 kernels have no CPU mode). The file imports torch and the port only,
@@ -29,6 +30,7 @@ from slam1_tpu_torch.config import tiny_config
 from slam1_tpu_torch.models import pipeline, vo
 from slam1_tpu_torch.ops import cuda_kernels
 from slam1_tpu_torch.ops import fast as tfast
+from slam1_tpu_torch.ops.segment import seg_sum
 from slam1_tpu_torch.utils import synthetic
 from slam1_tpu_torch.utils.graphs import StepGraph
 from slam1_tpu_torch.utils.tree import flatten, unflatten
@@ -226,7 +228,8 @@ def test_vo_slice_launches_both_kernels(cuda_device):
                                             "hamming_top2": 9,
                                             "hamming_top2_batched": 0,
                                             "chain_prepare": 0,
-                                            "chain_sweep": 0}
+                                            "chain_sweep": 0,
+                                            "ba_schur": 0}
     assert np.isfinite(poses).all()
     assert np.mean([bool(m.pnp_ok) for m in metrics]) > 0.5
 
@@ -973,3 +976,194 @@ def test_dist_solvers_stay_eager_under_gloo(cuda_device, monkeypatch):
     finally:
         parallel.clear_graphs()
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# BA's reduced-system halves (csrc/ba_schur.cu)
+# ---------------------------------------------------------------------------
+
+# The kernels against their twins, per element, as a share of the terms'
+# magnitude (the same halves in float64 on absolute values): each
+# observation's float32 products round in another order (and without
+# fused multiply-adds) than cuBLAS's or the CPU's einsum, ~6 roundings
+# of 2^-24 each, then the float64 sums are associated in another order
+# and rounded once; the landmark half's error carries into the camera
+# half through v. ~2e-6 in all; 1e-5 leaves five times that.
+SCHUR_TOL = 1e-5
+# (observations, camera rows, cameras observed, landmark rows, cameras
+# ascending, share of zero-weight rows): the benchmark cell's shape (1000
+# of 2048 camera rows observed, 512 observations each) and small odd
+# ones.
+SCHUR_SHAPES = {"cell": (512000, 2048, 1000, 79000, True, 0.02),
+                "odd-shuffled": (1001, 37, 31, 211, False, 0.1),
+                "odd-empty-rows": (4099, 300, 157, 977, True, 0.0)}
+
+
+def _schur_inputs(shape, seed, dev):
+    o, c, live, n_l, ascending, zero = shape
+    rng = np.random.default_rng(seed)
+    cams = np.sort(rng.choice(c, live, replace=False))
+    ci = cams[np.sort(rng.integers(0, live, o))]
+    if not ascending:
+        ci = rng.permutation(ci)
+    li = rng.integers(0, n_l, o)
+    W = rng.normal(0, 1, (o, 6, 3)).astype(np.float32)
+    W[rng.random(o) < zero] = 0.0
+    t = {k: torch.as_tensor(v).to(dev) for k, v in dict(
+        ci=ci, li=li, W=W,
+        hll_inv=rng.normal(0, 1, (n_l, 3, 3)).astype(np.float32),
+        hcc=rng.normal(0, 1, (c, 6, 6)).astype(np.float32),
+        x=rng.normal(0, 1, (c, 6)).astype(np.float32),
+        a=rng.normal(0, 1, (n_l, 3)).astype(np.float32),
+        b=rng.normal(0, 1, (c, 6)).astype(np.float32)).items()}
+    return t
+
+
+def _schur_magnitudes(t, order, x, a):
+    """|terms| of both halves in float64 -> (m_v (L,3), m_out (C,6))."""
+    ci, li = order.cam_idx, order.lm_idx
+    n_l, c = t["hll_inv"].shape[0], t["hcc"].shape[0]
+    W = t["W"].double().abs()
+    m_t = torch.zeros((n_l, 3), dtype=torch.float64, device=W.device)
+    if x is not None:
+        m_t = seg_sum(n_l, li, torch.einsum(
+            "oij,oi->oj", W, x.double().abs()[ci]))
+    if a is not None:
+        m_t = m_t + a.double().abs()
+    m_v = torch.einsum("lij,lj->li", t["hll_inv"].double().abs(), m_t)
+    m_y = seg_sum(c, ci, torch.einsum("oij,oj->oi", W,
+                                                   m_v[li]))
+    return m_v, m_y
+
+
+@pytest.mark.parametrize("shape", list(SCHUR_SHAPES))
+def test_ba_schur_halves_match_plain(cuda_device, shape):
+    """Each half against its plain twin on the card, for every form the
+    solver uses (the product: x alone, then Hcc and x; the right side: a
+    alone, then b; the back-substitution: x and a), within SCHUR_TOL of
+    the terms' magnitude; empty camera rows and landmarks give y = 0 and
+    s = 0; a second call gives the same bits."""
+    t = _schur_inputs(SCHUR_SHAPES[shape], 11, cuda_device)
+    c, n_l = t["hcc"].shape[0], t["hll_inv"].shape[0]
+    order = cuda_kernels.schur_order(t["ci"], t["li"], c, n_l, kernels=True)
+    plain = cuda_kernels.SchurOrder(order.cam_idx, order.lm_idx)
+    for x, a in ((t["x"], None), (None, t["a"]), (t["x"], t["a"])):
+        args = (t["W"], t["hll_inv"])
+        v_k = cuda_kernels.ba_schur_landmarks_cuda(*args, order, x=x, a=a)
+        v_p = cuda_kernels.ba_schur_landmarks_plain(*args, plain, x=x, a=a)
+        m_v, m_y = _schur_magnitudes(t, order, x, a)
+        assert bool(((v_k - v_p).abs() <= SCHUR_TOL * m_v + 1e-30).all()), (
+            x is None, a is None, float((v_k - v_p).abs().max()))
+        again = cuda_kernels.ba_schur_landmarks_cuda(*args, order, x=x, a=a)
+        assert torch.equal(_bits(again), _bits(v_k))
+        if x is not None and a is not None:
+            continue                      # the back-substitution ends here
+        if x is not None:
+            kw = dict(hcc=t["hcc"], x=x)
+            m_out = torch.einsum("cij,cj->ci", t["hcc"].double().abs(),
+                                 x.double().abs()) + m_y
+        else:
+            kw = dict(b=t["b"])
+            m_out = t["b"].double().abs() + m_y
+        # Both halves of the twin from the same v, so that the camera
+        # half's own error is what is compared.
+        out_k = cuda_kernels.ba_schur_cameras_cuda(t["W"], v_p, order, **kw)
+        out_p = cuda_kernels.ba_schur_cameras_plain(t["W"], v_p, plain, **kw)
+        assert bool(((out_k - out_p).abs() <= SCHUR_TOL * m_out
+                     + 1e-30).all()), (
+            x is None, float((out_k - out_p).abs().max()))
+        gauge = x[0] if x is not None else torch.zeros_like(out_k[0])
+        assert torch.equal(out_k[0], gauge)
+        again = cuda_kernels.ba_schur_cameras_cuda(t["W"], v_p, order, **kw)
+        assert torch.equal(_bits(again), _bits(out_k))
+        lone = torch.bincount(t["ci"], minlength=c) == 0
+        lone[0] = False
+        h = (torch.einsum("cij,cj->ci", t["hcc"], x) if x is not None
+             else t["b"])
+        assert bool(lone.any())
+        assert bool(((out_k[lone] - h[lone]).abs()
+                     <= SCHUR_TOL * m_out[lone]).all())
+        v_lone = cuda_kernels.ba_schur_landmarks_cuda(t["W"], t["hll_inv"],
+                                                      order, x=t["x"])
+        lone_l = torch.bincount(t["li"], minlength=n_l) == 0
+        assert bool((v_lone[lone_l] == 0).all())
+
+
+def test_ba_schur_leaves_zero_blocks_out(cuda_device):
+    """Orderings made with W leave out the observations whose block is
+    zero: here a bucket's 20 000 padded rows, all on camera 0 and
+    landmark 0, as `build_global_problem` pads. Both halves give the
+    bits they give over every row, in every form."""
+    t = _schur_inputs(SCHUR_SHAPES["odd-empty-rows"], 12, cuda_device)
+    c, n_l = t["hcc"].shape[0], t["hll_inv"].shape[0]
+    pad = 20000
+    zeros = torch.zeros(pad, dtype=torch.int64, device=cuda_device)
+    W = torch.cat([t["W"], torch.zeros((pad, 6, 3), device=cuda_device)])
+    ci, li = torch.cat([t["ci"], zeros]), torch.cat([t["li"], zeros])
+    every = cuda_kernels.schur_order(ci, li, c, n_l, kernels=True)
+    order = cuda_kernels.schur_order(ci, li, c, n_l, kernels=True, W=W)
+    assert int(order.lm_off[-1]) == int(order.cam_off[-1]) <= ci.shape[0] - pad
+    for lm_kw, cam_kw in ((dict(x=t["x"]), dict(hcc=t["hcc"], x=t["x"])),
+                          (dict(a=t["a"]), dict(b=t["b"])),
+                          (dict(x=t["x"], a=t["a"]), None)):
+        v = [cuda_kernels.ba_schur_landmarks_cuda(W, t["hll_inv"], o,
+                                                  **lm_kw)
+             for o in (order, every)]
+        assert torch.equal(_bits(v[0]), _bits(v[1]))
+        if cam_kw is not None:
+            out = [cuda_kernels.ba_schur_cameras_cuda(W, v[1], o, **cam_kw)
+                   for o in (order, every)]
+            assert torch.equal(_bits(out[0]), _bits(out[1]))
+
+
+def test_ba_schur_launches_per_ba_lm_replay(cuda_device):
+    """One `ba_lm` replay on the CG path launches the halves 2 (cg_iters
+    + 1) + 3 times: two per product (cg_iters + 1 products), two for the
+    right side, one for the back-substitution; the eager iteration
+    launches as many, and the dense path (C <= 16) none."""
+    from slam1_tpu_torch.config import BAConfig
+    from slam1_tpu_torch.models import ba
+    cfg = BAConfig(lm_iters=3, cg_iters=10)
+    per_iter = 2 * (cfg.cg_iters + 1) + 3
+
+    def launches(n_cams, graphs):
+        p, _, _, cam = synthetic.ba_problem(0, n_cams=n_cams, px_noise=0.3,
+                                            n_outliers=10, device=cuda_device)
+        ba.bundle_adjust(p, cam, cfg, graphs=graphs)          # warm
+        before = cuda_kernels.launch_counts()["ba_schur"]
+        ba.bundle_adjust(p, cam, cfg, graphs=graphs)
+        torch.cuda.synchronize()
+        return cuda_kernels.launch_counts()["ba_schur"] - before
+    ba.BA_GRAPHS.clear()
+    try:
+        assert launches(24, True) == cfg.lm_iters * per_iter
+        assert launches(24, False) == cfg.lm_iters * per_iter
+        assert launches(6, True) == 0
+    finally:
+        ba.BA_GRAPHS.clear()
+
+
+def test_bundle_adjust_cg_cuda_matches_cpu(cuda_device):
+    """The seeded 24-camera problem on the CG path, on the CPU (the
+    twins) and on CUDA tensors (the halves' kernels), for 4 LM
+    iterations: equal accept decisions and surviving observations, poses
+    within 1e-4 m, costs within 1e-3 relative. From the 5th iteration on
+    the cost ties the one before within 1e-6 (converged), where a strict
+    compare of two float32 sums may fall either way, so the run stops
+    before; the CPU trace is checked to hold no such tie."""
+    from slam1_tpu_torch.config import BAConfig
+    from slam1_tpu_torch.models import ba
+    cfg = BAConfig(lm_iters=4)
+    p, _, _, cam = synthetic.ba_problem(0, n_cams=24, px_noise=0.3,
+                                        n_outliers=40, device="cpu")
+    out_c, cost_c, tr_c = ba.bundle_adjust(p, cam, cfg, return_trace=True)
+    pg = ba.BAProblem(*[x.to(cuda_device) for x in p])
+    out_g, cost_g, tr_g = ba.bundle_adjust(pg, cam.to(cuda_device), cfg,
+                                           return_trace=True)
+    ba.BA_GRAPHS.clear()
+    c = tr_c.cost.double()
+    assert not bool(((c[1:] - c[:-1]).abs() <= 1e-6 * c[1:]).any())
+    assert tr_g.accept.tolist() == tr_c.accept.tolist()
+    assert tr_g.n_obs.tolist() == tr_c.n_obs.tolist()
+    assert (out_g.poses.cpu() - out_c.poses)[:, :3, 3].abs().max() <= 1e-4
+    assert abs(float(cost_g) - float(cost_c)) <= 1e-3 * float(cost_c)

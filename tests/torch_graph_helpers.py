@@ -99,7 +99,12 @@ def emulate_graphs(monkeypatch):
     monkeypatch.setattr(tpipe, "dispatch", card)
     monkeypatch.setattr(vo, "dispatch", card)
     monkeypatch.setattr(vo_flow, "dispatch", card)
-    monkeypatch.setattr(tba, "dispatch", card)
+    # BA's reduced-system halves stay dispatched by their tensors' device
+    # (the plain twins here).
+    monkeypatch.setattr(tba, "dispatch", types.SimpleNamespace(
+        use_cuda=card.use_cuda, schur_order=dispatch.schur_order,
+        ba_schur_landmarks=dispatch.ba_schur_landmarks,
+        ba_schur_cameras=dispatch.ba_schur_cameras))
     # The pose graph's chain kernels stay dispatched by their tensors'
     # device (the plain twins here).
     monkeypatch.setattr(tposegraph, "dispatch", types.SimpleNamespace(
