@@ -47,7 +47,11 @@ exits non-zero and never prints the final `ok` line:
                product (ba_schur) on shuffled observations with unseen
                cameras and landmarks, product and right-side forms (the
                global-ba phase holds them on its own system and times
-               them).
+               them); BA's observation pass (ba_obs: cameras, landmarks
+               and cost launches) on a shuffled 24-camera problem with a
+               bucket's padding and the final cut, against its plain
+               twins on the CPU, repeated to the bit, the cost launch
+               equal to the cameras launch's costs to the bit.
   4. slice   — renders the 24-frame arc clip (6000 points) at the
                default config, runs VO `run_sequence` on CUDA tensors
                with the launch counters reset just before, checks the
@@ -151,7 +155,16 @@ exits non-zero and never prints the final `ok` line:
                `kernels` line's ba_schur row and its `halves`), at the
                phase's sizes and at the ba-global-2048 cell's (512 000
                observations, 1000 of 2048 camera rows observed, 79 000
-               landmarks seen by ~6.5 neighbouring cameras).
+               landmarks seen by ~6.5 neighbouring cameras). The
+               replays launch the observation pass (ba_obs) 3 times an
+               LM iteration and once for ba_apply's final cost; its
+               three launches against their plain twins on the CPU and
+               timed, together and one by one, against their twins on
+               the card and their bounds (`ba_obs_work`; the `kernels`
+               line's ba_obs row and its `by_launch`) on the phase's
+               problem and on a synthetic drive at the cell's sizes;
+               the observations a landmark has (mean, p99, max: the
+               landmarks launch's tail).
   traj-ba  — `slam-torch ba <traj.npy>` in process on float64 files of
                a noisy two-lap trajectory at 4661 poses (KITTI 02's
                length) and 12000 (past the 8533 rows whose chain offsets
@@ -269,7 +282,8 @@ exits non-zero and never prints the final `ok` line:
                reached; chain_sweep also at 12000 poses, its offsets in
                device memory (against its twin; device time of the
                shared-memory path at 8533 poses beside it); ba_schur's
-               times are phase global-ba's (one product of both halves);
+               times are phase global-ba's (one product of both halves),
+               and so are ba_obs's (one LM iteration's three launches);
                the VO frames/s of the per-frame loop, the SLAM frames/s
                of the process loop, and ms per place_query, per slate
                and per PGO (the last three: phase times-slam; the PGO's
@@ -319,17 +333,17 @@ from slam1_tpu_torch.models import ba, pipeline, posegraph, ref_backend, \
     vo, vo_flow  # noqa: E402
 from slam1_tpu_torch.models.loop_closure import place_query, \
     verify_loop_slate  # noqa: E402
-from slam1_tpu_torch.ops import cuda_kernels, detector, epipolar, fast, \
-    hamming, lk, se3, triangulate  # noqa: E402
+from slam1_tpu_torch.ops import ba_obs, cuda_kernels, detector, epipolar, \
+    fast, hamming, lk, se3, triangulate  # noqa: E402
 from slam1_tpu_torch.ops.camera import StereoCamera  # noqa: E402
 from slam1_tpu_torch.ops.detector import _downsample2  # noqa: E402
-from slam1_tpu_torch.ops.lsq import inv3x3  # noqa: E402
+from slam1_tpu_torch.ops.lsq import huber_weights, inv3x3  # noqa: E402
 from slam1_tpu_torch.ops.pnp import draw_uniform  # noqa: E402
 from slam1_tpu_torch.ops.segment import seg_sum  # noqa: E402
 from slam1_tpu_torch.utils import kitti, metrics, native_loader, \
     synthetic  # noqa: E402
-from slam1_tpu_torch.utils.bounds import PEAK_F32_FLOPS, bound, \
-    bound_ba_matvec, bound_chain_prepare, bound_chain_sweep, \
+from slam1_tpu_torch.utils.bounds import PEAK_F32_FLOPS, ba_obs_work, \
+    bound, bound_ba_matvec, bound_chain_prepare, bound_chain_sweep, \
     bound_fast_score, bound_hamming  # noqa: E402
 from slam1_tpu_torch.utils.evalmetrics import ate_rmse  # noqa: E402
 from slam1_tpu_torch.utils.timing import device_busy_ms, device_launches, \
@@ -358,6 +372,13 @@ SCHUR_SHAPE = (4099, 300, 977)
 # landmarks that moves on by L / observed cameras a camera, so that a
 # landmark is seen by ~6.5 neighbouring cameras, as along a drive).
 SCHUR_CELL = (512000, 2048, 1000, 79000)
+# BA's observation pass (csrc/ba_obs.cu) against its plain twins on the
+# CPU: max |kernel - twin| over the twin's largest |value|, block by block
+# (each observation's terms are the twin's bits; the float64 sums by
+# camera are associated otherwise and rounded once), and the costs'
+# relative error (the twins sum them in float32).
+OBS_TOL = 1e-6
+OBS_COST_TOL = 1e-5
 SAME_ATE_TOL = 1e-6          # m, between two runs of the same clip
 CKPT_FRAME = 320             # a block boundary of the slam-ba pass
 RESUME_TOL = 1e-3            # m, resumed run against the straight run
@@ -428,6 +449,11 @@ KERNELS = {
                  "slam1_tpu/models/ba.py:256",
                  "one CG product, both halves, on phase global-ba's "
                  "reduced system"),
+    # not a TPU kernel: the reference's cost, Jacobians and normal blocks
+    "ba_obs": ("slam1_tpu_torch/csrc/ba_obs.cu",
+               "slam1_tpu/models/ba.py:140",
+               "one LM iteration's observation pass (cameras, landmarks, "
+               "the cost after the step) on phase global-ba's problem"),
 }
 class CheckFailed(RuntimeError):
     pass
@@ -695,7 +721,173 @@ def phase_kernels_backend(dev):
         keep_worst(errs, rel_errs,
                    check_chain(ops, n_live, f"poses={CHAIN_F}"))
     keep_worst(errs, rel_errs, check_ba_schur(dev))
+    keep_worst(errs, rel_errs, check_ba_obs(dev))
     return errs, rel_errs
+
+
+def check_ba_obs(dev):
+    """BA's observation pass on a shuffled 24-camera CG-path problem with
+    a bucket's padding (weight zero, on camera 0 and landmark 0) and the
+    graduated cut: {"ba_obs": ba_obs_errors(...)}."""
+    p, _, _, cam = synthetic.ba_problem(5, n_cams=24, n_pts=400,
+                                        n_outliers=30, device="cpu")
+    g = torch.Generator().manual_seed(5)
+    perm = torch.randperm(p.uv.shape[0], generator=g)
+    pad = 500
+    zero = torch.zeros(pad, dtype=torch.int64)
+    p = p._replace(
+        cam_idx=torch.cat([p.cam_idx[perm].long(), zero]),
+        lm_idx=torch.cat([p.lm_idx[perm].long(), zero]),
+        uv=torch.cat([p.uv[perm], torch.zeros(pad, 2)]),
+        ur=torch.cat([p.ur[perm], torch.zeros(pad)]),
+        wr=torch.cat([p.wr[perm], torch.ones(pad)]),
+        w=torch.cat([p.w[perm], torch.zeros(pad)]))
+    prob = ba.BAProblem(*[x.to(dev) for x in p])
+    return {"ba_obs": ba_obs_errors("shuffled-padded", prob, cam.to(dev),
+                                    *obs_cut(SlamConfig().ba, 2, dev))}
+
+
+def obs_cut(bcfg, t, dev):
+    """(cut2, cap) of LM iteration t, on `dev`, as `ba.lm_step` makes
+    them."""
+    cut = ba.graduated_cut(bcfg.outlier_px, torch.tensor(t, device=dev),
+                           torch.float32)
+    cut2 = cut * cut
+    return cut2, huber_weights(cut2, bcfg.huber_delta) * cut2
+
+
+def ba_obs_errors(case, prob, cam, cut2, cap, delta=2.0):
+    """The observation pass's three launches (csrc/ba_obs.cu) against
+    their plain twins on the CPU (the problem copied there) -> (max abs
+    error, the same over the twin's largest |value|), the worst block;
+    every block within OBS_TOL of its largest |value|, the costs within
+    OBS_COST_TOL, the kept rows equal, a second launch equal to the first
+    and the cost launch equal to the cameras launch, to the bit."""
+    order = cuda_kernels.schur_order(prob.cam_idx, prob.lm_idx,
+                                     prob.poses.shape[0],
+                                     prob.points.shape[0], kernels=True,
+                                     w=prob.w)
+
+    def launch():
+        obs = cuda_kernels.ba_obs_cameras_cuda(prob, cam, order, cut2, cap,
+                                               delta)
+        return obs, cuda_kernels.ba_obs_landmarks_cuda(prob, cam, order,
+                                                       cut2, delta)
+    (obs, (hll, bl)), again = launch(), launch()
+    cost = cuda_kernels.ba_obs_cost_cuda(prob, cam, order, cap, delta)
+    torch.cuda.synchronize()
+    same = all(torch.equal(bits(a), bits(b)) for a, b in
+               zip(flatten((obs, hll, bl)), flatten(again)))
+    cost_same = bool(torch.equal(bits(cost[0]), bits(obs.full))
+                     and torch.equal(bits(cost[1]), bits(obs.trunc)))
+    cpu = ba.BAProblem(*[x.cpu() for x in prob])
+    ccam = cam.to("cpu")
+    c2, cp = [None if x is None else x.cpu() for x in (cut2, cap)]
+    plain = cuda_kernels.SchurOrder(cpu.cam_idx.long(), cpu.lm_idx.long())
+    twin = ba_obs.cameras_plain(cpu, ccam, plain, c2, cp, delta)
+    twin_l = ba_obs.landmarks_plain(cpu, ccam, plain, c2, delta)
+    worst = (0.0, 0.0)
+    for name, k, t in zip(("W", "Hcc", "bc", "Hll", "bl"),
+                          (obs.W, obs.hcc, obs.bc, hll, bl),
+                          (twin.W, twin.hcc, twin.bc, *twin_l)):
+        diff = (k.cpu().double() - t.double()).abs()
+        err = diff.max().item()
+        rel = err / max(t.abs().max().item(), 1e-30)
+        say("kernels", kernel="ba_obs", case=case, block=name,
+            shape=tuple(t.shape), max_abs_err=err, rel_err=rel,
+            differing=int((diff > 0).sum()))
+        check(bool(torch.isfinite(k).all()) and rel <= OBS_TOL,
+              f"ba_obs {name} ({case}): error {rel} of its largest value")
+        worst = (max(worst[0], err), max(worst[1], rel))
+    cost_rel = [abs(float(k) - float(t)) / max(abs(float(t)), 1e-30)
+                for k, t in ((obs.full, twin.full), (obs.trunc, twin.trunc))]
+    say("kernels", kernel="ba_obs", case=case, costs=[float(obs.full),
+        float(obs.trunc)], cost_rel_err=cost_rel, kept=int(obs.n_kept),
+        twin_kept=int(twin.n_kept), repeat_same_bits=same,
+        cost_launch_same_bits=cost_same)
+    check(max(cost_rel) <= OBS_COST_TOL and int(obs.n_kept) ==
+          int(twin.n_kept), f"ba_obs costs ({case}): {cost_rel}, kept "
+          f"{int(obs.n_kept)} against {int(twin.n_kept)}")
+    check(same and cost_same, f"ba_obs ({case}): a second launch or the "
+          f"cost launch gave other bits ({same}, {cost_same})")
+    return worst
+
+
+def time_ba_obs(prob, cam, cut2, cap, sizes, delta=2.0):
+    """time_kernel of one LM iteration's observation pass (the cameras,
+    landmarks and cost launches) against the plain twins on the card,
+    bound by the sum of `ba_obs_work`'s three launches, with each
+    launch's own times under "by_launch", each bound by its own work."""
+    o, c, n_l = (prob.uv.shape[0], prob.poses.shape[0],
+                 prob.points.shape[0])
+    order = cuda_kernels.schur_order(prob.cam_idx, prob.lm_idx, c, n_l,
+                                     kernels=True, w=prob.w)
+    plain = cuda_kernels.SchurOrder(order.cam_idx, order.lm_idx)
+    calls = {
+        "cameras": (
+            lambda: ba_obs.cameras_plain(prob, cam, plain, cut2, cap, delta),
+            lambda: cuda_kernels.ba_obs_cameras_cuda(prob, cam, order, cut2,
+                                                     cap, delta)),
+        "landmarks": (
+            lambda: ba_obs.landmarks_plain(prob, cam, plain, cut2, delta),
+            lambda: cuda_kernels.ba_obs_landmarks_cuda(prob, cam, order,
+                                                       cut2, delta)),
+        "cost": (
+            lambda: ba_obs.cost_plain(prob, cam, plain, cap, delta),
+            lambda: cuda_kernels.ba_obs_cost_cuda(prob, cam, order, cap,
+                                                  delta))}
+    works = {k: ba_obs_work(o, c, n_l, k) for k in calls}
+    total = [sum(w[i] for w in works.values()) for i in (0, 1)]
+    out = time_kernel(
+        "ba_obs", lambda: [pl() for pl, _ in calls.values()],
+        lambda: [kern() for _, kern in calls.values()],
+        *bound(*total, PEAK_F32_FLOPS),
+        per=f"one LM iteration's observation pass, three launches: {sizes}")
+    out["by_launch"] = {
+        k: time_kernel("ba_obs", pl, kern,
+                       *bound(*works[k], PEAK_F32_FLOPS),
+                       per=f"the {k} launch: {sizes}")
+        for k, (pl, kern) in calls.items()}
+    return out
+
+
+def obs_cell_inputs(dev):
+    """A BA problem at SCHUR_CELL's sizes (seeded), as the benchmark's
+    drive makes it: the observed cameras 2 m apart along a straight
+    drive (rows ascending, the other rows identity poses nothing
+    observes), landmarks 12-55 m ahead of an anchor camera, each camera's
+    observations drawn from the landmarks anchored at it and the 3
+    cameras before it (so ~6.5 cameras see a landmark), 0.5 px of noise
+    and 2% outliers thrown 30-80 px; the problem and the camera on the
+    card."""
+    o, c, live, n_l = SCHUR_CELL
+    g = torch.Generator().manual_seed(7)
+    cam = StereoCamera.kitti_default(device="cpu")
+    poses = torch.eye(4).repeat(c, 1, 1)
+    poses[:live, 2, 3] = 2.0 * torch.arange(live, dtype=torch.float32)
+    anchor = torch.sort(torch.randint(0, live, (n_l,), generator=g)).values
+    points = torch.stack([
+        torch.rand(n_l, generator=g) * 30 - 15,
+        torch.rand(n_l, generator=g) * 7 - 4,
+        poses[anchor, 2, 3] + 12 + torch.rand(n_l, generator=g) * 43], -1)
+    ci = torch.sort(torch.randint(0, live, (o,), generator=g)).values
+    off = torch.searchsorted(anchor, torch.arange(live + 1))
+    lo, hi = off[torch.clamp(ci - 3, min=0)], off[ci + 1]
+    li = lo + (torch.rand(o, generator=g) * (hi - lo)).long()
+    Xc = points[li] - poses[ci, :3, 3]
+    z = Xc[:, 2]
+    uv = torch.stack([cam.fx * Xc[:, 0] / z + cam.cx,
+                      cam.fy * Xc[:, 1] / z + cam.cy], -1)
+    ur = cam.fx * (Xc[:, 0] - cam.baseline) / z + cam.cx
+    uv = uv + torch.randn(o, 2, generator=g) * 0.5
+    ur = ur + torch.randn(o, generator=g) * 0.5
+    out = torch.rand(o, generator=g) < 0.02
+    throw = 30 + torch.rand(o, generator=g) * 50
+    uv = uv + out[:, None] * throw[:, None]
+    ur = ur + out * throw
+    prob = ba.make_problem(poses, points, ci, li, uv, torch.ones(o), ur=ur,
+                           wr=torch.ones(o))
+    return ba.BAProblem(*[x.to(dev) for x in prob]), cam.to(dev)
 
 
 def check_ba_schur(dev):
@@ -956,12 +1148,13 @@ def slam_numbers(sys_, cfg, pre, post, gt):
     pgo_runs = len(sys_.pgo_costs)
     gn_iters = ((pgo_runs - 1) * max(cfg.ba.pg_iters // 5, 3)
                 + cfg.ba.pg_iters)
-    # No pass reaches the reduced-system kernels: finalize relaxes the
-    # pose graph, and local BA's windows take the dense path.
+    # No pass reaches BA's CG-path kernels: finalize relaxes the pose
+    # graph, and local BA's windows take the dense path.
     want = {"fast_score": f, "hamming_top2": 2 * f - 1,
             "hamming_top2_batched": sys_.n_slates,
             "chain_prepare": gn_iters,
-            "chain_sweep": gn_iters * (cfg.ba.cg_iters + 1), "ba_schur": 0}
+            "chain_sweep": gn_iters * (cfg.ba.cg_iters + 1), "ba_schur": 0,
+            "ba_obs": 0}
     return dict(ate_pre=ate_rmse(pre, gt, align=False),
                 ate_post=ate_rmse(post, gt, align=False),
                 ate_odo=ate_rmse(odometry_poses(sys_), gt, align=False),
@@ -1188,10 +1381,13 @@ def phase_global_ba(cfg, sys_, world, smi):
     `ba_apply`, a second graphed call made only of replays held to the
     eager one (and its ba_schur launches counted), the calls timed eager
     against graphed and the graphs' stats; then one CG matvec timed
-    against its bound, and the reduced-system halves held to their twins
-    and timed on the same system and at the offline cell's sizes.
+    against its bound, the reduced-system halves held to their twins
+    and timed on the same system and at the offline cell's sizes, and
+    the observation pass (csrc/ba_obs.cu) held to its twins and timed on
+    the same problem and on a synthetic drive at the cell's sizes.
     -> (launch counts of the replayed call, {"ba_schur": times,
-    "ba_schur_cell": times}, {"ba_schur": errors}, numbers)."""
+    "ba_schur_cell": times, "ba_obs": times, "ba_obs_cell": times},
+    {"ba_schur": errors, "ba_obs": errors}, numbers)."""
     st = sys_.state
     f = sys_.frame_count + 1
     gt = world.poses.cpu().numpy()
@@ -1246,10 +1442,13 @@ def phase_global_ba(cfg, sys_, world, smi):
           f"{iters} of ba_lm and one of ba_apply")
     # The CG path (more than DIRECT_MAX_CAMS rows) launches both halves
     # for each product, twice for the right side and the landmark half
-    # once for the back-substitution, in every LM iteration.
-    per_iter = (2 * (cfg.ba.cg_iters + 1) + 3
-                if bucket > ba.DIRECT_MAX_CAMS else 0)
-    want = {**{k: 0 for k in counts}, "ba_schur": iters * per_iter}
+    # once for the back-substitution, in every LM iteration, and the
+    # observation pass three times an iteration (cameras, landmarks, the
+    # cost after the step) and once for ba_apply's final cost.
+    cg_path = bucket > ba.DIRECT_MAX_CAMS
+    per_iter = 2 * (cfg.ba.cg_iters + 1) + 3 if cg_path else 0
+    want = {**{k: 0 for k in counts}, "ba_schur": iters * per_iter,
+            "ba_obs": 3 * iters + 1 if cg_path else 0}
     check(counts == want, f"the replayed global BA launched {counts}, "
           f"not {want}")
     graph_diff = tree_diff(eager, graphed, "global_ba")
@@ -1296,13 +1495,16 @@ def phase_global_ba(cfg, sys_, world, smi):
     _, r0, hw = ba._cost(prob, sys_.cam, cfg.ba.huber_delta)
     r, Jc, Jl, w = ba._linearize(prob, sys_.cam, prob.w * hw)
     lam = torch.full((), cfg.ba.lm_lambda0, device=r.device)
-    matvec, btil, _, _ = ba._reduced_system(prob, r, Jc, Jl, w, lam)
-    Hcc, Hll, W, bc, bl, _ = ba._normal_blocks(prob, r, Jc, Jl, w)
+    blocks = ba._normal_blocks(prob, r, Jc, Jl, w)
+    matvec, btil, _, _ = ba._reduced_system(prob, blocks, lam,
+                                            ba._obs_order(prob))
+    Hcc, Hll, W, bc, bl, _ = blocks
     Hcc_d = ba._damped(Hcc, lam)
     Hll_inv = inv3x3(ba._damped(Hll, lam))
     order = cuda_kernels.schur_order(prob.cam_idx, prob.lm_idx,
                                      prob.poses.shape[0],
-                                     prob.points.shape[0], kernels=True, W=W)
+                                     prob.points.shape[0], kernels=True,
+                                     w=prob.w)
     schur_err = schur_errors("global-ba", W, Hll_inv, Hcc_d, order, btil,
                              bl, bc)
     o, c, l, e = (prob.uv.shape[0], prob.poses.shape[0],
@@ -1316,6 +1518,27 @@ def phase_global_ba(cfg, sys_, world, smi):
         "{} observations, {} camera rows of which {} observed, {} "
         "landmarks (ba-global-2048's sizes, synthetic operands)".format(
             *SCHUR_CELL))
+    cut2, cap = obs_cut(cfg.ba, iters - 1, r.device)
+    obs_err = ba_obs_errors("global-ba", prob, sys_.cam, cut2, cap,
+                            cfg.ba.huber_delta)
+    schur_times["ba_obs"] = time_ba_obs(
+        prob, sys_.cam, cut2, cap,
+        f"{o} observations, {c} camera rows, {l} landmarks (phase "
+        f"global-ba)", cfg.ba.huber_delta)
+    cell, cell_cam = obs_cell_inputs(r.device)
+    ba_obs_errors("cell", cell, cell_cam, cut2, cap, cfg.ba.huber_delta)
+    schur_times["ba_obs_cell"] = time_ba_obs(
+        cell, cell_cam, cut2, cap,
+        "{} observations, {} camera rows of which {} observed, {} "
+        "landmarks (ba-global-2048's sizes, a synthetic drive)".format(
+            *SCHUR_CELL), cfg.ba.huber_delta)
+    del cell
+    # The landmarks launch's tail: a thread walks each landmark's rows.
+    per_lm = torch.bincount(prob.lm_idx.long()[prob.w != 0],
+                            minlength=l).float()
+    lm_rows = {"mean": float(per_lm[per_lm > 0].mean()),
+               "p99": float(torch.quantile(per_lm[per_lm > 0], 0.99)),
+               "max": int(per_lm.max())}
     mv_ms = event_ms(lambda: matvec(btil), reps=20, warm=3)
     mv_device_ms = graph_ms(lambda: matvec(btil))
     lin_ms = event_ms(lambda: ba._linearize(prob, sys_.cam, prob.w * hw),
@@ -1331,7 +1554,8 @@ def phase_global_ba(cfg, sys_, world, smi):
         matvec_ms=mv_ms, matvec_device_ms=mv_device_ms,
         matvec_bound_ms=mv_bound_ms, matvec_bound_by=mv_by,
         matvec_share_of_bound=mv_bound_ms / mv_device_ms,
-        linearize_ms=lin_ms, launches=counts, expected=want,
+        linearize_ms=lin_ms, rows_per_landmark=lm_rows,
+        launches=counts, expected=want,
         final_cost=cost, trace=tr, ate_before_m=ate_before,
         ate_after_m=ate_after)
     check(math.isfinite(cost) and cost <= tr["cost"][0],
@@ -1351,6 +1575,7 @@ def phase_global_ba(cfg, sys_, world, smi):
                global_ba_matvec_device_ms=mv_device_ms,
                global_ba_matvec_bound_ms=mv_bound_ms,
                global_ba_linearize_ms=lin_ms,
+               global_ba_rows_per_landmark=lm_rows,
                global_ba_accepted=int(sum(tr["accept"])),
                global_ba_cost_first_last=[tr["cost"][0], cost],
                global_ba_ate_before_m=ate_before,
@@ -1361,7 +1586,8 @@ def phase_global_ba(cfg, sys_, world, smi):
                 for k in ("capture_seconds", "nodes", "pool_bytes")})
     # The graphs' pools are not needed by the later phases.
     pipeline.GLOBAL_BA_GRAPHS.clear()
-    return counts, schur_times, {"ba_schur": schur_err}, out
+    return counts, schur_times, {"ba_schur": schur_err,
+                                 "ba_obs": obs_err}, out
 
 
 def traj_file(n, path):
@@ -3383,9 +3609,8 @@ def main(argv=None):
                 **({"past_shared_memory": times["chain_sweep_long"]}
                    if name == "chain_sweep" and "chain_sweep_long" in times
                    else {}),
-                **({"at_offline_cell_sizes": times["ba_schur_cell"]}
-                   if name == "ba_schur" and "ba_schur_cell" in times
-                   else {}),
+                **({"at_offline_cell_sizes": times[f"{name}_cell"]}
+                   if f"{name}_cell" in times else {}),
                 "library_ms": None}
                for name, (src, rep, per) in KERNELS.items()]
     print(json.dumps({"phases": [p for p in PHASES if p in phases],

@@ -23,9 +23,10 @@
 // (C+1), each with the other index of every row beside it (int32). Any
 // order of cam_idx / lm_idx is right, and cameras or landmarks with no
 // observation get y = 0 or s = 0. The orderings leave out observations
-// whose W block is all zero (they add zeros): a global problem's
-// observation bucket pads tens of thousands of rows onto landmark 0, and
-// the thread of that landmark would walk them all, ~12 ms a product.
+// of weight zero, whose W blocks are zero (they add zeros): a global
+// problem's observation bucket pads tens of thousands of rows onto
+// landmark 0, and the thread of that landmark would walk them all, ~12 ms
+// a product.
 // W is read where it lies, (O,6,3) float32: in the camera order it is
 // contiguous wherever cam_idx ascends, as a global BA's problem does.
 //

@@ -3,11 +3,14 @@
 
   - reprojection residuals of stereo observations [u_left, v_left,
     right-u] with per-observation camera (3x6) and landmark (3x3)
-    Jacobians, written out by hand (the reference takes `jax.jacfwd` of
-    `_obs_residual`; `vmap(jacfwd)` costs hundreds of small launches per
-    linearisation on a GPU);
+    Jacobians, written out by hand, and their robust costs
+    (`ops/ba_obs.py`);
   - Hessian blocks by scatter-add: Hcc (C,6,6), Hll (L,3,3), coupling W
-    (O,6,3) per observation;
+    (O,6,3) per observation; on the CG path the whole observation pass
+    (residual, Huber weight, cut, costs, Jacobians, blocks) is three
+    hand-written kernels on the card (`csrc/ba_obs.cu`: cameras,
+    landmarks, the cost after the step) and their plain twins on the
+    CPU, through `ops/dispatch.py`;
   - per-landmark elimination with batched closed-form 3x3 inverses;
   - the reduced camera system solved densely for a local window
     (C <= 16, `_schur_solve_direct`) and matrix-free with block-Jacobi
@@ -30,7 +33,7 @@ Every scatter-add accumulates in float64 and rounds once to the working
 dtype (`ops/segment.seg_sum`): CUDA's `index_add_` adds in the order
 its atomics land, and a float32 sum that depends on that order flips
 strict LM accept decisions between two runs of the same clip. The
-reduced-system kernels sum in float64 too, in a fixed order.
+CG path's kernels sum in float64 too, in a fixed order.
 
 Camera 0 is gauge-fixed. Intrinsics are fixed (`models/bal.py` is the
 variant with 9-parameter cameras).
@@ -44,7 +47,7 @@ import torch
 
 from slam1_tpu_torch.config import BAConfig
 from slam1_tpu_torch.models import posegraph
-from slam1_tpu_torch.ops import cuda_kernels, dispatch, se3
+from slam1_tpu_torch.ops import ba_obs, cuda_kernels, dispatch, se3
 from slam1_tpu_torch.ops.camera import StereoCamera
 from slam1_tpu_torch.ops.cg import cg
 from slam1_tpu_torch.ops.lsq import huber_weights, inv3x3, inv_spd6
@@ -54,7 +57,12 @@ from slam1_tpu_torch.utils.metrics import traced
 from slam1_tpu_torch.utils.tree import flatten
 
 DIRECT_MAX_CAMS = 16       # dense reduced system up to this many cameras
-Z_MIN = 1e-3               # depth clamp of the projection
+
+# The observation terms (`ops/ba_obs.py`) under the names the rest of the
+# port and its tests use.
+_obs_residual = ba_obs.obs_residual
+_obs_terms = ba_obs.obs_terms
+_cost = ba_obs.huber_cost
 
 
 class BAProblem(NamedTuple):
@@ -94,54 +102,6 @@ def make_problem(poses, points, cam_idx, lm_idx, uv, w, ur=None, wr=None,
     return BAProblem(poses=poses, points=points, cam_idx=cam_idx,
                      lm_idx=lm_idx, uv=uv, w=w, ur=ur, wr=wr,
                      pe_i=pe_i, pe_j=pe_j, pe_z=pe_z, pe_w=pe_w)
-
-
-def _project(Xc, uv, ur, wr, cam: StereoCamera):
-    """Residuals (O,3) of camera-frame points Xc (O,3), the clamped
-    depth z (O,) and the unclamped-depth mask (O,)."""
-    free = Xc[:, 2] > Z_MIN
-    z = torch.clamp(Xc[:, 2], min=Z_MIN)
-    u = cam.fx * Xc[:, 0] / z + cam.cx
-    v = cam.fy * Xc[:, 1] / z + cam.cy
-    u_r = cam.fx * (Xc[:, 0] - cam.baseline) / z + cam.cx
-    r = torch.stack([u - uv[:, 0], v - uv[:, 1], wr * (u_r - ur)], dim=-1)
-    return r, z, free
-
-
-def _obs_residual(T, X, uv, ur, wr, cam: StereoCamera):
-    """Residuals (O,3) of stereo observations at camera poses T (O,4,4)
-    and world points X (O,3): [u_left, v_left, right-u] errors. The third
-    component is gated by the stereo weight `wr` (0 = monocular); stereo
-    observations anchor the metric scale."""
-    Xc = ((X - T[:, :3, 3])[:, None, :] @ T[:, :3, :3])[:, 0]   # R^T (X - t)
-    return _project(Xc, uv, ur, wr, cam)[0]
-
-
-def _obs_terms(T, X, uv, ur, wr, cam: StereoCamera):
-    """Residuals (O,3) and their Jacobians at zero perturbation with
-    respect to the camera twist dc (O,3,6), T <- T exp(dc), and to the
-    landmark dl (O,3,3), X <- X + dl.
-
-    With Xc = R^T (X - t): dXc/ddc = [-I | hat(Xc)] in the twist order
-    [rho, phi] of `se3.exp_se3`, dXc/ddl = R^T. Below the depth clamp the
-    depth's derivative is 0 (forward mode through a maximum)."""
-    R = T[:, :3, :3]
-    Xc = ((X - T[:, :3, 3])[:, None, :] @ R)[:, 0]
-    r, z, free = _project(Xc, uv, ur, wr, cam)
-    dz = free.to(Xc.dtype)
-    zero = torch.zeros_like(z)
-    fxz, fyz = cam.fx / z, cam.fy / z
-    iz2 = dz / (z * z)
-    # d[u, v, wr * u_r] / dXc
-    Jp = torch.stack([
-        torch.stack([fxz, zero, -cam.fx * Xc[:, 0] * iz2], dim=-1),
-        torch.stack([zero, fyz, -cam.fy * Xc[:, 1] * iz2], dim=-1),
-        torch.stack([wr * fxz, zero,
-                     -wr * cam.fx * (Xc[:, 0] - cam.baseline) * iz2],
-                    dim=-1)], dim=-2)                            # (O,3,3)
-    Jc = torch.cat([-Jp, Jp @ se3.hat(Xc)], dim=-1)              # (O,3,6)
-    Jl = Jp @ R.transpose(-1, -2)                                # (O,3,3)
-    return r, Jc, Jl
 
 
 def _prior_terms(problem: BAProblem, poses):
@@ -185,35 +145,37 @@ def _diag_only(blocks):
 
 def _normal_blocks(problem, r, Jc, Jl, w):
     """The blocks both solvers share: Hcc (C,6,6), Hll (L,3,3), W
-    (O,6,3), bc (C,6), bl (L,3), with the pose priors' gradient and
-    diagonal curvature folded into bc and Hcc (LM damping and the
-    block-Jacobi preconditioner must see the dominant curvature), and
-    the prior terms (None without priors) for the cross blocks."""
-    C = problem.poses.shape[0]
-    L = problem.points.shape[0]
-    ci, li = problem.cam_idx.long(), problem.lm_idx.long()
-    w2 = w[:, None, None]
-    rw = r * w[:, None]
-    Hcc = seg_sum(C, ci, torch.einsum("oai,oaj->oij", Jc, Jc) * w2)
-    Hll = seg_sum(L, li, torch.einsum("oai,oaj->oij", Jl, Jl) * w2)
-    W = torch.einsum("oai,oaj->oij", Jc, Jl) * w2                # (O,6,3)
-    bc = -seg_sum(C, ci, torch.einsum("oai,oa->oi", Jc, rw))
-    bl = -seg_sum(L, li, torch.einsum("oai,oa->oi", Jl, rw))
-    prior = None
-    if problem.pe_i.shape[0] > 0:
-        rp, Jpi, Jpj, wp = _prior_terms(problem, problem.poses)
-        pi, pj = problem.pe_i.long(), problem.pe_j.long()
-        pij = torch.cat([pi, pj])
-        rpw = rp * wp[:, None]
-        wp3 = wp[:, None, None]
-        bc = bc - seg_sum(C, pij, torch.cat([
-            torch.einsum("eab,ea->eb", Jpi, rpw),
-            torch.einsum("eab,ea->eb", Jpj, rpw)]))
-        Hcc = Hcc + seg_sum(C, pij, torch.cat([
-            torch.einsum("eai,eaj->eij", Jpi, Jpi) * wp3,
-            torch.einsum("eai,eaj->eij", Jpj, Jpj) * wp3]))
-        prior = (pi, pj, Jpi, Jpj, wp)
+    (O,6,3), bc (C,6), bl (L,3), with the pose priors folded in
+    (`_with_priors`), and the prior terms (None without priors) for the
+    cross blocks."""
+    W, Hcc, bc = ba_obs.camera_blocks(problem.poses.shape[0],
+                                      problem.cam_idx.long(), r, Jc, Jl, w)
+    Hll, bl = ba_obs.landmark_blocks(problem.points.shape[0],
+                                     problem.lm_idx.long(), r, Jl, w)
+    Hcc, bc, prior = _with_priors(problem, Hcc, bc)
     return Hcc, Hll, W, bc, bl, prior
+
+
+def _with_priors(problem, Hcc, bc):
+    """(Hcc, bc, prior): the observations' Hcc and bc with the pose
+    priors' gradient and diagonal curvature folded in (LM damping and the
+    block-Jacobi preconditioner must see the dominant curvature), and the
+    prior terms (None without priors) for the cross blocks."""
+    if problem.pe_i.shape[0] == 0:
+        return Hcc, bc, None
+    C = problem.poses.shape[0]
+    rp, Jpi, Jpj, wp = _prior_terms(problem, problem.poses)
+    pi, pj = problem.pe_i.long(), problem.pe_j.long()
+    pij = torch.cat([pi, pj])
+    rpw = rp * wp[:, None]
+    wp3 = wp[:, None, None]
+    bc = bc - seg_sum(C, pij, torch.cat([
+        torch.einsum("eab,ea->eb", Jpi, rpw),
+        torch.einsum("eab,ea->eb", Jpj, rpw)]))
+    Hcc = Hcc + seg_sum(C, pij, torch.cat([
+        torch.einsum("eai,eaj->eij", Jpi, Jpi) * wp3,
+        torch.einsum("eai,eaj->eij", Jpj, Jpj) * wp3]))
+    return Hcc, bc, (pi, pj, Jpi, Jpj, wp)
 
 
 def _damped(H, lam):
@@ -222,23 +184,30 @@ def _damped(H, lam):
         n, dtype=H.dtype, device=H.device)
 
 
-def _reduced_system(problem, r, Jc, Jl, w, lam):
+def _obs_order(problem):
+    """The observations' ordering every kernel of the CG path reads
+    (`dispatch.schur_order`, keyed on the observations' weights: the
+    kernels' orderings leave out the rows of weight zero)."""
+    return dispatch.schur_order(problem.cam_idx, problem.lm_idx,
+                                problem.poses.shape[0],
+                                problem.points.shape[0], w=problem.w)
+
+
+def _reduced_system(problem, blocks, lam, order):
     """The damped reduced camera system after landmark elimination,
-    matrix-free: (matvec, btil (C,6), Minv (C,6,6), back), where
+    matrix-free, from the normal blocks (Hcc, Hll, W, bc, bl, prior) of
+    `_normal_blocks`: (matvec, btil (C,6), Minv (C,6,6), back), where
     matvec(x) is the landmark half then the camera half of the product
     (`dispatch.ba_schur_landmarks`, `ba_schur_cameras`: gather -> block
     products -> segment sums over the observations; nothing bigger than
     (C,6,6) is materialised), Minv the block-Jacobi preconditioner and
     back(dc) the landmark step (L,3) that goes with a camera step.
-    Camera 0's block is the identity. The observations' ordering is made
-    once here for every product (`dispatch.schur_order`; the kernels'
-    leaves out the observations whose W block is zero)."""
+    Camera 0's block is the identity. Every product reads the
+    observations' ordering `order` (`_obs_order`)."""
     C = problem.poses.shape[0]
-    L = problem.points.shape[0]
-    Hcc, Hll, W, bc, bl, prior = _normal_blocks(problem, r, Jc, Jl, w)
+    Hcc, Hll, W, bc, bl, prior = blocks
     Hcc_d = _damped(Hcc, lam)
     Hll_inv = inv3x3(_damped(Hll, lam))                          # (L,3,3)
-    order = dispatch.schur_order(problem.cam_idx, problem.lm_idx, C, L, W)
 
     btil = dispatch.ba_schur_cameras(
         W, dispatch.ba_schur_landmarks(W, Hll_inv, order, a=bl), order,
@@ -265,14 +234,21 @@ def _reduced_system(problem, r, Jc, Jl, w, lam):
     return matvec, btil, inv_spd6(Hcc_d), back
 
 
-def _schur_solve(problem, r, Jc, Jl, w, lam, cg_iters: int):
+def _cg_solve(problem, blocks, lam, cg_iters: int, order):
     """One damped GN step via landmark elimination + PCG on the reduced
-    camera system. Returns (delta_c (C,6), delta_l (L,3))."""
-    matvec, btil, Minv, back = _reduced_system(problem, r, Jc, Jl, w, lam)
+    camera system of the normal blocks. Returns (delta_c (C,6),
+    delta_l (L,3))."""
+    matvec, btil, Minv, back = _reduced_system(problem, blocks, lam, order)
     dc = cg(matvec, btil, iters=cg_iters,
             precond=lambda v: torch.einsum("cij,cj->ci", Minv, v))
     dc[0].zero_()
     return dc, back(dc)
+
+
+def _schur_solve(problem, r, Jc, Jl, w, lam, cg_iters: int):
+    """`_cg_solve` from a linearisation (residuals, Jacobians, weights)."""
+    return _cg_solve(problem, _normal_blocks(problem, r, Jc, Jl, w), lam,
+                     cg_iters, _obs_order(problem))
 
 
 def _schur_solve_direct(problem, r, Jc, Jl, w, lam):
@@ -323,16 +299,6 @@ def _schur_solve_direct(problem, r, Jc, Jl, w, lam):
         W, Hll_inv, cuda_kernels.SchurOrder(ci, li), x=dc, a=bl)
 
 
-def _cost(problem: BAProblem, cam: StereoCamera, huber_delta: float):
-    """(Huber cost (), residuals (O,3), Huber weights (O,))."""
-    T = problem.poses[problem.cam_idx.long()]
-    X = problem.points[problem.lm_idx.long()]
-    r = _obs_residual(T, X, problem.uv, problem.ur, problem.wr, cam)
-    r2 = torch.sum(r * r, dim=-1)
-    hw = huber_weights(r2, huber_delta)
-    return torch.sum(problem.w * hw * r2), r, hw
-
-
 class BATrace(NamedTuple):
     """Per-LM-iteration convergence diagnostics (BAConfig.lm_iters long).
 
@@ -346,15 +312,6 @@ class BATrace(NamedTuple):
     lam: torch.Tensor      # (lm_iters,)
     accept: torch.Tensor   # (lm_iters,) bool
     dc_norm: torch.Tensor  # (lm_iters,)
-
-
-def _trunc_cost(problem: BAProblem, hw, r2, cap):
-    """The truncated robust cost sum_i w_i min(huber(r_i), cap); no cap
-    (None) leaves it the full Huber cost."""
-    contrib = hw * r2                          # huber(r): r2 or delta * r
-    if cap is not None:
-        contrib = torch.minimum(contrib, cap)
-    return torch.sum(problem.w * contrib)
 
 
 def graduated_cut(outlier_px: float, t, dtype):
@@ -372,39 +329,55 @@ def lm_step(problem: BAProblem, cam: StereoCamera, cfg: BAConfig, poses,
     integer tensor on the device, from which the graduated cut is made
     there. The row is (accepted full cost, surviving observations, the
     damping used, accept, the largest camera-step norm), 0-d tensors;
-    None with `trace=False`. Nothing is read back to the host."""
+    None with `trace=False`. Nothing is read back to the host.
+
+    Past DIRECT_MAX_CAMS cameras (the CG path) the observation pass runs
+    through `dispatch.ba_obs_cameras`, `ba_obs_landmarks` and
+    `ba_obs_cost` (on the card the kernels of `csrc/ba_obs.cu`, which
+    visit each observation once a launch, on the CPU their plain twins),
+    over one ordering of the observations made at the top of the
+    iteration and read by every kernel of it (`_obs_order`)."""
     dt = problem.uv.dtype
+    delta = cfg.huber_delta
     p = problem._replace(poses=poses, points=points)
-    full_cur, r, hw = _cost(p, cam, cfg.huber_delta)
-    w = problem.w * hw
-    r2 = torch.sum(r * r, dim=-1)
-    cap = None
+    cut2 = cap = None
     if cfg.outlier_px:
         # Graduated rejection: the cut starts 8x loose and tightens to
         # outlier_px. The step zero-weights observations beyond the cut;
         # the objective saturates them at the cap.
         cut = graduated_cut(cfg.outlier_px, t, dt)
         cut2 = cut * cut
-        w = w * (r2 < cut2).to(dt)
-        cap = huber_weights(cut2, cfg.huber_delta) * cut2
-    pc_cur = _prior_cost(problem, poses)
-    cost_cur = _trunc_cost(problem, hw, r2, cap) + pc_cur
-    full_cur = full_cur + pc_cur
-    r_, Jc, Jl, w_ = _linearize(p, cam, w)
+        cap = huber_weights(cut2, delta) * cut2
     if problem.poses.shape[0] <= DIRECT_MAX_CAMS:
-        dc, dl = _schur_solve_direct(p, r_, Jc, Jl, w_, lam)
+        full_cur, _, hw, r2, w = ba_obs.step_weights(p, cam, cut2, delta)
+        trunc_cur = ba_obs.trunc_cost(problem, hw, r2, cap)
+        n_kept = torch.sum(w > 0).to(torch.int32)
+        dc, dl = _schur_solve_direct(p, *_linearize(p, cam, w), lam)
+
+        def costs_at(q):
+            return ba_obs.cost_plain(q, cam, None, cap, delta)
     else:
-        dc, dl = _schur_solve(p, r_, Jc, Jl, w_, lam, cfg.cg_iters)
+        order = _obs_order(problem)
+        obs = dispatch.ba_obs_cameras(p, cam, order, cut2, cap, delta)
+        Hll, bl = dispatch.ba_obs_landmarks(p, cam, order, cut2, delta)
+        full_cur, trunc_cur, n_kept = obs.full, obs.trunc, obs.n_kept
+        Hcc, bc, prior = _with_priors(p, obs.hcc, obs.bc)
+        dc, dl = _cg_solve(p, (Hcc, Hll, obs.W, bc, bl, prior), lam,
+                           cfg.cg_iters, order)
+
+        def costs_at(q):
+            return dispatch.ba_obs_cost(q, cam, order, cap, delta)
+    pc_cur = _prior_cost(problem, poses)
+    cost_cur = trunc_cur + pc_cur
+    full_cur = full_cur + pc_cur
     dc = torch.where(torch.isfinite(dc), dc, torch.zeros_like(dc))
     dl = torch.where(torch.isfinite(dl), dl, torch.zeros_like(dl))
     new_poses = poses @ se3.exp_se3(dc)
     new_points = points + dl
-    full_new, r_new, hw_new = _cost(
-        problem._replace(poses=new_poses, points=new_points), cam,
-        cfg.huber_delta)
-    r2_new = torch.sum(r_new * r_new, dim=-1)
+    full_new, trunc_new = costs_at(
+        problem._replace(poses=new_poses, points=new_points))
     pc_new = _prior_cost(problem, new_poses)
-    cost_new = _trunc_cost(problem, hw_new, r2_new, cap) + pc_new
+    cost_new = trunc_new + pc_new
     full_new = full_new + pc_new
     accept = cost_new < cost_cur
     poses = torch.where(accept, new_poses, poses)
@@ -417,17 +390,22 @@ def lm_step(problem: BAProblem, cam: StereoCamera, cfg: BAConfig, poses,
         # value; kept as it is.
         lam_used = torch.where(accept, lam * cfg.lm_lambda_down,
                                lam / cfg.lm_lambda_up)
-        row = (torch.where(accept, full_new, full_cur),
-               torch.sum(w > 0).to(torch.int32), lam_used, accept,
-               torch.max(torch.linalg.norm(dc, dim=-1)))
+        row = (torch.where(accept, full_new, full_cur), n_kept, lam_used,
+               accept, torch.max(torch.linalg.norm(dc, dim=-1)))
     return (poses, points, lam), row
 
 
 def final_cost(problem: BAProblem, cam: StereoCamera, cfg: BAConfig, poses,
                points):
-    """() full Huber cost plus the pose priors' at (poses, points)."""
+    """() full Huber cost plus the pose priors' at (poses, points); on the
+    CG path through `dispatch.ba_obs_cost`."""
     out = problem._replace(poses=poses, points=points)
-    return _cost(out, cam, cfg.huber_delta)[0] + _prior_cost(problem, poses)
+    if problem.poses.shape[0] <= DIRECT_MAX_CAMS:
+        cost = _cost(out, cam, cfg.huber_delta)[0]
+    else:
+        cost = dispatch.ba_obs_cost(out, cam, _obs_order(problem), None,
+                                    cfg.huber_delta)[0]
+    return cost + _prior_cost(problem, poses)
 
 
 class _LMCarry(NamedTuple):

@@ -19,6 +19,12 @@ CUDA C++ kernels for sm_90a live in `slam1_tpu_torch/csrc/`:
     adjustment's reduced camera system (landmarks, then cameras) that
     its CG path takes 65 times an LM iteration; replaces no TPU kernel
     but the reference's einsums (`slam1_tpu/models/ba.py:256-265`).
+  - `ba_obs.cu`       — the observation pass of the same CG path: per
+    observation the residual, Huber weight, cut, costs, Jacobians and
+    normal blocks, summed by camera and by landmark, and the costs alone
+    at another estimate; replaces no TPU kernel but the reference's
+    gathers, Jacobians and einsums (`slam1_tpu/models/ba.py` `_cost`,
+    `_linearize`, `_schur_solve`).
 
 Each source is compiled with nvcc into its own shared library with a
 plain C interface at first use (all sources at once, from the repo's
@@ -52,6 +58,7 @@ from typing import NamedTuple
 
 import torch
 
+from slam1_tpu_torch.ops.ba_obs import ObsTerms
 from slam1_tpu_torch.ops.brief import unpack_bits
 from slam1_tpu_torch.ops.segment import seg_sum
 from slam1_tpu_torch.utils import metrics
@@ -68,7 +75,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 SOURCES = ("fast_score.cu", "hamming_top2.cu", "chain_sweep.cu",
-           "ba_schur.cu")
+           "ba_schur.cu", "ba_obs.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -125,8 +132,20 @@ class _FastLevel(ctypes.Structure):
                 ("w", ctypes.c_int)]
 
 
+class _ObsArgs(ctypes.Structure):
+    """What every entry of csrc/ba_obs.cu reads (`ObsArgs`): the
+    problem's and the camera's device pointers, the 0-d cut and cap (or
+    null), the ordering, the squared Huber delta and the sizes."""
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "poses", "points", "uv", "ur", "wr", "w", "fx", "fy", "cx", "cy",
+        "baseline", "cut2", "cap", "cam_rows", "cam_lms", "cam_off",
+        "lm_rows", "lm_cams", "lm_off")] + [
+        ("delta2", ctypes.c_float), ("n_cams", ctypes.c_int),
+        ("n_lms", ctypes.c_int), ("n_obs", ctypes.c_int)]
+
+
 class _Kernels:
-    """The C entry points of the four libraries, argtypes declared."""
+    """The C entry points of the five libraries, argtypes declared."""
 
     def __init__(self, libs):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -160,12 +179,26 @@ class _Kernels:
         self.slam_ba_schur_cameras = schur.slam_ba_schur_cameras
         self.slam_ba_schur_cameras.argtypes = [p, p, p, p, p, p, p, p, i, p,
                                                p]
+        obs = libs["ba_obs.cu"]
+        args = ctypes.POINTER(_ObsArgs)
+        self.slam_ba_obs_cameras = obs.slam_ba_obs_cameras
+        self.slam_ba_obs_cameras.argtypes = [args, p, p, p, p, p, p, p]
+        self.slam_ba_obs_landmarks = obs.slam_ba_obs_landmarks
+        self.slam_ba_obs_landmarks.argtypes = [args, p, p, p]
+        self.slam_ba_obs_cost = obs.slam_ba_obs_cost
+        self.slam_ba_obs_cost.argtypes = [args, p, p, p]
         for fn in (self.slam_fast_score, self.slam_fast_score_levels,
                    self.slam_hamming_top2,
                    self.slam_hamming_top2_batched, self.slam_chain_prepare,
                    self.slam_chain_sweep, self.slam_ba_schur_landmarks,
-                   self.slam_ba_schur_cameras):
+                   self.slam_ba_schur_cameras, self.slam_ba_obs_cameras,
+                   self.slam_ba_obs_landmarks, self.slam_ba_obs_cost):
             fn.restype = i
+        obs.slam_ba_obs_args_size.argtypes = []
+        obs.slam_ba_obs_args_size.restype = i
+        if obs.slam_ba_obs_args_size() != ctypes.sizeof(_ObsArgs):
+            raise RuntimeError("csrc/ba_obs.cu's ObsArgs and _ObsArgs "
+                               "disagree")
         if chain.slam_chain_levels() != CHAIN_LEVELS:
             raise RuntimeError("csrc/chain_sweep.cu and CHAIN_LEVELS disagree")
         # Most rows (F) whose offsets one chain_sweep launch holds in
@@ -697,16 +730,16 @@ def segment_order(idx, n: int):
 
 
 def schur_order(cam_idx, lm_idx, n_cams: int, n_lms: int,
-                kernels: bool, W=None) -> SchurOrder:
+                kernels: bool, w=None) -> SchurOrder:
     """The SchurOrder of observations (cam_idx, lm_idx) over n_cams
     cameras and n_lms landmarks; the kernels' orderings only where
-    `kernels` (made once per reduced system, read by every product).
+    `kernels` (made once per LM iteration, read by every kernel of it).
 
-    Given the blocks W (O,6,3), the kernels' orderings leave out every
-    observation whose block is all zero (a bucket's padding, an
-    observation the outlier cut or its weight removed): it adds a zero
-    to each sum, and a problem's padding all points at one landmark,
-    whose thread in the landmark half would walk every padded row."""
+    Given the observations' weights w (O,), the kernels' orderings leave
+    out every observation of weight zero (a bucket's padding): it adds a
+    zero to each sum, and a problem's padding all points at one landmark,
+    whose thread in a landmark kernel would walk every padded row. The
+    left-out rows follow the others in `cam_rows` and `lm_rows`."""
     ci, li = cam_idx.long(), lm_idx.long()
     if not kernels:
         return SchurOrder(ci, li)
@@ -714,8 +747,8 @@ def schur_order(cam_idx, lm_idx, n_cams: int, n_lms: int,
         raise ValueError(f"schur_order: {ci.shape[0]} observations do not "
                          f"fit int32 rows")
     lm_key, cam_key = li, ci
-    if W is not None:
-        zero = ~(W != 0).flatten(1).any(1)
+    if w is not None:
+        zero = w == 0
         lm_key = torch.where(zero, n_lms, li)
         cam_key = torch.where(zero, n_cams, ci)
     lm_rows, lm_off = segment_order(lm_key, n_lms)
@@ -831,11 +864,135 @@ def ba_schur_cameras_cuda(W, v, order, hcc=None, x=None, b=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Bundle adjustment's observation pass
+# ---------------------------------------------------------------------------
+#
+# Per observation the residual, Huber weight, cut, costs, Jacobians and
+# normal blocks, by camera and by landmark (see csrc/ba_obs.cu). The
+# plain twins are `ops/ba_obs.py`'s `cameras_plain`, `landmarks_plain`
+# and `cost_plain`.
+
+
+def _scalar_arg(t, name: str, device):
+    """The device pointer of an optional 0-d float32 tensor (None: null)."""
+    if t is None:
+        return None
+    _check(t, name, torch.float32, ())
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, the problem on {device}")
+    return t.data_ptr()
+
+
+def _obs_args(problem, cam, order, cut2, cap, huber_delta: float):
+    """(_ObsArgs, the tensors it points into) of one launch of
+    csrc/ba_obs.cu: the problem's poses, points, uv, ur, wr and w, the
+    camera's five 0-d fields, the 0-d cut2 and cap (or None) and the
+    kernels' orderings of `order`, all float32 or int32 on one card."""
+    poses, points, uv, ur, wr, w = [x.contiguous() for x in (
+        problem.poses, problem.points, problem.uv, problem.ur, problem.wr,
+        problem.w)]
+    c, n_l, o = poses.shape[0], points.shape[0], uv.shape[0]
+    _check(poses, "poses", torch.float32, (c, 4, 4))
+    _check(points, "points", torch.float32, (n_l, 3))
+    _check(uv, "uv", torch.float32, (o, 2))
+    for name, t in (("ur", ur), ("wr", wr), ("w", w)):
+        _check(t, name, torch.float32, (o,))
+    _check_aligned(16, poses=poses)
+    _check_aligned(8, uv=uv)
+    made_for = _check_order(order, o)
+    if made_for != (c, n_l):
+        raise ValueError(f"order: made for {made_for} cameras and "
+                         f"landmarks, the problem has {(c, n_l)}")
+    dev = poses.device
+    for t in (points, uv, ur, wr, w, order.cam_rows, order.lm_rows):
+        if t.device != dev:
+            raise ValueError(f"the problem's tensors are on {t.device} and "
+                             f"{dev}")
+    if max(c, n_l, o) >= 1 << 31:
+        raise ValueError(f"ba_obs: {(c, n_l, o)} do not fit int32")
+    fields = [_scalar_arg(v, f"cam.{k}", dev) for k, v in
+              zip(("fx", "fy", "cx", "cy", "baseline"), cam)]
+    args = _ObsArgs(
+        poses.data_ptr(), points.data_ptr(), uv.data_ptr(), ur.data_ptr(),
+        wr.data_ptr(), w.data_ptr(), *fields,
+        _scalar_arg(cut2, "cut2", dev), _scalar_arg(cap, "cap", dev),
+        order.cam_rows.data_ptr(), order.cam_lms.data_ptr(),
+        order.cam_off.data_ptr(), order.lm_rows.data_ptr(),
+        order.lm_cams.data_ptr(), order.lm_off.data_ptr(),
+        float(huber_delta) * float(huber_delta), c, n_l, o)
+    return args, (poses, points, uv, ur, wr, w)
+
+
+def ba_obs_cameras_cuda(problem, cam, order, cut2, cap, huber_delta: float):
+    """The observation pass by camera in one launch of csrc/ba_obs.cu (and
+    the costs' one-block sum). Same contract as ba_obs.cameras_plain;
+    `order` holds the kernels' orderings (schur_order with kernels=True,
+    made with the problem's weights)."""
+    args, keep = _obs_args(problem, cam, order, cut2, cap, huber_delta)
+    dev = keep[0].device
+    W = torch.empty((args.n_obs, 6, 3), dtype=torch.float32, device=dev)
+    hcc = torch.empty((args.n_cams, 6, 6), dtype=torch.float32, device=dev)
+    bc = torch.empty((args.n_cams, 6), dtype=torch.float32, device=dev)
+    part = torch.empty((args.n_cams, 3), dtype=torch.float64, device=dev)
+    costs = torch.empty((2,), dtype=torch.float32, device=dev)
+    n_kept = torch.empty((), dtype=torch.int32, device=dev)
+    lib = build()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _raise_on(lib.slam_ba_obs_cameras(
+        ctypes.byref(args), W.data_ptr(), hcc.data_ptr(), bc.data_ptr(),
+        part.data_ptr(), costs.data_ptr(), n_kept.data_ptr(), stream),
+        "ba_obs cameras launch")
+    ba_obs_cameras_cuda.launches += 1
+    return ObsTerms(W, hcc, bc, costs[0], costs[1], n_kept)
+
+
+# Launches of the three entries.
+ba_obs_cameras_cuda.launches = 0
+
+
+def ba_obs_landmarks_cuda(problem, cam, order, cut2, huber_delta: float):
+    """The observation pass by landmark in one launch of csrc/ba_obs.cu.
+    Same contract as ba_obs.landmarks_plain; `order` as for
+    ba_obs_cameras_cuda."""
+    args, keep = _obs_args(problem, cam, order, cut2, None, huber_delta)
+    dev = keep[0].device
+    hll = torch.empty((args.n_lms, 3, 3), dtype=torch.float32, device=dev)
+    bl = torch.empty((args.n_lms, 3), dtype=torch.float32, device=dev)
+    if args.n_lms == 0:
+        return hll, bl
+    lib = build()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _raise_on(lib.slam_ba_obs_landmarks(
+        ctypes.byref(args), hll.data_ptr(), bl.data_ptr(), stream),
+        "ba_obs landmarks launch")
+    ba_obs_cameras_cuda.launches += 1
+    return hll, bl
+
+
+def ba_obs_cost_cuda(problem, cam, order, cap, huber_delta: float):
+    """The two costs in one launch of csrc/ba_obs.cu (and their one-block
+    sum), the bits ba_obs_cameras_cuda gives at the same estimate. Same
+    contract as ba_obs.cost_plain; `order` as for ba_obs_cameras_cuda."""
+    args, keep = _obs_args(problem, cam, order, None, cap, huber_delta)
+    dev = keep[0].device
+    part = torch.empty((args.n_cams, 3), dtype=torch.float64, device=dev)
+    costs = torch.empty((2,), dtype=torch.float32, device=dev)
+    lib = build()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _raise_on(lib.slam_ba_obs_cost(ctypes.byref(args), part.data_ptr(),
+                                   costs.data_ptr(), stream),
+              "ba_obs cost launch")
+    ba_obs_cameras_cuda.launches += 1
+    return costs[0], costs[1]
+
+
 _COUNTED = {"fast_score": fast_score_cuda, "hamming_top2": hamming_top2_cuda,
             "hamming_top2_batched": hamming_top2_batched_cuda,
             "chain_prepare": chain_prepare_cuda,
             "chain_sweep": chain_sweep_cuda,
-            "ba_schur": ba_schur_landmarks_cuda}
+            "ba_schur": ba_schur_landmarks_cuda,
+            "ba_obs": ba_obs_cameras_cuda}
 
 
 def launch_counts() -> dict:

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from slam1_tpu_torch.ops import cuda_kernels, fast
+from slam1_tpu_torch.ops import ba_obs, cuda_kernels, fast
 
 
 def use_cuda(t: torch.Tensor) -> bool:
@@ -81,13 +81,41 @@ def chain_sweep(jj_inv, ji, winv, v, n_live, prep=None):
     return cuda_kernels.chain_sweep_plain(*args)
 
 
-def schur_order(cam_idx, lm_idx, n_cams: int, n_lms: int, W=None):
-    """The ordering of BA's observations that the reduced-system product
-    takes (`cuda_kernels.SchurOrder`): with the kernels' sorted rows and
-    offsets for CUDA tensors (without the observations whose block in W
-    is all zero), the indices alone on the CPU."""
+def schur_order(cam_idx, lm_idx, n_cams: int, n_lms: int, w=None):
+    """The ordering of BA's observations that the CG path's kernels take
+    (`cuda_kernels.SchurOrder`): with the kernels' sorted rows and
+    offsets for CUDA tensors (without the observations whose weight in
+    w is zero), the indices alone on the CPU."""
     return cuda_kernels.schur_order(cam_idx, lm_idx, n_cams, n_lms,
-                                    kernels=use_cuda(cam_idx), W=W)
+                                    kernels=use_cuda(cam_idx), w=w)
+
+
+def ba_obs_cameras(problem, cam, order, cut2, cap, huber_delta: float):
+    """BA's observation pass by camera at the problem's poses and points
+    -> ba_obs.ObsTerms (W, Hcc, bc, the full and the truncated cost, the
+    rows kept): the step's weights cut at the 0-d `cut2` (None: no cut),
+    the truncated cost capped at the 0-d `cap` (None: the full cost)."""
+    if use_cuda(problem.uv):
+        return cuda_kernels.ba_obs_cameras_cuda(problem, cam, order, cut2,
+                                                cap, huber_delta)
+    return ba_obs.cameras_plain(problem, cam, order, cut2, cap, huber_delta)
+
+
+def ba_obs_landmarks(problem, cam, order, cut2, huber_delta: float):
+    """BA's observation pass by landmark -> (Hll (L,3,3), bl (L,3))."""
+    if use_cuda(problem.uv):
+        return cuda_kernels.ba_obs_landmarks_cuda(problem, cam, order, cut2,
+                                                  huber_delta)
+    return ba_obs.landmarks_plain(problem, cam, order, cut2, huber_delta)
+
+
+def ba_obs_cost(problem, cam, order, cap, huber_delta: float):
+    """BA's full and truncated costs at the problem's poses and points,
+    as ba_obs_cameras gives them -> (full (), truncated ())."""
+    if use_cuda(problem.uv):
+        return cuda_kernels.ba_obs_cost_cuda(problem, cam, order, cap,
+                                             huber_delta)
+    return ba_obs.cost_plain(problem, cam, order, cap, huber_delta)
 
 
 def _contiguous(t):

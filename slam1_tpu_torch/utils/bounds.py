@@ -104,3 +104,40 @@ def ba_cost_work(o, c, l, index_bytes=8):
 
 def bound_ba_cost(o, c, l, index_bytes=8):
     return bound(*ba_cost_work(o, c, l, index_bytes), PEAK_F32_FLOPS)
+
+
+def ba_obs_work(o, c, l, launch: str):
+    """(bytes, float32 operations) of one launch of BA's observation pass
+    (`csrc/ba_obs.cu`) over O observations of C poses (4x4) and L points,
+    every observation kept; each input read once, each output written
+    once. Every launch reads the poses, the points, each observation's
+    uv, ur, wr and w (20 bytes) and its ordering's row and other index
+    (int32, 8 bytes), and works out the residual, its square, the Huber
+    weight and the cut (45 operations an observation: the point into the
+    camera 18, the stereo projection and residuals 14, r2 5, the weight
+    and the cut 8). Besides:
+      - "cameras": the camera offsets; the two costs and the kept count
+        (6), the Jacobians Jp (17), Jc's [Jp hat(Xc)] and Jl (45 each),
+        W (108), Hcc's upper triangle (126) and bc (33) an observation;
+        W (72 bytes an observation), Hcc (144 bytes) and bc (24 bytes) a
+        camera written;
+      - "landmarks": the landmark offsets; Jp, Jl, Hll's upper triangle
+        (36) and bl (18); Hll (36 bytes) and bl (12 bytes) a landmark
+        written;
+      - "cost": the camera offsets; the two costs (6); two floats
+        written.
+    The float64 sums are counted with the float32 operations."""
+    reads = c * 64 + l * 12 + o * (20 + 8)
+    if launch == "cameras":
+        return (reads + (c + 1) * 4 + o * 72 + c * (144 + 24),
+                o * (45 + 6 + 17 + 45 + 45 + 108 + 126 + 33))
+    if launch == "landmarks":
+        return (reads + (l + 1) * 4 + l * (36 + 12),
+                o * (45 + 17 + 45 + 36 + 18))
+    if launch == "cost":
+        return reads + (c + 1) * 4 + 8, o * (45 + 6)
+    raise ValueError(f"ba_obs_work: no launch {launch!r}")
+
+
+def bound_ba_obs(o, c, l, launch: str):
+    return bound(*ba_obs_work(o, c, l, launch), PEAK_F32_FLOPS)

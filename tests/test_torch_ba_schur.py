@@ -10,9 +10,9 @@ CPU:
     step (the landmark half's twin) gives its former back-substitution;
   - `segment_order`'s offsets equal a bincount and a cumulative sum, its
     rows are a stable sort, and `schur_order` reads nothing back to the
-    host (it runs inside the `ba_lm` graph on the card); given W, it
-    leaves out the observations whose block is zero, which changes no
-    bit of the kernels' visit;
+    host (it runs inside the `ba_lm` graph on the card); given the
+    observations' weights, it leaves out the rows of weight zero, which
+    changes no bit of the kernels' visit;
   - the visit order the kernels take (csrc/ba_schur.cu: the rows of each
     landmark and of each camera through the orderings, float32 products,
     float64 sums in that order) gives the twins' values within 1e-6 of
@@ -130,7 +130,8 @@ def test_plain_twins_equal_the_composition_they_replaced(case):
     p = _problem(*CASES[case])
     lin = _linear_system(p)
     lam = torch.tensor(1e-3)
-    matvec, btil, _, back = ba._reduced_system(p, *lin, lam)
+    matvec, btil, _, back = ba._reduced_system(
+        p, ba._normal_blocks(p, *lin), lam, ba._obs_order(p))
     matvec0, btil0, back0 = _composition_before(p, *lin, lam)
     g = torch.Generator().manual_seed(7)
     C = p.poses.shape[0]
@@ -228,10 +229,12 @@ def _kernel_visit(W, hll_inv, hcc, order, x, a=None):
 
 @pytest.mark.parametrize("case", ["shuffled", "empty-rows"])
 def test_schur_order_leaves_zero_blocks_out(case):
-    """Given W, the kernels' orderings leave out the observations whose
-    block is all zero (a bucket's padding, all on camera 0 and landmark
-    0, and a few cut rows): the offsets count the other rows alone, and
-    the kernels' visit gives the bits it gives over every row."""
+    """Given the observations' weights, the kernels' orderings leave out
+    the rows of weight zero, whose W blocks are zero (a bucket's padding,
+    all on camera 0 and landmark 0): the offsets count the other rows
+    alone, rows beyond the outlier cut stay (their W blocks are zero),
+    nothing is read back to the host, and the kernels' visit gives the
+    bits it gives over every row."""
     p = _problem(*CASES[case])
     r, Jc, Jl, w = _linear_system(p)
     lam = torch.tensor(1e-3)
@@ -241,17 +244,21 @@ def test_schur_order_leaves_zero_blocks_out(case):
     C, L = p.poses.shape[0], p.points.shape[0]
     pad = 300
     W = torch.cat([W, torch.zeros(pad, 6, 3)])
-    W[torch.randperm(W.shape[0] - pad,
-                     generator=torch.Generator().manual_seed(2))[:9]] = 0.0
+    cut = torch.randperm(W.shape[0] - pad,
+                         generator=torch.Generator().manual_seed(2))[:9]
+    W[cut] = 0.0
+    weight = torch.cat([p.w, torch.zeros(pad)])
     ci = torch.cat([p.cam_idx.long(), torch.zeros(pad, dtype=torch.int64)])
     li = torch.cat([p.lm_idx.long(), torch.zeros(pad, dtype=torch.int64)])
     every = ck.schur_order(ci, li, C, L, kernels=True)
-    order = ck.schur_order(ci, li, C, L, kernels=True, W=W)
-    kept = (W != 0).flatten(1).any(1)
+    with HostReads() as rec:
+        order = ck.schur_order(ci, li, C, L, kernels=True, w=weight)
+    assert rec.ops == []
+    kept = weight != 0
     for off, idx, n in ((order.lm_off, li, L), (order.cam_off, ci, C)):
         want = torch.cumsum(torch.bincount(idx[kept], minlength=n), 0)
         assert torch.equal(off.long()[1:], want) and int(off[0]) == 0
-    assert int(kept.sum()) == W.shape[0] - pad - 9
+    assert int(kept.sum()) == W.shape[0] - pad
     x = torch.randn(C, 6, generator=torch.Generator().manual_seed(5))
     for got, ref in zip(_kernel_visit(W, Hll_inv, Hcc_d, order, x),
                         _kernel_visit(W, Hll_inv, Hcc_d, every, x)):

@@ -34,6 +34,8 @@ from slam1_tpu_torch.ops.segment import seg_sum
 from slam1_tpu_torch.utils import synthetic
 from slam1_tpu_torch.utils.graphs import StepGraph
 from slam1_tpu_torch.utils.tree import flatten, unflatten
+from test_torch_ba_obs import (COST_TOL, OBS_TOL, VISIT_CASES, _magnitudes,
+                               _problem)
 
 pytestmark = pytest.mark.cuda
 
@@ -229,7 +231,8 @@ def test_vo_slice_launches_both_kernels(cuda_device):
                                             "hamming_top2_batched": 0,
                                             "chain_prepare": 0,
                                             "chain_sweep": 0,
-                                            "ba_schur": 0}
+                                            "ba_schur": 0,
+                                            "ba_obs": 0}
     assert np.isfinite(poses).all()
     assert np.mean([bool(m.pnp_ok) for m in metrics]) > 0.5
 
@@ -1090,19 +1093,22 @@ def test_ba_schur_halves_match_plain(cuda_device, shape):
 
 
 def test_ba_schur_leaves_zero_blocks_out(cuda_device):
-    """Orderings made with W leave out the observations whose block is
-    zero: here a bucket's 20 000 padded rows, all on camera 0 and
-    landmark 0, as `build_global_problem` pads. Both halves give the
-    bits they give over every row, in every form."""
+    """Orderings made with the observations' weights leave out the rows
+    of weight zero, whose blocks are zero: here a bucket's 20 000 padded
+    rows, all on camera 0 and landmark 0, as `build_global_problem`
+    pads. Both halves give the bits they give over every row, in every
+    form."""
     t = _schur_inputs(SCHUR_SHAPES["odd-empty-rows"], 12, cuda_device)
     c, n_l = t["hcc"].shape[0], t["hll_inv"].shape[0]
     pad = 20000
     zeros = torch.zeros(pad, dtype=torch.int64, device=cuda_device)
     W = torch.cat([t["W"], torch.zeros((pad, 6, 3), device=cuda_device)])
     ci, li = torch.cat([t["ci"], zeros]), torch.cat([t["li"], zeros])
+    w = torch.cat([torch.ones(t["ci"].shape[0], device=cuda_device),
+                   torch.zeros(pad, device=cuda_device)])
     every = cuda_kernels.schur_order(ci, li, c, n_l, kernels=True)
-    order = cuda_kernels.schur_order(ci, li, c, n_l, kernels=True, W=W)
-    assert int(order.lm_off[-1]) == int(order.cam_off[-1]) <= ci.shape[0] - pad
+    order = cuda_kernels.schur_order(ci, li, c, n_l, kernels=True, w=w)
+    assert int(order.lm_off[-1]) == int(order.cam_off[-1]) == ci.shape[0] - pad
     for lm_kw, cam_kw in ((dict(x=t["x"]), dict(hcc=t["hcc"], x=t["x"])),
                           (dict(a=t["a"]), dict(b=t["b"])),
                           (dict(x=t["x"], a=t["a"]), None)):
@@ -1167,3 +1173,163 @@ def test_bundle_adjust_cg_cuda_matches_cpu(cuda_device):
     assert tr_g.n_obs.tolist() == tr_c.n_obs.tolist()
     assert (out_g.poses.cpu() - out_c.poses)[:, :3, 3].abs().max() <= 1e-4
     assert abs(float(cost_g) - float(cost_c)) <= 1e-3 * float(cost_c)
+
+
+# ---------------------------------------------------------------------------
+# BA's observation pass (csrc/ba_obs.cu)
+# ---------------------------------------------------------------------------
+
+# The kernels are held to their plain twins on the CPU (the same problem
+# copied there) at OBS_TOL of the terms' magnitude and the costs at
+# COST_TOL (tests/test_torch_ba_obs.py states both): each observation's
+# terms are the same float32 operations in the same order on the card
+# (no fused multiply-adds, IEEE division and square root), so what is
+# left is the float64 sums' association, rounded once.
+
+
+def _ba_obs_on_card(p, cam, cut2, cap, dev, delta=2.0):
+    """The three launches on the card: ((cameras, landmarks), cost)."""
+    from slam1_tpu_torch.models import ba
+    pg = ba.BAProblem(*[x.to(dev) for x in p])
+    camg = cam.to(dev)
+    cut2, cap = [None if x is None else x.to(dev) for x in (cut2, cap)]
+    order = cuda_kernels.schur_order(pg.cam_idx, pg.lm_idx,
+                                     pg.poses.shape[0], pg.points.shape[0],
+                                     kernels=True, w=pg.w)
+    return ((cuda_kernels.ba_obs_cameras_cuda(pg, camg, order, cut2, cap,
+                                              delta),
+             cuda_kernels.ba_obs_landmarks_cuda(pg, camg, order, cut2,
+                                                delta)),
+            cuda_kernels.ba_obs_cost_cuda(pg, camg, order, cap, delta))
+
+
+@pytest.mark.parametrize("cut", [True, False], ids=["cut", "no-cut"])
+@pytest.mark.parametrize("case", list(VISIT_CASES))
+def test_ba_obs_kernels_match_plain(cuda_device, case, cut):
+    """The three launches against their plain twins on CG-path problems
+    (20 cameras; shuffled observations, camera and landmark rows no
+    observation touches, pose priors (which the kernels do not read),
+    padding rows of weight zero all on landmark 0, rows beyond the cut):
+    W, Hcc, bc, Hll and bl within OBS_TOL of the terms' magnitude, the
+    costs within COST_TOL, the kept rows equal; the padding's W rows
+    zero; a second launch gives the same bits, and the cost launch the
+    cameras launch's costs, to the bit."""
+    from slam1_tpu_torch.ops import ba_obs
+    from slam1_tpu_torch.ops.lsq import huber_weights
+    p, cam = _problem(**VISIT_CASES[case])
+    cut2 = torch.tensor(16.0 * 16.0) if cut else None
+    cap = huber_weights(cut2, 2.0) * cut2 if cut else None
+    first, cost = _ba_obs_on_card(p, cam, cut2, cap, cuda_device)
+    again, _ = _ba_obs_on_card(p, cam, cut2, cap, cuda_device)
+    for a, b in zip(flatten(first), flatten(again), strict=True):
+        assert torch.equal(_bits(a), _bits(b))
+    (obs, (hll, bl)) = first
+    assert torch.equal(_bits(cost[0]), _bits(obs.full))
+    assert torch.equal(_bits(cost[1]), _bits(obs.trunc))
+    plain = cuda_kernels.SchurOrder(p.cam_idx.long(), p.lm_idx.long())
+    twin = ba_obs.cameras_plain(p, cam, plain, cut2, cap, 2.0)
+    twin_l = ba_obs.landmarks_plain(p, cam, plain, cut2, 2.0)
+    w = ba_obs.step_weights(p, cam, cut2, 2.0)[4]
+    for name, got, want, mag in zip(
+            ("W", "Hcc", "bc", "Hll", "bl"),
+            (obs.W, obs.hcc, obs.bc, hll, bl),
+            (twin.W, twin.hcc, twin.bc, *twin_l), _magnitudes(p, cam, w)):
+        diff = (got.cpu().double() - want.double()).abs()
+        rel = float((diff / mag.clamp_min(1e-30)).max())
+        print(f"ba_obs {case} cut={cut} {name}: {rel:.3g} of the terms, "
+              f"{int((diff > 0).sum())} of {diff.numel()} differ")
+        assert bool((diff <= OBS_TOL * mag + 1e-30).all()), (name, rel)
+    m_cost = ba_obs.cost_plain(p._replace(uv=p.uv.abs(), ur=p.ur.abs()),
+                               cam, None, None, 2.0)[0]
+    for got, want in ((obs.full, twin.full), (obs.trunc, twin.trunc)):
+        assert abs(float(got) - float(want)) <= COST_TOL * float(m_cost)
+    assert int(obs.n_kept) == int(twin.n_kept)
+    pad = p.w == 0
+    assert bool((obs.W.cpu()[pad] == 0).all())
+    if cut:
+        beyond = ~pad & (w == 0)
+        assert bool(beyond.any())
+        assert bool((obs.W.cpu()[beyond] == 0).all())
+
+
+def test_ba_obs_launches_per_replay(cuda_device):
+    """A `ba_lm` replay on the CG path launches the observation pass 3
+    times (cameras, landmarks, the cost after the step) and a `ba_cost`
+    replay once, as the eager calls do; the dense path (C <= 16) and a
+    local-BA window of the SLAM pipeline launch none."""
+    from slam1_tpu_torch.config import BAConfig
+    from slam1_tpu_torch.models import ba
+    cfg = BAConfig(lm_iters=3, cg_iters=10)
+
+    def launches(fn):
+        fn()                                                  # warm
+        torch.cuda.synchronize()
+        before = cuda_kernels.launch_counts()["ba_obs"]
+        fn()
+        torch.cuda.synchronize()
+        return cuda_kernels.launch_counts()["ba_obs"] - before
+
+    def problem(n_cams):
+        return synthetic.ba_problem(0, n_cams=n_cams, px_noise=0.3,
+                                    n_outliers=10, device=cuda_device)
+    ba.BA_GRAPHS.clear()
+    try:
+        p, _, _, cam = problem(24)
+        for graphs in (True, False):
+            assert launches(lambda g=graphs: ba.bundle_adjust(
+                p, cam, cfg, graphs=g)) == 3 * cfg.lm_iters + 1
+        (graphs,) = ba.BA_GRAPHS.values()
+        carry = ba._lm_carry(p, cam, cfg, False)
+        assert launches(lambda: graphs["ba_lm"](carry)) == 3
+        assert launches(lambda: graphs["ba_cost"](carry)) == 1
+        p6, _, _, cam6 = problem(6)
+        assert launches(lambda: ba.bundle_adjust(p6, cam6, cfg)) == 0
+    finally:
+        ba.BA_GRAPHS.clear()
+    cfg = tiny_config()
+    h, w = cfg.image.height, cfg.image.width
+    world = synthetic.make_world(3, n_frames=12, n_points=1200,
+                                 trajectory="loop", image_hw=(h, w),
+                                 speed=0.9, device=cuda_device)
+    lefts, rights = synthetic.render_sequence(world, h, w)
+    draws = pipeline.DrawSource(0, cuda_device)
+    st = pipeline._init_state(lefts[0], rights[0], world.cam, cfg, draws)
+    for i in range(1, 12):
+        st, _, _ = pipeline.slam_step(st, lefts[i], rights[i], world.cam,
+                                      cfg, draws)
+    assert launches(lambda: pipeline.local_ba_step(st, world.cam, cfg)) == 0
+
+
+def test_ba_obs_graphed_lm_with_priors_equals_eager(cuda_device):
+    """bundle_adjust on the CG path with pose priors and the graduated
+    cut, with the trace: a warm graphed call makes no host sync and
+    equals graphs=False to the bit, problem, cost and trace; its steps
+    are accepted and the kept rows fall as the cut tightens."""
+    from slam1_tpu_torch.config import BAConfig
+    from slam1_tpu_torch.models import ba
+    from slam1_tpu_torch.ops import se3
+    cfg = BAConfig(lm_iters=6, cg_iters=30)
+    p, T_true, _, cam = synthetic.ba_problem(0, n_cams=24, px_noise=0.3,
+                                             n_outliers=40,
+                                             device=cuda_device)
+    c = p.poses.shape[0]
+    i = torch.arange(c - 1, device=cuda_device)
+    z = se3.inverse(T_true[i]) @ T_true[i + 1]
+    p = p._replace(pe_i=i, pe_j=i + 1, pe_z=z,
+                   pe_w=torch.full((c - 1,), 1e4, device=cuda_device))
+
+    def call(graphs=True):
+        return ba.bundle_adjust(p, cam, cfg, return_trace=True,
+                                graphs=graphs)
+    ba.BA_GRAPHS.clear()
+    try:
+        eager = call(False)
+        call()
+        graphed = _synced_call(call)
+        for a, b in zip(flatten(eager), flatten(graphed), strict=True):
+            assert torch.equal(_bits(a), _bits(b))
+        trace = eager[2]
+        assert bool(trace.accept.any())
+        assert int(trace.n_obs[-1]) < int(trace.n_obs[0])
+    finally:
+        ba.BA_GRAPHS.clear()

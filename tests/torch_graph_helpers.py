@@ -99,12 +99,16 @@ def emulate_graphs(monkeypatch):
     monkeypatch.setattr(tpipe, "dispatch", card)
     monkeypatch.setattr(vo, "dispatch", card)
     monkeypatch.setattr(vo_flow, "dispatch", card)
-    # BA's reduced-system halves stay dispatched by their tensors' device
-    # (the plain twins here).
+    # BA's CG-path kernels (the reduced-system halves and the observation
+    # pass) stay dispatched by their tensors' device (the plain twins
+    # here).
     monkeypatch.setattr(tba, "dispatch", types.SimpleNamespace(
         use_cuda=card.use_cuda, schur_order=dispatch.schur_order,
         ba_schur_landmarks=dispatch.ba_schur_landmarks,
-        ba_schur_cameras=dispatch.ba_schur_cameras))
+        ba_schur_cameras=dispatch.ba_schur_cameras,
+        ba_obs_cameras=dispatch.ba_obs_cameras,
+        ba_obs_landmarks=dispatch.ba_obs_landmarks,
+        ba_obs_cost=dispatch.ba_obs_cost))
     # The pose graph's chain kernels stay dispatched by their tensors'
     # device (the plain twins here).
     monkeypatch.setattr(tposegraph, "dispatch", types.SimpleNamespace(

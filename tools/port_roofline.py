@@ -144,7 +144,9 @@ def main(argv=None) -> int:
     _, _, hw = ba._cost(prob, cam, cfg.ba.huber_delta)
     r, Jc, Jl, wt = ba._linearize(prob, cam, prob.w * hw)
     lam = torch.full((), cfg.ba.lm_lambda0, device=dev)
-    matvec, btil, _, _ = ba._reduced_system(prob, r, Jc, Jl, wt, lam)
+    matvec, btil, _, _ = ba._reduced_system(
+        prob, ba._normal_blocks(prob, r, Jc, Jl, wt), lam,
+        ba._obs_order(prob))
     t, te = times(lambda: matvec(btil), dev)
     results.append(line(f"ba_cg_matvec C={c} L={l} O={o}", t, te,
                         *bounds.ba_matvec_work(o, c, l, 0),
