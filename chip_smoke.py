@@ -348,6 +348,8 @@ from slam1_tpu_torch.utils.bounds import PEAK_F32_FLOPS, ba_obs_work, \
 from slam1_tpu_torch.utils.evalmetrics import ate_rmse  # noqa: E402
 from slam1_tpu_torch.utils.timing import device_busy_ms, device_launches, \
     event_ms, graph_ms  # noqa: E402
+from slam1_tpu_torch.utils import graphs as graph_mod  # noqa: E402
+from slam1_tpu_torch.utils.graphs import GRAPHS  # noqa: E402
 from slam1_tpu_torch.utils.tree import flatten  # noqa: E402
 
 N_FRAMES = 24
@@ -1422,22 +1424,21 @@ def phase_global_ba(cfg, sys_, world, smi):
         torch.cuda.synchronize()
         return res, 1e3 * (time.perf_counter() - t0)
 
-    pipeline.GLOBAL_BA_GRAPHS.clear()
+    GRAPHS.clear()
     eager, eager_ms = timed(False)
     eager2, eager2_ms = timed(False)
     eager_diff = tree_diff(eager, eager2, "eager")
     eager_spread = max_abs_diff(eager, eager2)
     captured, capture_call_ms = timed(True)
-    check(len(pipeline.GLOBAL_BA_GRAPHS) == 1,
-          f"a graphed call made {len(pipeline.GLOBAL_BA_GRAPHS)} graph sets")
-    (graphs,) = pipeline.GLOBAL_BA_GRAPHS.values()
     names = ("ba_build", "ba_lm", "ba_apply")
+    graphs = solver_graphs("global-ba", names, "global_ba", "ba")
     replays = [graphs[n].replays for n in names]
     cuda_kernels.reset_launch_counts()
     graphed, graphed_ms = timed(True)
     counts = cuda_kernels.launch_counts()
     check([graphs[n].replays - r for n, r in zip(names, replays)]
-          == [1, iters, 1] and len(pipeline.GLOBAL_BA_GRAPHS) == 1,
+          == [1, iters, 1] and solver_graphs(
+              "global-ba", names, "global_ba", "ba") == graphs,
           f"the second graphed call was not one replay of ba_build, "
           f"{iters} of ba_lm and one of ba_apply")
     # The CG path (more than DIRECT_MAX_CAMS rows) launches both halves
@@ -1585,7 +1586,7 @@ def phase_global_ba(cfg, sys_, world, smi):
     out.update({f"global_{n}_graph_{k}": stats[n][k] for n in names
                 for k in ("capture_seconds", "nodes", "pool_bytes")})
     # The graphs' pools are not needed by the later phases.
-    pipeline.GLOBAL_BA_GRAPHS.clear()
+    GRAPHS.clear()
     return counts, schur_times, {"ba_schur": schur_err,
                                  "ba_obs": obs_err}, out
 
@@ -1614,7 +1615,7 @@ def phase_traj_ba(smi, dev, tmp):
     for n in TRAJ_POSES:
         path = traj_file(n, os.path.join(tmp, f"traj{n}.npy"))
         opt_path = os.path.join(tmp, f"opt{n}.npy")
-        posegraph.POSEGRAPH_GRAPHS.clear()
+        GRAPHS.clear("posegraph")
         buf = io.StringIO()
         cuda_kernels.reset_launch_counts()
         t0 = time.perf_counter()
@@ -1647,8 +1648,8 @@ def phase_traj_ba(smi, dev, tmp):
                 host_ms(lambda g=graphs_on: call(g), reps=1, warm=0))
         ms = {k: float(np.mean(v)) / TRAJ_ITERS for k, v in times.items()}
         syncs, where = count_syncs(lambda: call(True))
-        gn = next(g for k, g in posegraph.POSEGRAPH_GRAPHS.items()
-                  if k[0] == "pg_gn")
+        gn = solver_graphs("traj-ba", ("pg_gn", "pg_cost"),
+                           "posegraph")["pg_gn"]
         cost0 = float(posegraph.optimize(graph, iters=0)[1])
         staged = cuda_kernels.chain_sweep_staged(n)
         say("traj-ba", card=smi, poses=n, gn_iters=TRAJ_ITERS,
@@ -1673,7 +1674,7 @@ def phase_traj_ba(smi, dev, tmp):
                     f"traj_ba_{n}_pg_gn_capture_seconds": gn.capture_seconds,
                     f"traj_ba_{n}_pg_gn_pool_bytes": gn.pool_bytes,
                     f"traj_ba_{n}_graph_replay_syncs": syncs})
-    posegraph.POSEGRAPH_GRAPHS.clear()
+    GRAPHS.clear("posegraph")
     return by_path, out
 
 
@@ -3066,12 +3067,26 @@ def pgo_graph(g):
 def dist_graph_mode(mesh, x):
     """How the sharded solvers run for tensors like x on this mesh:
     "graphed" (a card under NCCL) or "eager (<backend>)"."""
-    from slam1_tpu_torch.parallel import mesh as mesh_mod
-    return ("graphed" if mesh_mod.capturable(mesh, x)
+    return ("graphed" if graph_mod.graphed(x, mesh)
             else f"eager ({mesh.backend})")
 
 
-def dist_graph_runs(tag, call, cache, names, iters, mesh, smi):
+def solver_graphs(tag, names, *kinds):
+    """{base name: StepGraph} of the graph registry's graphs of `kinds`,
+    checked to be one graph of each base in `names`."""
+    found = {}
+    for kind in kinds:
+        for g in GRAPHS.of(kind).values():
+            found.setdefault(g.name.split("[", 1)[0], []).append(g)
+    held = [g.name for v in found.values() for g in v]
+    check(sorted(found) == sorted(names)
+          and all(len(v) == 1 for v in found.values()),
+          f"{tag}: the registry holds {held}, not one graph of each of "
+          f"{names}")
+    return {n: v[0] for n, v in found.items()}
+
+
+def dist_graph_runs(tag, call, kind, names, iters, mesh, smi):
     """A sharded solver at one rank, as phase global-ba holds global BA:
     two eager calls (`call(False)`), then two graphed ones (the first
     captures `names`, the second replays them: the iteration graph
@@ -3090,17 +3105,15 @@ def dist_graph_runs(tag, call, cache, names, iters, mesh, smi):
         ms = 1e3 * (time.perf_counter() - t0) / iters
         return res, ms, dict(mesh.comm), cuda_kernels.launch_counts()
 
-    cache.clear()
+    GRAPHS.clear(kind)
     eager, eager_ms, comm, launches = run(False)
     eager2, eager2_ms, comm2, launches2 = run(False)
     captured, capture_ms, comm_c, launches_c = run(True)
-    check(len(cache) == 1, f"{tag}: a graphed call made {len(cache)} "
-          f"graph sets")
-    (graphs,) = cache.values()
+    graphs = solver_graphs(tag, names, kind)
     replays = [graphs[n].replays for n in names]
     graphed, graph_ms, comm_g, launches_g = run(True)
     check([graphs[n].replays - r for n, r in zip(names, replays)]
-          == [iters, 1] and len(cache) == 1,
+          == [iters, 1] and solver_graphs(tag, names, kind) == graphs,
           f"{tag}: the second graphed call was not {iters} replays of "
           f"{names[0]} and one of {names[1]}")
     syncs, where = count_syncs(lambda: call(True))
@@ -3278,7 +3291,7 @@ def phase_dist(cfg, sys_, world, tmp, smi):
     (out1, cost1, trace1), _, ba_said = dist_graph_runs(
         "dist-ba-1", lambda graphs: dist_ba.distributed_bundle_adjust(
             sharded, cam, cfg.ba, mesh, return_trace=True, graphs=graphs),
-        dist_ba.DIST_BA_GRAPHS, ("dba_lm", "dba_cost"), iters, mesh, smi)
+        "dist_ba", ("dba_lm", "dba_cost"), iters, mesh, smi)
     d_ms = ba_said["ms_per_iteration_graphed"]
     d_eager_ms = min(ba_said["ms_per_iteration_eager"])
     ba_comm = ba_said["comm_graphed"]
@@ -3341,14 +3354,14 @@ def phase_dist(cfg, sys_, world, tmp, smi):
         "dist-pgo-1", lambda graphs: dist_pgo.optimize_sharded(
             *pargs, mesh=mesh, iters=pg_it, cg_iters=pg_cg,
             n_live=g["n_live"], graphs=graphs),
-        dist_pgo.DIST_PGO_GRAPHS, ("dpg_gn", "dpg_cost"), pg_it, mesh, smi)
+        "dist_pgo", ("dpg_gn", "dpg_cost"), pg_it, mesh, smi)
     p_ms = pgo_said["ms_per_iteration_graphed"]
     counts1 = pgo_said["launches_graphed"]
     pgo_comm = pgo_said["comm_graphed"]
     graph = posegraph.PoseGraph(*[x.to(mesh.device) for x in pgo_graph(g)])
     ps, pcs = posegraph.optimize(graph, iters=pg_it, cg_iters=pg_cg,
                                  n_live=g["n_live"])
-    posegraph.POSEGRAPH_GRAPHS.clear()
+    GRAPHS.clear("posegraph")
     parallel.clear_graphs()
     torch.distributed.destroy_process_group()
     n = g["n_live"]

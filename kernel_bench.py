@@ -77,6 +77,7 @@ from slam1_tpu_torch.models import posegraph  # noqa: E402
 from slam1_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
 from slam1_tpu_torch.ops.detector import _downsample2  # noqa: E402
 from slam1_tpu_torch.utils import synthetic  # noqa: E402
+from slam1_tpu_torch.utils.graphs import GRAPHS  # noqa: E402
 from slam1_tpu_torch.utils.timing import event_ms, graph_ms  # noqa: E402
 
 N_KP = 2688
@@ -427,7 +428,7 @@ def time_pgo(dev, old):
     out["graphed_ms"] = [r[0] for r in graphed]
     out["graphed_vs_new_max_abs_pose_diff"] = float(
         (graphed[0][1] - runs[1][1][1]).abs().max())
-    posegraph.POSEGRAPH_GRAPHS.clear()
+    GRAPHS.clear("posegraph")
     print(f"[time] live PGO, {n} poses, 5 GN x 64 CG: {out}", flush=True)
     return out
 

@@ -25,9 +25,10 @@
     `bundle_adjust` a loop over it. On the card `bundle_adjust` replays
     `lm_step` as a captured CUDA graph, as the reference jits it:
     `ba_lm` (one iteration, `_graphed_ba_lm`, replayed `lm_iters` times)
-    and `ba_cost` (the final cost), cached in `BA_GRAPHS`;
-    `global_ba_step` (`models/pipeline.py`) replays the same `ba_lm`
-    function between graphs of its own.
+    and `ba_cost` (the final cost), kept in the graph registry of
+    `utils/graphs.py` (`BA_GRAPHS`); `global_ba_step`
+    (`models/pipeline.py`) replays the same `ba_lm` graph between graphs
+    of its own.
 
 Every scatter-add accumulates in float64 and rounds once to the working
 dtype (`ops/segment.seg_sum`): CUDA's `index_add_` adds in the order
@@ -52,9 +53,8 @@ from slam1_tpu_torch.ops.camera import StereoCamera
 from slam1_tpu_torch.ops.cg import cg
 from slam1_tpu_torch.ops.lsq import huber_weights, inv3x3, inv_spd6
 from slam1_tpu_torch.ops.segment import seg_sum
-from slam1_tpu_torch.utils.graphs import StepGraph, copy_out
+from slam1_tpu_torch.utils import graphs as graph_mod
 from slam1_tpu_torch.utils.metrics import traced
-from slam1_tpu_torch.utils.tree import flatten
 
 DIRECT_MAX_CAMS = 16       # dense reduced system up to this many cameras
 
@@ -464,33 +464,21 @@ def _graphed_ba_cost(cfg: BAConfig):
     return step
 
 
-# The standalone bundle_adjust graphs by their static arguments, as
-# jax.jit caches its programs: key -> {"ba_lm": ..., "ba_cost": ...}.
-BA_GRAPHS: dict = {}
+def _size(problem: BAProblem) -> str:
+    return (f"[{problem.poses.shape[0]},{problem.points.shape[0]},"
+            f"{problem.uv.shape[0]}]")
 
 
-def _bundle_adjust_graphed(problem: BAProblem, cam: StereoCamera,
-                           cfg: BAConfig, return_trace: bool):
-    """bundle_adjust as `cfg.lm_iters` replays of `ba_lm` and one of
-    `ba_cost`, each captured at its first call for its key; nothing is
-    read back to the host between them. -> (poses, points, cost, trace),
-    copied out of the graphs' pools."""
-    shapes = tuple((tuple(x.shape), x.dtype) for x in flatten((problem, cam)))
-    key = (problem.uv.device, cfg, return_trace,
-           problem.poses.shape[0] <= DIRECT_MAX_CAMS, shapes)
-    graphs = BA_GRAPHS.get(key)
-    if graphs is None:
-        size = (f"[{problem.poses.shape[0]},{problem.points.shape[0]},"
-                f"{problem.uv.shape[0]}]")
-        graphs = BA_GRAPHS[key] = {
-            "ba_lm": StepGraph(_graphed_ba_lm(cfg), f"ba_lm{size}", key=key),
-            "ba_cost": StepGraph(_graphed_ba_cost(cfg), f"ba_cost{size}",
-                                 key=key)}
-    carry = _lm_carry(problem, cam, cfg, return_trace)
-    for _ in range(cfg.lm_iters):
-        carry, _ = graphs["ba_lm"](carry)
-    carry, cost = graphs["ba_cost"](carry)
-    return copy_out((carry.poses, carry.points, cost, carry.trace))
+def lm_stage(cfg: BAConfig, problem: BAProblem) -> graph_mod.Stage:
+    """`ba_lm`, one `lm_step` on an _LMCarry of `problem`'s shapes: the
+    graph `bundle_adjust` and `pipeline.global_ba_step` share."""
+    return graph_mod.Stage("ba", (cfg,), "ba_lm" + _size(problem),
+                           _graphed_ba_lm(cfg))
+
+
+# BA's graphs in the registry (`utils/graphs.py`): `BA_GRAPHS.clear()`
+# drops them and frees their pools.
+BA_GRAPHS = graph_mod.GRAPHS.of("ba")
 
 
 @traced("host:ba.pass")
@@ -509,36 +497,26 @@ def bundle_adjust(problem: BAProblem, cam: StereoCamera, cfg: BAConfig,
     the constant cap. The reported cost and trace stay the full Huber
     cost, comparable across iterations and runs.
 
-    On CUDA tensors it replays two CUDA graphs, as the reference runs one
-    compiled program: `ba_lm` (one `lm_step`, `cfg.lm_iters` times) and
-    `ba_cost` (the final cost), kept in BA_GRAPHS by the device, `cfg`,
-    `return_trace`, the dense-or-CG path and the problem's and camera's
-    shapes and dtypes, and captured at the first call with a new key;
-    their memory pools stay reserved until the graphs are dropped
-    (`BA_GRAPHS.clear()`). The camera is a graph input. On the CPU, and
-    with `graphs=False`, the same operations run eagerly (a caller that
-    is itself being captured passes `graphs=False`). Each call is the
-    span `host:ba.pass` (`utils/metrics.py`).
+    It runs through `utils/graphs.iterate`: `ba_lm` (one `lm_step`,
+    `cfg.lm_iters` times) then `ba_cost` (the final cost) on an
+    _LMCarry. On CUDA tensors each is a replay of a captured CUDA graph,
+    as the reference runs one compiled program, kept in the graph
+    registry under the kind "ba" (`BA_GRAPHS`) by the device, `cfg` and
+    the carry's shapes and dtypes (which say whether there is a trace
+    and which path, dense or CG, runs); the camera is a graph input. On
+    the CPU, and with `graphs=False`, the same functions run eagerly (a
+    caller that is itself being captured passes `graphs=False`). Each
+    call is the span `host:ba.pass` (`utils/metrics.py`).
     """
-    if graphs and dispatch.use_cuda(problem.uv):
-        poses, points, cost, trace = _bundle_adjust_graphed(
-            problem, cam, cfg, return_trace)
-        out = problem._replace(poses=poses, points=points)
-        return (out, cost, trace) if return_trace else (out, cost)
-    dt, dev = problem.uv.dtype, problem.uv.device
-    poses, points = problem.poses, problem.points
-    lam = torch.full((), cfg.lm_lambda0, dtype=dt, device=dev)
-    steps = torch.arange(cfg.lm_iters, device=dev)
-    trace = []
-    for t in range(cfg.lm_iters):
-        (poses, points, lam), row = lm_step(problem, cam, cfg, poses, points,
-                                            lam, steps[t], return_trace)
-        trace.append(row)
+    poses, points, cost, trace = graph_mod.iterate(
+        lm_stage(cfg, problem),
+        graph_mod.Stage("ba", (cfg,), "ba_cost" + _size(problem),
+                        _graphed_ba_cost(cfg)),
+        _lm_carry(problem, cam, cfg, return_trace), cfg.lm_iters,
+        keep=lambda c, cost: (c.poses, c.points, cost, c.trace),
+        graphed=graph_mod.graphed(problem.uv, wanted=graphs))
     out = problem._replace(poses=poses, points=points)
-    cost = final_cost(problem, cam, cfg, poses, points)
-    if return_trace:
-        return out, cost, BATrace(*[torch.stack(c) for c in zip(*trace)])
-    return out, cost
+    return (out, cost, trace) if return_trace else (out, cost)
 
 
 def window_problem(poses, points, cam_idx, lm_idx, uv, w, first_cam: int,

@@ -41,8 +41,8 @@ graph, `pgo_gn` (one Gauss-Newton iteration, the live count a device
 scalar) is replayed once per iteration, `pgo_apply` writes the state.
 On the CPU, and with `SlamSystem(..., graphs=False)`, the same
 functions run eagerly. The offline `global_ba_step` replays graphs of
-its own on CUDA tensors (`ba_build`, `ba_lm` once per LM iteration,
-`ba_apply`; `GLOBAL_BA_GRAPHS`), unless called with `graphs=False`.
+the registry of `utils/graphs.py` on CUDA tensors (`ba_build`, `ba_lm`
+once per LM iteration, `ba_apply`), unless called with `graphs=False`.
 `SlamSystem.frame_count` is the host mirror of `frame` that steers the
 host's cadences.
 """
@@ -69,15 +69,15 @@ from slam1_tpu_torch.models.frontend import stereo_frontend
 from slam1_tpu_torch.models.loop_closure import place_query, \
     verify_loop_slate
 from slam1_tpu_torch.models.tracker import chain_pose, temporal_track
-from slam1_tpu_torch.ops import dispatch, se3
+from slam1_tpu_torch.ops import se3
 from slam1_tpu_torch.ops.camera import StereoCamera
 from slam1_tpu_torch.ops.pnp import uniform
 from slam1_tpu_torch.runtime import default_device
 from slam1_tpu_torch.types import StereoObservations
 from slam1_tpu_torch.utils import checkpoint as ckpt_mod
+from slam1_tpu_torch.utils import graphs as graph_mod
 from slam1_tpu_torch.utils.graphs import StepGraph, copy_out
 from slam1_tpu_torch.utils.metrics import span, traced, wait
-from slam1_tpu_torch.utils.tree import flatten
 
 MAX_LOOP_EDGES = 128
 KF_FEATURES = 1024          # per-keyframe snapshot (top-K by corner score)
@@ -634,53 +634,14 @@ def _graphed_ba_build(cfg: SlamConfig, n_kf: int, obs_bucket: int):
 
 def _graphed_ba_apply(cfg: SlamConfig, n_kf: int):
     """The final cost and `_global_write_back` as a graph's function:
-    (_ApplyLeaves, problem, frames, poses, points, cam) -> (the leaves
-    written, cost)."""
-    def step(leaves, problem, frames, poses, points, cam):
-        cost = ba.final_cost(problem, cam, cfg.ba, poses, points)
-        return _global_write_back(leaves, n_kf, frames, poses, points), cost
+    (ba._LMCarry, _ApplyLeaves, frames) -> (the same carry, (the leaves
+    written, cost))."""
+    def step(carry, leaves, frames):
+        cost = ba.final_cost(carry.problem, carry.cam, cfg.ba, carry.poses,
+                             carry.points)
+        return carry, (_global_write_back(leaves, n_kf, frames, carry.poses,
+                                          carry.points), cost)
     return step
-
-
-# The global BA graphs by their static arguments, as jax.jit caches its
-# programs: key -> {"ba_build": ..., "ba_lm": ..., "ba_apply": ...}.
-GLOBAL_BA_GRAPHS: dict = {}
-
-
-def _global_ba_graphed(state: SlamState, cam: StereoCamera,
-                       cfg: SlamConfig, n_kf: int, obs_bucket: int,
-                       return_trace: bool, loop_rows):
-    """global_ba_step as replays of the graphs `ba_build`, `ba_lm`
-    (`cfg.ba.lm_iters` times) and `ba_apply`, each captured at its first
-    call for its key; nothing is read back to the host between them.
-    The replaced leaves, the cost and the trace are copied out of the
-    graphs' pools."""
-    build_in, apply_in = _global_ba_leaves(state)
-    loop = tuple(loop_rows) if loop_rows is not None else ()
-    shapes = tuple((tuple(x.shape), x.dtype) for x in
-                   flatten((build_in, apply_in, cam, loop)))
-    key = (state.traj.device, cfg, n_kf, obs_bucket, return_trace,
-           loop_rows is not None, n_kf <= ba.DIRECT_MAX_CAMS, shapes)
-    graphs = GLOBAL_BA_GRAPHS.get(key)
-    if graphs is None:
-        fns = {"ba_build": _graphed_ba_build(cfg, n_kf, obs_bucket),
-               "ba_lm": ba._graphed_ba_lm(cfg.ba),
-               "ba_apply": _graphed_ba_apply(cfg, n_kf)}
-        graphs = GLOBAL_BA_GRAPHS[key] = {
-            name: StepGraph(fn, f"{name}[{n_kf},{obs_bucket}]", key=key)
-            for name, fn in fns.items()}
-    _, (prob, frames) = graphs["ba_build"](build_in, cam, *loop)
-    carry = ba._lm_carry(prob, cam, cfg.ba, return_trace)
-    for _ in range(cfg.ba.lm_iters):
-        carry, _ = graphs["ba_lm"](carry)
-    leaves, cost = graphs["ba_apply"](apply_in, carry.problem, frames,
-                                      carry.poses, carry.points, cam)
-    leaves, cost, trace = copy_out((leaves, cost, carry.trace))
-    new_state = state._replace(
-        traj=leaves.traj, T_w_cam=leaves.T_w_cam,
-        kf=state.kf._replace(poses=leaves.kf.poses),
-        map=state.map._replace(xyz=leaves.map.xyz))
-    return new_state, cost, trace
 
 
 def global_ba_step(state: SlamState, cam: StereoCamera, cfg: SlamConfig,
@@ -696,26 +657,36 @@ def global_ba_step(state: SlamState, cam: StereoCamera, cfg: SlamConfig,
     Replaces `traj`, `kf.poses`, `map.xyz` and `T_w_cam`; writes nothing
     in place.
 
-    On CUDA tensors it replays three CUDA graphs, as the reference runs
-    one compiled program: `ba_build` (the problem and the trim), `ba_lm`
-    (one LM iteration, replayed `cfg.ba.lm_iters` times) and `ba_apply`
-    (the final cost and the write-back), kept in GLOBAL_BA_GRAPHS by
-    the call's static arguments and captured at the first call with a
-    new key; their memory pools stay reserved until the graphs are
-    dropped (`GLOBAL_BA_GRAPHS.clear()`). On the CPU, and with
-    `graphs=False`, the same operations run eagerly."""
-    if graphs and dispatch.use_cuda(state.traj):
-        new_state, cost, trace = _global_ba_graphed(
-            state, cam, cfg, n_kf, obs_bucket, return_trace, loop_rows)
-    else:
-        prob, frames = _global_problem(state, cam, cfg, n_kf, obs_bucket,
-                                       loop_rows)
-        out, cost, *trace = bundle_adjust(prob, cam, cfg.ba,
-                                          return_trace=return_trace,
-                                          graphs=False)
-        new_state = _global_write_back(state, n_kf, frames, out.poses,
-                                       out.points)
-        trace = trace[0] if trace else None
+    Three stages (`utils/graphs.py`): `ba_build` (the problem and the
+    trim, on the state leaves it reads), then `utils/graphs.iterate` of
+    `ba.lm_stage` (`ba_lm`, one LM iteration, `cfg.ba.lm_iters` times,
+    the graph `bundle_adjust` replays for a problem of these shapes) and
+    `ba_apply` (the final cost and the write-back). On CUDA tensors each
+    is a replay of a captured CUDA graph, as the reference runs one
+    compiled program; `ba_build` and `ba_apply` are kept in the graph
+    registry under the kind "global_ba" by the device, the shapes and
+    dtypes they read, `cfg`, `n_kf` and (`ba_build`) `obs_bucket`. On
+    the CPU, and with `graphs=False`, the same functions run eagerly."""
+    on_card = graph_mod.graphed(state.traj, wanted=graphs)
+    build_in, apply_in = _global_ba_leaves(state)
+    size = f"[{n_kf},{obs_bucket}]"
+    loop = tuple(loop_rows) if loop_rows is not None else ()
+    _, (prob, frames) = graph_mod.run(
+        graph_mod.Stage("global_ba", (cfg, n_kf, obs_bucket),
+                        "ba_build" + size,
+                        _graphed_ba_build(cfg, n_kf, obs_bucket)),
+        build_in, cam, *loop, graphed=on_card)
+    leaves, cost, trace = graph_mod.iterate(
+        ba.lm_stage(cfg.ba, prob),
+        graph_mod.Stage("global_ba", (cfg, n_kf), "ba_apply" + size,
+                        _graphed_ba_apply(cfg, n_kf)),
+        ba._lm_carry(prob, cam, cfg.ba, return_trace), cfg.ba.lm_iters,
+        end_inputs=(apply_in, frames), keep=lambda c, out: (*out, c.trace),
+        graphed=on_card)
+    new_state = state._replace(
+        traj=leaves.traj, T_w_cam=leaves.T_w_cam,
+        kf=state.kf._replace(poses=leaves.kf.poses),
+        map=state.map._replace(xyz=leaves.map.xyz))
     if return_trace:
         return new_state, cost, trace
     return new_state, cost
@@ -1005,7 +976,7 @@ class SlamSystem:
         graph replay on the card) -> the packed row."""
         u = self.draws.step(self.cfg.tracking.ransac_iters,
                             self.state.prev_obs.mask.shape[0])
-        if self.graphs and dispatch.use_cuda(left):
+        if graph_mod.graphed(left, wanted=self.graphs):
             if self.step_graph is None:
                 self.step_graph = StepGraph(
                     _graphed_step(self.cam, self.cfg), "slam_step")

@@ -18,7 +18,8 @@ Edge arrays are fixed capacity with weight masks.
 reads nothing back to the host (its `n_live` may be a 0-d int32 device
 tensor), and `cost`. On CUDA tensors `optimize` replays them as
 captured CUDA graphs, as the reference jits it: `pg_gn` (one `gn_step`,
-replayed `iters` times) and `pg_cost`, cached in `POSEGRAPH_GRAPHS`.
+replayed `iters` times) and `pg_cost`, kept in the graph registry of
+`utils/graphs.py`.
 `SlamSystem` captures `gn_step` in graphs of its own.
 """
 
@@ -31,7 +32,7 @@ import torch
 from slam1_tpu_torch.ops import dispatch, se3
 from slam1_tpu_torch.ops.cg import cg
 from slam1_tpu_torch.ops.lsq import inv3x3
-from slam1_tpu_torch.utils.graphs import StepGraph, copy_out
+from slam1_tpu_torch.utils import graphs as graph_mod
 
 
 class PoseGraph(NamedTuple):
@@ -226,45 +227,6 @@ def _graphed_cost(poses, graph):
     return poses, cost(graph, poses)
 
 
-# The standalone relaxation's graphs by their static arguments, as
-# jax.jit caches its programs: key -> StepGraph (`pg_gn`, `pg_cost`).
-POSEGRAPH_GRAPHS: dict = {}
-
-
-def _cached_graph(key, fn, name: str) -> StepGraph:
-    graph = POSEGRAPH_GRAPHS.get(key)
-    if graph is None:
-        graph = POSEGRAPH_GRAPHS[key] = StepGraph(fn, name, key=key)
-    return graph
-
-
-def _optimize_graphed(graph: PoseGraph, iters: int, cg_iters: int,
-                      damping: float, chain_precond: bool, n_live):
-    """optimize as `iters` replays of `pg_gn[F,E]` and one of
-    `pg_cost[F,E]`, each captured at its first call for its key; nothing
-    is read back to the host between them. The poses and the cost are
-    copied out of the graphs' pools."""
-    f, e = graph.poses.shape[0], graph.ei.shape[0]
-    shapes = (graph.poses.device,
-              tuple((tuple(x.shape), x.dtype) for x in graph))
-    on_device = isinstance(n_live, torch.Tensor)
-    live = (n_live,) if on_device else ()
-    poses = graph.poses
-    if iters:
-        gn = _cached_graph(
-            ("pg_gn", shapes, cg_iters, damping, chain_precond,
-             "tensor" if on_device else n_live),
-            _graphed_gn(cg_iters, damping, chain_precond, n_live),
-            f"pg_gn[{f},{e}]")
-        for _ in range(iters):
-            poses, _ = gn(poses, graph, *live)
-    _, total = _cached_graph(("pg_cost", shapes), _graphed_cost,
-                             f"pg_cost[{f},{e}]")(poses, graph)
-    if iters:
-        poses = copy_out(poses)
-    return poses, copy_out(total)
-
-
 def optimize(graph: PoseGraph, iters: int = 10, cg_iters: int = 50,
              damping: float = 1e-4, chain_precond: bool = True,
              n_live=None, graphs: bool = True):
@@ -279,24 +241,30 @@ def optimize(graph: PoseGraph, iters: int = 10, cg_iters: int = 50,
     without the sweeps).
     Returns (optimised poses (F,4,4), final weighted cost ()).
 
-    On CUDA tensors it replays two CUDA graphs, as the reference runs one
-    compiled program: `pg_gn` (one `gn_step`, `iters` times) and
-    `pg_cost` (the final cost), kept in POSEGRAPH_GRAPHS by the device,
-    the graph's shapes and dtypes, `cg_iters`, `damping`,
-    `chain_precond` and how `n_live` is given (None, an int's value, or
-    a device tensor, which is a graph input), and captured at the first
-    call with a new key; their memory pools stay reserved until the
-    graphs are dropped (`POSEGRAPH_GRAPHS.clear()`). On the CPU, and
-    with `graphs=False`, the same operations run eagerly.
+    It runs through `utils/graphs.iterate`: `pg_gn` (one `gn_step`,
+    `iters` times) then `pg_cost` (the final cost). On CUDA tensors each
+    is a replay of a captured CUDA graph, as the reference runs one
+    compiled program, kept in the graph registry under the kind
+    "posegraph" by the device, the graph's shapes and dtypes and, for
+    `pg_gn`, `cg_iters`, `damping`, `chain_precond` and how `n_live` is
+    given (None, an int's value, or a device tensor, which is a graph
+    input). On the CPU, and with `graphs=False`, the same functions run
+    eagerly. With iters == 0 the poses returned are graph.poses.
     """
-    if graphs and dispatch.use_cuda(graph.poses):
-        return _optimize_graphed(graph, iters, cg_iters, damping,
-                                 chain_precond, n_live)
-    poses = graph.poses
-    for _ in range(iters):
-        poses = gn_step(graph, poses, cg_iters, damping, chain_precond,
-                        n_live)
-    return poses, cost(graph, poses)
+    f, e = graph.poses.shape[0], graph.ei.shape[0]
+    on_device = isinstance(n_live, torch.Tensor)
+    gn = graph_mod.Stage(
+        "posegraph", (cg_iters, damping, chain_precond,
+                      "tensor" if on_device else n_live),
+        f"pg_gn[{f},{e}]", _graphed_gn(cg_iters, damping, chain_precond,
+                                       n_live))
+    end = graph_mod.Stage("posegraph", (), f"pg_cost[{f},{e}]",
+                          _graphed_cost)
+    poses, total = graph_mod.iterate(
+        gn, end, graph.poses, iters, inputs=(graph, n_live) if on_device
+        else (graph,), end_inputs=(graph,),
+        graphed=graph_mod.graphed(graph.poses, wanted=graphs))
+    return (poses if iters else graph.poses), total
 
 
 def distribute_error_linear(poses, idx: int, i: int, T_corrected):

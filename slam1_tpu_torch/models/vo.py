@@ -28,10 +28,10 @@ import torch
 from slam1_tpu_torch.config import SlamConfig
 from slam1_tpu_torch.models.frontend import stereo_frontend
 from slam1_tpu_torch.models.tracker import chain_pose, temporal_track
-from slam1_tpu_torch.ops import dispatch
 from slam1_tpu_torch.ops.camera import StereoCamera
 from slam1_tpu_torch.ops.pnp import draw_uniform
 from slam1_tpu_torch.types import StereoObservations
+from slam1_tpu_torch.utils import graphs as graph_mod
 from slam1_tpu_torch.utils.graphs import StepGraph
 
 
@@ -114,7 +114,7 @@ def vo_block(state: VOState, lefts, rights, cam: StereoCamera,
     """K frames of VO. Returns (state, poses (K,4,4), metrics stacked
     over K). On CUDA tensors one graph replay per frame into poses and
     metrics allocated once per call; on the CPU a loop over vo_step."""
-    if dispatch.use_cuda(lefts):
+    if graph_mod.graphed(lefts):
         return _vo_block_graphed(state, lefts, rights, cam, cfg, draws)
     poses, ms = [], []
     for i in range(lefts.shape[0]):

@@ -30,10 +30,11 @@ import torch
 from slam1_tpu_torch.config import SlamConfig
 from slam1_tpu_torch.models.tracker import chain_pose
 from slam1_tpu_torch.ops import disparity as disp_ops
-from slam1_tpu_torch.ops import dispatch, lk, pnp, triangulate
+from slam1_tpu_torch.ops import lk, pnp, triangulate
 from slam1_tpu_torch.ops.brief import gaussian_blur
 from slam1_tpu_torch.ops.camera import StereoCamera
 from slam1_tpu_torch.ops.detector import detect
+from slam1_tpu_torch.utils import graphs as graph_mod
 from slam1_tpu_torch.utils.graphs import StepGraph
 
 
@@ -189,7 +190,7 @@ def run_sequence(lefts, rights, cam: StereoCamera, cfg: SlamConfig,
     state = init_state(lefts[0], rights[0], cam, cfg, seed)
     if lefts.shape[0] < 2:
         return state.T_w_cam[None].cpu().numpy(), []
-    if dispatch.use_cuda(lefts):
+    if graph_mod.graphed(lefts):
         _, _, poses, m = _run_graphed(state, lefts, rights, cam, cfg, draws)
     else:
         poses, ms = [], []

@@ -11,10 +11,10 @@ the pose graph's ring halo, point-to-point sends.
 
 
 def clear_graphs():
-    """Drop the distributed solvers' captured graphs (`dist_ba.
-    DIST_BA_GRAPHS`, `dist_pgo.DIST_PGO_GRAPHS`) and their memory pools.
-    A graph that captured NCCL kernels belongs to its communicator:
-    whoever destroys the process group calls this first."""
-    from slam1_tpu_torch.parallel import dist_ba, dist_pgo
-    dist_ba.DIST_BA_GRAPHS.clear()
-    dist_pgo.DIST_PGO_GRAPHS.clear()
+    """Drop the distributed solvers' captured graphs (the kinds "dist_ba"
+    and "dist_pgo" of the registry in `utils/graphs.py`) and their
+    memory pools. A graph that captured NCCL kernels belongs to its
+    communicator: whoever destroys the process group calls this first."""
+    from slam1_tpu_torch.utils.graphs import GRAPHS
+    GRAPHS.clear("dist_ba")
+    GRAPHS.clear("dist_pgo")

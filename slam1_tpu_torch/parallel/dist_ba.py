@@ -44,8 +44,7 @@ from slam1_tpu_torch.ops.cg import cg
 from slam1_tpu_torch.ops.lsq import huber_weights, inv3x3, inv_spd6
 from slam1_tpu_torch.parallel import mesh as mesh_mod
 from slam1_tpu_torch.parallel.mesh import Mesh
-from slam1_tpu_torch.utils.graphs import StepGraph, copy_out
-from slam1_tpu_torch.utils.tree import flatten
+from slam1_tpu_torch.utils import graphs as graph_mod
 
 _SHARDED = ("cam_idx", "lm_idx", "uv", "w", "ur", "wr")
 _PRIORS = ("pe_i", "pe_j", "pe_z", "pe_w")
@@ -357,39 +356,6 @@ def _graphed_dist_end(mesh: Mesh, cfg: BAConfig):
     return step
 
 
-# The sharded BA's graphs by their static arguments, as jax.jit caches
-# its programs: key -> {"dba_lm": ..., "dba_cost": ...}. They hold NCCL
-# kernels of the mesh's "lm" communicator: clear them (`parallel.
-# clear_graphs`) before the process group is destroyed.
-DIST_BA_GRAPHS: dict = {}
-
-
-def _dist_ba_graphed(mesh: Mesh, local: BAProblem, cam: StereoCamera,
-                     cfg: BAConfig, return_trace: bool):
-    """The LM loop as `cfg.lm_iters` replays of `dba_lm` and one of
-    `dba_cost`, each captured at its first call for its key; nothing is
-    read back to the host between them, and each replay adds its
-    collectives to `mesh.comm`. -> (poses, all points, cost, trace or
-    ()), copied out of the graphs' pools."""
-    shapes = tuple((tuple(x.shape), x.dtype) for x in flatten((local, cam)))
-    key = (local.uv.device, mesh.lm_group, mesh.shape["lm"], mesh.lm_index,
-           cfg, return_trace, shapes)
-    graphs = DIST_BA_GRAPHS.get(key)
-    if graphs is None:
-        size = (f"[{local.poses.shape[0]},{local.points.shape[0]},"
-                f"{local.uv.shape[0]}]")
-        graphs = DIST_BA_GRAPHS[key] = {
-            "dba_lm": StepGraph(_graphed_dist_lm(mesh, cfg),
-                                f"dba_lm{size}", key=key),
-            "dba_cost": StepGraph(_graphed_dist_end(mesh, cfg),
-                                  f"dba_cost{size}", key=key)}
-    carry = _dist_lm_carry(local, cam, cfg, return_trace)
-    for _ in range(cfg.lm_iters):
-        carry, _ = graphs["dba_lm"](carry, counters=mesh.comm)
-    carry, (points, cost) = graphs["dba_cost"](carry, counters=mesh.comm)
-    return copy_out((carry.poses, points, cost, carry.trace))
-
-
 def distributed_bundle_adjust(problem: BAProblem, cam: StereoCamera,
                               cfg: BAConfig, mesh: Mesh,
                               return_trace: bool = False,
@@ -401,15 +367,16 @@ def distributed_bundle_adjust(problem: BAProblem, cam: StereoCamera,
     the whole partitioned problem and works on its own shard on
     `mesh.device`.
 
-    On a card under NCCL (`mesh.capturable`) it replays two CUDA graphs
+    It runs through `utils/graphs.iterate`: `dba_lm` (one
+    `dist_lm_step`, `cfg.lm_iters` times) then `dba_cost` (the points'
+    gather and the final cost) on a _DistLMCarry. On a card under NCCL
+    (`utils/graphs.graphed`) each is a replay of a captured CUDA graph
     with the collectives inside, as the reference runs one compiled
-    program: `dba_lm` (one `dist_lm_step`, `cfg.lm_iters` times) and
-    `dba_cost` (the points' gather and the final cost), kept in
-    DIST_BA_GRAPHS by the device, the "lm" group, its size and this
-    rank's index in it, `cfg`, `return_trace` and the shard's and
-    camera's shapes and dtypes, and captured at the first call with a
-    new key. On the CPU, under gloo, and with `graphs=False`, the same
-    functions run eagerly.
+    program, kept in the graph registry under the kind "dist_ba" by the
+    device, the "lm" group, its size and this rank's index in it, `cfg`
+    and the carry's shapes and dtypes; each replay adds its collectives
+    to `mesh.comm`. On the CPU, under gloo, and with `graphs=False`, the
+    same functions run eagerly.
 
     Returns (problem with the optimised poses and all shards' points,
     final cost ()), plus the (lm_iters,) accepted full-Huber cost trace
@@ -421,22 +388,18 @@ def distributed_bundle_adjust(problem: BAProblem, cam: StereoCamera,
     dev = mesh.device
     local = _local_problem(mesh, problem)
     cam = cam.to(dev)
-    if graphs and mesh_mod.capturable(mesh, local.uv):
-        poses, all_points, cost, trace = _dist_ba_graphed(
-            mesh, local, cam, cfg, return_trace)
-    else:
-        poses, points = local.poses, local.points
-        lam = torch.full((), cfg.lm_lambda0, dtype=local.uv.dtype,
-                         device=dev)
-        steps = torch.arange(cfg.lm_iters, device=dev)
-        costs = []
-        for t in range(cfg.lm_iters):
-            (poses, points, lam), cost = dist_lm_step(
-                mesh, local, cam, cfg, poses, points, lam, steps[t])
-            costs.append(cost)
-        all_points, cost = _dist_end(mesh, local, cam, cfg, points,
-                                     costs[-1] if costs else None)
-        trace = torch.stack(costs) if return_trace else None
+    size = (f"[{local.poses.shape[0]},{local.points.shape[0]},"
+            f"{local.uv.shape[0]}]")
+    static = (mesh.lm_group, n_lm, mesh.lm_index, cfg)
+    poses, all_points, cost, trace = graph_mod.iterate(
+        graph_mod.Stage("dist_ba", static, "dba_lm" + size,
+                        _graphed_dist_lm(mesh, cfg)),
+        graph_mod.Stage("dist_ba", static, "dba_cost" + size,
+                        _graphed_dist_end(mesh, cfg)),
+        _dist_lm_carry(local, cam, cfg, return_trace), cfg.lm_iters,
+        keep=lambda c, out: (c.poses, *out, c.trace),
+        graphed=graph_mod.graphed(local.uv, mesh, wanted=graphs),
+        counters=mesh.comm)
     out = problem._replace(poses=poses, points=all_points)
     if return_trace:
         return out, cost, trace

@@ -36,8 +36,7 @@ from slam1_tpu_torch.ops import dispatch, se3
 from slam1_tpu_torch.ops.lsq import inv_spd6
 from slam1_tpu_torch.parallel import mesh as mesh_mod
 from slam1_tpu_torch.parallel.mesh import Mesh
-from slam1_tpu_torch.utils.graphs import StepGraph, copy_out
-from slam1_tpu_torch.utils.tree import flatten
+from slam1_tpu_torch.utils import graphs as graph_mod
 
 
 def _masked_terms(T_i, T_j, Z, w):
@@ -247,38 +246,6 @@ def _graphed_cost(mesh: Mesh, axis: str):
     return step
 
 
-# The sharded pose graph's graphs by their static arguments: key ->
-# {"dpg_gn": ..., "dpg_cost": ...}. They hold NCCL kernels of the axis's
-# communicator: clear them (`parallel.clear_graphs`) before the process
-# group is destroyed.
-DIST_PGO_GRAPHS: dict = {}
-
-
-def _optimize_graphed(mesh: Mesh, axis: str, poses_blk, edges: _BlockEdges,
-                      iters: int, cg_iters: int, damping: float, live: int):
-    """`iters` replays of `dpg_gn[B,E]` and one of `dpg_cost[B,E]`, each
-    captured at its first call for its key; nothing is read back to the
-    host between them, and each replay adds its collectives to
-    `mesh.comm`. -> (all poses, cost), copied out of the graphs' pools."""
-    shapes = tuple((tuple(x.shape), x.dtype)
-                   for x in flatten((poses_blk, edges)))
-    key = (poses_blk.device, mesh.group(axis), mesh.shape[axis],
-           mesh.index(axis), shapes, cg_iters, damping, live)
-    graphs = DIST_PGO_GRAPHS.get(key)
-    if graphs is None:
-        size = f"[{poses_blk.shape[0]},{edges.le_w.shape[0]}]"
-        graphs = DIST_PGO_GRAPHS[key] = {
-            "dpg_gn": StepGraph(_graphed_gn(mesh, axis, cg_iters, damping,
-                                            live), f"dpg_gn{size}", key=key),
-            "dpg_cost": StepGraph(_graphed_cost(mesh, axis),
-                                  f"dpg_cost{size}", key=key)}
-    carry = _PGOCarry(poses_blk, edges)
-    for _ in range(iters):
-        carry, _ = graphs["dpg_gn"](carry, counters=mesh.comm)
-    _, (poses, cost) = graphs["dpg_cost"](carry, counters=mesh.comm)
-    return copy_out((poses, cost))
-
-
 def optimize_sharded(poses, z_odo, w_odo, le_i, le_j, le_z, le_w,
                      mesh: Mesh, axis: str = "lm", iters: int = 10,
                      cg_iters: int = 50, damping: float = 1e-4,
@@ -297,14 +264,15 @@ def optimize_sharded(poses, z_odo, w_odo, le_i, le_j, le_z, le_w,
       n_live: optional count of leading poses that edges touch (as in
         posegraph.optimize): each block's chain sweeps stop there.
 
-    On a card under NCCL (`mesh.capturable`) it replays two CUDA graphs
-    with the collectives inside: `dpg_gn` (one `dist_gn_step`, `iters`
-    times) and `dpg_cost` (the final cost and the gather of the blocks),
-    kept in DIST_PGO_GRAPHS by the device, the axis's group, its size and
-    this rank's index in it, the block's shapes and dtypes, `cg_iters`,
-    `damping` and this rank's live rows, and captured at the first call
-    with a new key. On the CPU, under gloo, and with `graphs=False`, the
-    same functions run eagerly.
+    It runs through `utils/graphs.iterate`: `dpg_gn` (one
+    `dist_gn_step`, `iters` times) then `dpg_cost` (the final cost and
+    the gather of the blocks) on a _PGOCarry. On a card under NCCL
+    (`utils/graphs.graphed`) each is a replay of a captured CUDA graph
+    with the collectives inside, kept in the graph registry under the
+    kind "dist_pgo" by the device, the axis's group, its size and this
+    rank's index in it, the block's shapes and dtypes and, for `dpg_gn`,
+    `cg_iters`, `damping` and this rank's live rows. On the CPU, under
+    gloo, and with `graphs=False`, the same functions run eagerly.
 
     Returns (optimised poses (F,4,4) on every rank, final cost ())."""
     f = poses.shape[0]
@@ -326,12 +294,14 @@ def optimize_sharded(poses, z_odo, w_odo, le_i, le_j, le_z, le_w,
     poses_blk = poses[blk].to(dev)
     edges = _block_edges(z_odo[blk], w_odo[blk], le_i.to(dev).long(),
                          le_j.to(dev).long(), le_z, le_w, lo)
-    if graphs and mesh_mod.capturable(mesh, poses_blk):
-        return _optimize_graphed(mesh, axis, poses_blk, edges, iters,
-                                 cg_iters, damping, live)
-    for _ in range(iters):
-        poses_blk = dist_gn_step(mesh, axis, poses_blk, edges,
-                                 cg_iters=cg_iters, damping=damping,
-                                 n_live=live)
-    cost = dist_cost(mesh, axis, poses_blk, edges)
-    return mesh_mod.gather_blocks(mesh, poses_blk, axis), cost
+    size = f"[{B},{edges.le_w.shape[0]}]"
+    static = (mesh.group(axis), S, mesh.index(axis))
+    return graph_mod.iterate(
+        graph_mod.Stage("dist_pgo", (*static, cg_iters, damping, live),
+                        "dpg_gn" + size,
+                        _graphed_gn(mesh, axis, cg_iters, damping, live)),
+        graph_mod.Stage("dist_pgo", static, "dpg_cost" + size,
+                        _graphed_cost(mesh, axis)),
+        _PGOCarry(poses_blk, edges), iters, keep=lambda c, out: out,
+        graphed=graph_mod.graphed(poses_blk, mesh, wanted=graphs),
+        counters=mesh.comm)

@@ -22,10 +22,9 @@ not in point-to-point sends, so `ring_shift` (the pose-graph halo)
 copies its one buffer through host memory when the backend is gloo and
 the tensor is on a card; every all_reduce goes to the backend as it is.
 
-Graph rule (`capturable`): the distributed solvers capture their
-iterations as CUDA graphs, collectives inside, only on a card under
-NCCL. gloo stays eager: its CUDA all_reduce is staged by gloo itself and
-`ring_shift` stages through the host, neither of which a graph can hold.
+The distributed solvers capture their iterations as CUDA graphs,
+collectives inside, only on a card under NCCL (`utils/graphs.graphed`
+with the mesh).
 """
 
 from __future__ import annotations
@@ -155,13 +154,6 @@ class Mesh:
 
     def ranks(self, axis: str) -> tuple:
         return {"batch": self.batch_ranks, "lm": self.lm_ranks}[axis]
-
-
-def capturable(mesh: Mesh, x: torch.Tensor) -> bool:
-    """Whether the distributed solvers run as captured CUDA graphs for
-    tensors like x on this mesh: x on a card and the backend NCCL. Read
-    from the device and the backend alone, before any capture."""
-    return x.is_cuda and mesh.backend == "nccl"
 
 
 def default_lm_axis(n: int) -> int:

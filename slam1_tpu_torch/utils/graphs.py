@@ -57,12 +57,31 @@ the process group drops the graph first.
 A capture that fails, or a call whose state or inputs differ in
 structure, shape, dtype or device from the captured ones, raises;
 nothing falls back to eager execution.
+
+The standalone solvers (`ba.bundle_adjust`, `pipeline.global_ba_step`,
+`posegraph.optimize` and the sharded `dist_ba` / `dist_pgo`) run through
+three pieces of this module, as jax.jit runs a function:
+
+  - `graphed(x, mesh, wanted)`, the one rule for graphs or eager: a
+    card's tensors (under NCCL where a mesh is given), where the caller
+    wants graphs;
+  - `GRAPHS`, the one registry of their graphs, (kind, key, name) ->
+    StepGraph, where `kind` is the solver that owns the graph and `key`
+    what its function reads: the device, the structure, shapes and
+    dtypes of its state and inputs, and its static arguments. Two
+    solvers that run the same function on the same shapes replay one
+    graph (`ba_lm` of `bundle_adjust` and `global_ba_step`);
+  - `iterate`, the one loop: a `Stage`'s function replayed `iters`
+    times on a carry, then the end stage, then the result copied out of
+    the graphs' pools. Eager, the same functions run on the same carry.
 """
 
 from __future__ import annotations
 
+import collections.abc
 import ctypes
 import time
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -275,3 +294,117 @@ class StepGraph:
                     nodes=self.nodes, pool_bytes=self.pool_bytes,
                     launches_per_replay=self.launches,
                     replays=self.replays, leaves_loaded=self.loaded)
+
+
+def graphed(x, mesh=None, wanted: bool = True) -> bool:
+    """Whether work on tensors like `x` runs as replays of captured CUDA
+    graphs (else eagerly): `x` on a card and, where a mesh is given, its
+    backend NCCL (gloo stages its CUDA all_reduce itself and the ring
+    shift through the host, neither of which a graph can hold), and only
+    where the caller `wanted` graphs. Read from the device and the
+    backend alone, before any capture."""
+    return wanted and x.is_cuda and (mesh is None or mesh.backend == "nccl")
+
+
+class Stage(NamedTuple):
+    """One graph of a solver: `fn(state, *inputs) -> (state, out)`, its
+    registry `kind` (the owning solver), `static` (what `fn` reads
+    besides its tensors: its static arguments, hashable) and `name`
+    (`<base>[<sizes>]`)."""
+    kind: str
+    static: tuple
+    name: str
+    fn: Callable
+
+
+def _signature(tree) -> tuple:
+    """The device, shapes and dtypes of a tree's tensor leaves."""
+    leaves = flatten(tree)
+    return (leaves[0].device,
+            tuple((tuple(x.shape), x.dtype) for x in leaves))
+
+
+class _KindView(collections.abc.Mapping):
+    """One kind's graphs in the registry, live: {(key, name): StepGraph}
+    in the order they were made; `clear()` drops them."""
+
+    def __init__(self, registry: "GraphRegistry", kind: str):
+        self._registry, self._kind = registry, kind
+
+    def __getitem__(self, k):
+        return self._registry._graphs[(self._kind, *k)]
+
+    def __iter__(self):
+        return (k[1:] for k in list(self._registry._graphs)
+                if k[0] == self._kind)
+
+    def __len__(self):
+        return sum(1 for _ in self)
+
+    def clear(self):
+        self._registry.clear(self._kind)
+
+
+class GraphRegistry:
+    """The standalone solvers' graphs, (kind, key, name) -> StepGraph,
+    each captured at the first call of its key and replayed after; their
+    memory pools stay reserved until the graphs are dropped (`clear`). A
+    graph of NCCL collectives belongs to its communicator: whoever
+    destroys the process group clears its kind first
+    (`parallel.clear_graphs`)."""
+
+    def __init__(self):
+        self._graphs: dict = {}
+
+    def get(self, stage: Stage, state, inputs=()) -> StepGraph:
+        """The stage's graph for this state and these inputs, made (not
+        yet captured) where the registry has none."""
+        key = (_signature((state, inputs)), stage.static)
+        k = (stage.kind, key, stage.name)
+        graph = self._graphs.get(k)
+        if graph is None:
+            graph = self._graphs[k] = StepGraph(stage.fn, stage.name,
+                                                key=key)
+        return graph
+
+    def of(self, kind: str) -> _KindView:
+        """The kind's graphs, a live view."""
+        return _KindView(self, kind)
+
+    def clear(self, kind: str | None = None):
+        """Drop the kind's graphs (every graph without a kind)."""
+        for k in [k for k in self._graphs if kind in (None, k[0])]:
+            del self._graphs[k]
+
+
+GRAPHS = GraphRegistry()
+
+
+def run(stage: Stage, state, *inputs, graphed: bool = False,
+        counters=None):
+    """(state, out) of one stage: graphed, a replay of its registry graph
+    (the capture at the first call of its key) with `counters` (see the
+    module docstring); eager, its function called."""
+    if not graphed:
+        return stage.fn(state, *inputs)
+    return GRAPHS.get(stage, state, inputs)(state, *inputs,
+                                            counters=counters)
+
+
+def iterate(step: Stage, end: Stage, carry, iters: int, inputs=(),
+            end_inputs=(), keep=None, graphed: bool = False,
+            counters=None):
+    """A solver's loop: `step` `iters` times from `carry` with `inputs`,
+    nothing read back to the host in between, then `end` with
+    `end_inputs` -> keep(carry, end's out), or (carry, out) without
+    `keep`. Graphed, each stage replays its registry graph (none is
+    captured for a step that does not run, iters == 0) and what is kept
+    is copied out of the graphs' pools; eager, the same functions run on
+    the same carry."""
+    for _ in range(iters):
+        carry, _ = run(step, carry, *inputs, graphed=graphed,
+                       counters=counters)
+    carry, out = run(end, carry, *end_inputs, graphed=graphed,
+                     counters=counters)
+    kept = (carry, out) if keep is None else keep(carry, out)
+    return copy_out(kept) if graphed else kept

@@ -5,8 +5,9 @@ LM iteration and `dba_cost`, `optimize_sharded` replays `dpg_gn` (one
 inside; on the CPU and under gloo both run eagerly.
 
 On the CPU the graphs cannot be captured, so:
-  - the rule that picks the graphs (`mesh.capturable`) reads only the
-    device and the backend, and on the CPU nothing is captured;
+  - the rule that picks the graphs (`graphs.graphed` with the mesh)
+    reads only the device and the backend, and on the CPU nothing is
+    captured;
   - the four graphs' functions read nothing back to the host, on a world
     of one (in-process store);
   - in four spawned gloo ranks at lm = 1, 2 and 4, through eagerly
@@ -33,7 +34,7 @@ from slam1_tpu_torch.config import BAConfig
 from slam1_tpu_torch.ops import se3
 from slam1_tpu_torch.parallel import dist_ba, dist_pgo
 from slam1_tpu_torch.parallel import mesh as mesh_mod
-from slam1_tpu_torch.utils import synthetic
+from slam1_tpu_torch.utils import graphs, synthetic
 from torch_dist_ranks import run_ranks
 from torch_graph_helpers import HostReads
 from torch_threads import one_torch_thread  # noqa: F401
@@ -146,20 +147,19 @@ def test_emulated_graphs_count_the_eager_collectives(ranks, solver, lm,
 
 @pytest.mark.parametrize("lm", LMS)
 def test_emulated_graphs_capture_once_per_key(ranks, lm):
-    """One graph set per key (two BA configs, one pose graph), each graph
-    captured at the first graphed call and replayed after: dba_lm /
+    """One graph per key (a dba_lm and a dba_cost for each of two BA
+    configs, one dpg_gn and one dpg_cost), each captured at the first
+    graphed call and replayed after: dba_lm /
     dpg_gn once per iteration but the capture's, dba_cost / dpg_cost
     once."""
     iters = pgo_inputs()["iters"]
     for rank in ranks:
         o = rank["dist_graphs"]
-        assert [sorted(s) for s in o[f"ba{lm}_graphs"]] == [
-            ["dba_cost", "dba_lm"]] * 2
-        for s in o[f"ba{lm}_graphs"]:
-            assert s == {"dba_lm": (True, 2 * LM_ITERS - 1),
-                         "dba_cost": (True, 1)}
-        assert o[f"pgo{lm}_graphs"] == [{"dpg_gn": (True, 2 * iters - 1),
-                                         "dpg_cost": (True, 1)}]
+        assert o[f"ba{lm}_graphs"] == {
+            "dba_lm": [(True, 2 * LM_ITERS - 1)] * 2,
+            "dba_cost": [(True, 1)] * 2}
+        assert o[f"pgo{lm}_graphs"] == {"dpg_gn": [(True, 2 * iters - 1)],
+                                        "dpg_cost": [(True, 1)]}
 
 
 def test_capturable_reads_the_backend_and_the_device():
@@ -170,7 +170,8 @@ def test_capturable_reads_the_backend_and_the_device():
     for backend, x, want in (("nccl", card, True), ("gloo", card, False),
                              ("nccl", cpu, False), ("gloo", cpu, False)):
         mesh = types.SimpleNamespace(backend=backend)
-        assert mesh_mod.capturable(mesh, x) is want
+        assert graphs.graphed(x, mesh) is want
+        assert graphs.graphed(x, mesh, wanted=False) is False
 
 
 @pytest.fixture
@@ -234,4 +235,5 @@ def test_cpu_tensors_run_eagerly(world_of_one):
     dist_pgo.optimize_sharded(*[_t(g[k]) for k in (
         "poses", "z", "w", "le_i", "le_j", "le_z", "le_w")], mesh=mesh,
         iters=1, cg_iters=2)
-    assert not dist_ba.DIST_BA_GRAPHS and not dist_pgo.DIST_PGO_GRAPHS
+    assert not graphs.GRAPHS.of("dist_ba") and not graphs.GRAPHS.of(
+        "dist_pgo")

@@ -32,10 +32,11 @@ from slam1_tpu_torch.ops import cuda_kernels
 from slam1_tpu_torch.ops import fast as tfast
 from slam1_tpu_torch.ops.segment import seg_sum
 from slam1_tpu_torch.utils import synthetic
-from slam1_tpu_torch.utils.graphs import StepGraph
+from slam1_tpu_torch.utils.graphs import GRAPHS, StepGraph
 from slam1_tpu_torch.utils.tree import flatten, unflatten
 from test_torch_ba_obs import (COST_TOL, OBS_TOL, VISIT_CASES, _magnitudes,
                                _problem)
+from torch_graph_helpers import one_each
 
 pytestmark = pytest.mark.cuda
 
@@ -700,17 +701,10 @@ def test_pgo_graphs_replay_without_syncs_equal_to_eager(cuda_device):
     assert float((traj - copy.traj).abs().max()) > 0
 
 
-@pytest.mark.parametrize("n_kf", [16, 32], ids=["dense", "cg"])
-def test_global_ba_graphs_replay_without_syncs_equal_to_eager(cuda_device,
-                                                              n_kf):
-    """global_ba_step on a CUDA state (12 frames of the loop clip, one
-    loop edge as a prior, the trace), on the dense and the CG path: the
-    first call captures ba_build, ba_lm and ba_apply; a warm call makes
-    no host sync (sync debug mode "error"), replays them once, lm_iters
-    times and once, and equals two graphs=False calls, which equal each
-    other, to the bit, state, cost and trace alike. The graduated cut
-    made on the card equals the host's value."""
-    from slam1_tpu_torch.models import ba
+def _global_ba_inputs(cuda_device, n_kf):
+    """(cfg, world, state, loop rows, observation bucket) of global BA on
+    the card: 12 frames of the loop clip, one loop edge 0 -> the last
+    keyframe row as a prior, its measurement 5 cm off."""
     cfg = tiny_config()
     h, w = cfg.image.height, cfg.image.width
     world = synthetic.make_world(3, n_frames=12, n_points=1200,
@@ -734,15 +728,30 @@ def test_global_ba_graphs_replay_without_syncs_equal_to_eager(cuda_device,
     le = tuple(x.to(cuda_device) for x in le)
     n_obs = int(st.map.obs_count[:n_kf].sum())
     bucket = 1 << max(int(np.ceil(np.log2(max(n_obs, 1)))), 10)
+    return cfg, world, st, le, bucket
+
+
+@pytest.mark.parametrize("n_kf", [16, 32], ids=["dense", "cg"])
+def test_global_ba_graphs_replay_without_syncs_equal_to_eager(cuda_device,
+                                                              n_kf):
+    """global_ba_step on a CUDA state (12 frames of the loop clip, one
+    loop edge as a prior, the trace), on the dense and the CG path: the
+    first call captures ba_build, ba_lm and ba_apply; a warm call makes
+    no host sync (sync debug mode "error"), replays them once, lm_iters
+    times and once, and equals two graphs=False calls, which equal each
+    other, to the bit, state, cost and trace alike. The graduated cut
+    made on the card equals the host's value."""
+    from slam1_tpu_torch.models import ba
+    cfg, world, st, le, bucket = _global_ba_inputs(cuda_device, n_kf)
 
     def call(graphs=True):
         return pipeline.global_ba_step(st, world.cam, cfg, n_kf=n_kf,
                                        obs_bucket=bucket, return_trace=True,
                                        loop_rows=le, graphs=graphs)
-    pipeline.GLOBAL_BA_GRAPHS.clear()
+    GRAPHS.clear()
     eager, eager2 = call(False), call(False)
     captured = call()                           # warm-ups + captures
-    (graphs,) = pipeline.GLOBAL_BA_GRAPHS.values()
+    graphs = one_each(GRAPHS, "global_ba", "ba")
     names = ("ba_build", "ba_lm", "ba_apply")
     replays = [graphs[n].replays for n in names]
     torch.cuda.synchronize()
@@ -763,7 +772,40 @@ def test_global_ba_graphs_replay_without_syncs_equal_to_eager(cuda_device,
         cut = ba.graduated_cut(cfg.ba.outlier_px, steps[t], torch.float32)
         host = torch.full((), cfg.ba.outlier_px * max(1.0, 8.0 * 0.5 ** t))
         assert torch.equal(_bits(cut.cpu()), _bits(host)), t
-    pipeline.GLOBAL_BA_GRAPHS.clear()
+    GRAPHS.clear()
+
+
+@pytest.mark.parametrize("n_kf", [16, 32], ids=["dense", "cg"])
+def test_bundle_adjust_and_global_ba_share_one_ba_lm(cuda_device, n_kf):
+    """bundle_adjust on the problem global BA builds (its config, the
+    trace), then global_ba_step: one `ba_lm` graph in the registry,
+    captured by the first and replayed by the second, and both equal
+    graphs=False to the bit."""
+    from slam1_tpu_torch.models import ba
+    cfg, world, st, le, bucket = _global_ba_inputs(cuda_device, n_kf)
+    prob, _ = pipeline._global_problem(st, world.cam, cfg, n_kf, bucket, le)
+    GRAPHS.clear()
+    try:
+        adjusted = ba.bundle_adjust(prob, world.cam, cfg.ba,
+                                    return_trace=True)
+        lm = one_each(GRAPHS, "ba")["ba_lm"]
+        assert lm.replays == cfg.ba.lm_iters - 1
+        stepped = pipeline.global_ba_step(
+            st, world.cam, cfg, n_kf=n_kf, obs_bucket=bucket,
+            return_trace=True, loop_rows=le)
+        assert one_each(GRAPHS, "ba")["ba_lm"] is lm
+        assert lm.replays == 2 * cfg.ba.lm_iters - 1
+        for out, eager in (
+                (adjusted, ba.bundle_adjust(prob, world.cam, cfg.ba,
+                                            return_trace=True,
+                                            graphs=False)),
+                (stepped, pipeline.global_ba_step(
+                    st, world.cam, cfg, n_kf=n_kf, obs_bucket=bucket,
+                    return_trace=True, loop_rows=le, graphs=False))):
+            for a, b in zip(flatten(eager), flatten(out), strict=True):
+                assert torch.equal(_bits(a), _bits(b))
+    finally:
+        GRAPHS.clear()
 
 
 @pytest.mark.parametrize("n_live", [2, 8533, 8534, 12000])
@@ -819,12 +861,11 @@ def test_optimize_graphs_replay_without_syncs_equal_to_eager(cuda_device,
     n_live = (torch.full((), n, dtype=torch.int32, device=cuda_device)
               if live == "tensor" else None)
     kw = dict(iters=4, cg_iters=30, n_live=n_live)
-    posegraph.POSEGRAPH_GRAPHS.clear()
+    GRAPHS.clear("posegraph")
     eager = posegraph.optimize(graph, graphs=False, **kw)
     captured = posegraph.optimize(graph, **kw)
-    assert len(posegraph.POSEGRAPH_GRAPHS) == 2
-    gn = next(g for k, g in posegraph.POSEGRAPH_GRAPHS.items()
-              if k[0] == "pg_gn")
+    assert len(GRAPHS.of("posegraph")) == 2
+    gn = one_each(GRAPHS, "posegraph")["pg_gn"]
     assert gn.launches == {"chain_prepare": 1, "chain_sweep": 31}
     replays = gn.replays
     before = cuda_kernels.launch_counts()
@@ -838,7 +879,7 @@ def test_optimize_graphs_replay_without_syncs_equal_to_eager(cuda_device,
         for a, b in zip(eager, other, strict=True):
             assert torch.equal(_bits(a), _bits(b))
     assert float((graphed[0] - graph.poses).abs().max()) > 1e-3
-    posegraph.POSEGRAPH_GRAPHS.clear()
+    GRAPHS.clear("posegraph")
 
 
 @pytest.mark.parametrize("n_cams", [6, 24], ids=["dense", "cg"])
@@ -860,7 +901,7 @@ def test_bundle_adjust_graphs_replay_without_syncs_equal_to_eager(
     ba.BA_GRAPHS.clear()
     eager = call(False)
     captured = call()
-    (graphs,) = ba.BA_GRAPHS.values()
+    graphs = one_each(GRAPHS, "ba")
     replays = [graphs[n].replays for n in ("ba_lm", "ba_cost")]
     graphed = _synced_call(call)
     assert [graphs[n].replays - r for n, r in
@@ -918,11 +959,9 @@ def test_dist_solvers_graphs_under_nccl_equal_to_eager(cuda_device):
                 *pargs, mesh=mesh, iters=4, cg_iters=30,
                 n_live=graph.poses.shape[0], graphs=graphs)
 
-        for call, cache, names, iters in (
-                (ba_call, dist_ba.DIST_BA_GRAPHS, ("dba_lm", "dba_cost"),
-                 cfg.lm_iters),
-                (pgo_call, dist_pgo.DIST_PGO_GRAPHS, ("dpg_gn", "dpg_cost"),
-                 4)):
+        for call, kind, names, iters in (
+                (ba_call, "dist_ba", ("dba_lm", "dba_cost"), cfg.lm_iters),
+                (pgo_call, "dist_pgo", ("dpg_gn", "dpg_cost"), 4)):
             def counted(fn):
                 mesh.comm.update({k: 0 for k in mesh.comm})
                 before = cuda_kernels.launch_counts()
@@ -932,7 +971,7 @@ def test_dist_solvers_graphs_under_nccl_equal_to_eager(cuda_device):
                     k: after[k] - before[k] for k in after}
             eager, comm, launches = counted(lambda: call(False))
             captured, comm_c, launches_c = counted(call)
-            (graphs,) = cache.values()
+            graphs = one_each(GRAPHS, kind)
             replays = [graphs[n].replays for n in names]
             graphed, comm_g, launches_g = counted(lambda: _synced_call(call))
             assert [graphs[n].replays - r for n, r in
@@ -975,7 +1014,7 @@ def test_dist_solvers_stay_eager_under_gloo(cuda_device, monkeypatch):
         _, pcost = dist_pgo.optimize_sharded(
             *_sharded_pgo_args(graph), mesh=mesh, iters=1, cg_iters=8)
         assert bool(torch.isfinite(cost)) and bool(torch.isfinite(pcost))
-        assert not dist_ba.DIST_BA_GRAPHS and not dist_pgo.DIST_PGO_GRAPHS
+        assert not GRAPHS.of("dist_ba") and not GRAPHS.of("dist_pgo")
     finally:
         parallel.clear_graphs()
         dist.destroy_process_group()
@@ -1278,7 +1317,7 @@ def test_ba_obs_launches_per_replay(cuda_device):
         for graphs in (True, False):
             assert launches(lambda g=graphs: ba.bundle_adjust(
                 p, cam, cfg, graphs=g)) == 3 * cfg.lm_iters + 1
-        (graphs,) = ba.BA_GRAPHS.values()
+        graphs = one_each(GRAPHS, "ba")
         carry = ba._lm_carry(p, cam, cfg, False)
         assert launches(lambda: graphs["ba_lm"](carry)) == 3
         assert launches(lambda: graphs["ba_cost"](carry)) == 1

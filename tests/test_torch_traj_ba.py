@@ -3,7 +3,7 @@ runs them: a float64 trajectory accepted as the reference accepts it,
 the chain preconditioner at any length, and on the card
 `posegraph.optimize` and `ba.bundle_adjust` as replays of captured CUDA
 graphs (`pg_gn` x iters and `pg_cost`; `ba_lm` x lm_iters and
-`ba_cost`), cached by their static arguments.
+`ba_cost`), kept in the graph registry by what each function reads.
 
 On the CPU the graphs cannot be captured, so:
   - a float64 trajectory through the port's `ba` equals the reference's
@@ -38,23 +38,14 @@ from slam1_tpu_torch.ops import se3
 from slam1_tpu_torch.utils import synthetic, tree
 from test_torch_cli import run_cli
 from test_torch_kernel_redesign import _check_chain
-from torch_graph_helpers import HostReads, same_bits
-from torch_graph_helpers import emulated_graphs  # noqa: F401
+from torch_graph_helpers import HostReads, by_base, one_each, same_bits
+from torch_graph_helpers import emulated_graphs, fresh_graphs  # noqa: F401
 from torch_threads import one_torch_thread  # noqa: F401
 
 F, N_LIVE = 48, 40           # pose rows, poses the edges touch
 ITERS, CG_ITERS = 3, 20
 BA_CFG = BAConfig(lm_iters=4, cg_iters=20)
 BA_CAMS = {"direct": 6, "cg": tba.DIRECT_MAX_CAMS + 4}
-
-
-@pytest.fixture
-def fresh_graphs(monkeypatch):
-    """Empty standalone graph caches for the test alone."""
-    caches = {"pg": {}, "ba": {}}
-    monkeypatch.setattr(tpg, "POSEGRAPH_GRAPHS", caches["pg"])
-    monkeypatch.setattr(tba, "BA_GRAPHS", caches["ba"])
-    return caches
 
 
 def _pool_storages(graphs) -> set:
@@ -182,9 +173,10 @@ def test_optimize_graphs_equal_eager(emulated_graphs,  # noqa: F811
     assert same_bits(eager, graphed)
     assert float((graphed[0] - graph.poses).abs().max()) > 1e-3
     assert same_bits(before, tuple(graph))
-    cache = fresh_graphs["pg"]
-    assert sorted(k[0] for k in cache) == ["pg_cost", "pg_gn"]
-    gn = next(g for k, g in cache.items() if k[0] == "pg_gn")
+    cache = fresh_graphs.of("posegraph")
+    gn = one_each(fresh_graphs, "posegraph")["pg_gn"]
+    assert sorted(one_each(fresh_graphs, "posegraph")) == ["pg_cost",
+                                                            "pg_gn"]
     assert gn.name == f"pg_gn[{F},{graph.ei.shape[0]}]"
     assert gn.graph == "emulated" and gn.replays == ITERS - 1
     assert not _storages(graphed) & _pool_storages(cache.values())
@@ -196,13 +188,13 @@ def test_optimize_graphs_equal_eager(emulated_graphs,  # noqa: F811
 
 def test_optimize_graphs_cached_by_key(emulated_graphs,  # noqa: F811
                                        fresh_graphs):
-    cache = fresh_graphs["pg"]
+    cache = fresh_graphs.of("posegraph")
     graph = _pose_graph()
     live = LIVES["tensor"]
     kw = dict(iters=ITERS, cg_iters=CG_ITERS, n_live=live)
     first = tpg.optimize(graph, **kw)
     kept = tuple(x.clone() for x in first)
-    gn = next(g for k, g in cache.items() if k[0] == "pg_gn")
+    gn = one_each(fresh_graphs, "posegraph")["pg_gn"]
     # the same key, other values: replays only
     moved = graph._replace(poses=first[0])
     second = tpg.optimize(moved, **kw)
@@ -247,7 +239,8 @@ def test_bundle_adjust_graphs_equal_eager(emulated_graphs,  # noqa: F811
     assert same_bits(eager, graphed)
     assert float((graphed[0].poses - prob.poses).abs().max()) > 1e-4
     assert same_bits(before, tuple(prob))
-    (graphs,) = fresh_graphs["ba"].values()
+    graphs = one_each(fresh_graphs, "ba")
+    assert sorted(graphs) == ["ba_cost", "ba_lm"]
     assert graphs["ba_lm"].replays == BA_CFG.lm_iters - 1
     assert graphs["ba_cost"].replays == 0
     c, l, o = prob.poses.shape[0], prob.points.shape[0], prob.uv.shape[0]
@@ -262,16 +255,16 @@ def test_bundle_adjust_graphs_equal_eager(emulated_graphs,  # noqa: F811
 
 def test_bundle_adjust_graphs_cached_by_key(emulated_graphs,  # noqa: F811
                                             fresh_graphs):
-    cache = fresh_graphs["ba"]
+    cache = fresh_graphs.of("ba")
     prob, _, _, cam = synthetic.ba_problem(0, n_cams=BA_CAMS["cg"],
                                            n_outliers=8, device="cpu")
     first = _ba_call(prob, cam, True)
     kept = tuple(x.clone() for x in tree.flatten(first))
-    (graphs,) = cache.values()
+    graphs = one_each(fresh_graphs, "ba")
     # the same key: replays only
     moved = prob._replace(points=first[0].points)
     second = _ba_call(moved, cam, True)
-    assert len(cache) == 1
+    assert len(cache) == 2
     assert graphs["ba_lm"].replays == 2 * BA_CFG.lm_iters - 1
     assert graphs["ba_cost"].replays == 1
     assert same_bits(second, _ba_call(moved, cam, True, graphs=False))
@@ -279,7 +272,7 @@ def test_bundle_adjust_graphs_cached_by_key(emulated_graphs,  # noqa: F811
     # another camera goes into the same graphs, and its values are read
     cam2 = type(cam)(*[v * 1.01 for v in cam])
     third = _ba_call(prob, cam2, True)
-    assert len(cache) == 1
+    assert len(cache) == 2
     assert same_bits(third, _ba_call(prob, cam2, True, graphs=False))
     assert not same_bits(third, first)
     # another problem shape, trace or config: graphs of their own
@@ -288,7 +281,7 @@ def test_bundle_adjust_graphs_cached_by_key(emulated_graphs,  # noqa: F811
     _ba_call(other, cam, True)
     _ba_call(prob, cam, False)
     tba.bundle_adjust(prob, cam, BAConfig(lm_iters=3, cg_iters=20))
-    assert len(cache) == 4
+    assert len(cache) == 8
     assert graphs["ba_lm"].replays == 3 * BA_CFG.lm_iters - 1
-    for g in list(cache.values())[1:]:
-        assert g["ba_lm"].graph == "emulated"
+    for g in by_base(fresh_graphs, "ba")["ba_lm"][1:]:
+        assert g.graph == "emulated"

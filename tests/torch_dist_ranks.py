@@ -105,10 +105,14 @@ def _case_dist_ba_scale(mesh_mod, inputs):
     return {"record": rec}
 
 
-def _graph_counts(cache):
-    """Per graph set of a cache, {graph name: (captured, replays)}."""
-    return [{name: (g.graph is not None, g.replays)
-             for name, g in graphs.items()} for graphs in cache.values()]
+def _graph_counts(kind):
+    """{base name: [(captured, replays), ...]} of the registry's graphs of
+    `kind`, in the order they were made."""
+    from torch_graph_helpers import by_base
+
+    from slam1_tpu_torch.utils.graphs import GRAPHS
+    return {name: [(g.graph is not None, g.replays) for g in gs]
+            for name, gs in by_base(GRAPHS, kind).items()}
 
 
 def _case_dist_graphs(mesh_mod, inputs):
@@ -120,6 +124,7 @@ def _case_dist_graphs(mesh_mod, inputs):
     import pytest
     from torch_graph_helpers import emulate_graphs
 
+    from slam1_tpu_torch import parallel
     from slam1_tpu_torch.config import BAConfig
     from slam1_tpu_torch.ops.camera import StereoCamera
     from slam1_tpu_torch.parallel import dist_ba, dist_pgo
@@ -136,8 +141,7 @@ def _case_dist_graphs(mesh_mod, inputs):
         for lm in inputs["lms"]:
             mesh = mesh_mod.make_mesh(lm_axis=lm, device="cpu")
             sp, _ = dist_ba.partition_problem(prob, lm)
-            dist_ba.DIST_BA_GRAPHS.clear()
-            dist_pgo.DIST_PGO_GRAPHS.clear()
+            parallel.clear_graphs()
             for name, opx in (("cut", 8.0), ("nocut", 0.0)):
                 cfg = BAConfig(lm_iters=int(inputs["lm_iters"]),
                                cg_iters=int(inputs["cg_iters"]),
@@ -160,8 +164,8 @@ def _case_dist_graphs(mesh_mod, inputs):
                 out[f"pgo{lm}_{run}"] = dict(poses=poses.numpy(),
                                              cost=cost.numpy(),
                                              comm=dict(mesh.comm))
-            out[f"ba{lm}_graphs"] = _graph_counts(dist_ba.DIST_BA_GRAPHS)
-            out[f"pgo{lm}_graphs"] = _graph_counts(dist_pgo.DIST_PGO_GRAPHS)
+            out[f"ba{lm}_graphs"] = _graph_counts("dist_ba")
+            out[f"pgo{lm}_graphs"] = _graph_counts("dist_pgo")
     finally:
         patch.undo()
     return out

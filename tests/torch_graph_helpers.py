@@ -7,14 +7,18 @@
   - the `emulated_graphs` fixture: `StepGraph`'s capture and replay run
     eagerly on the CPU, with the same static state (its own clone, or
     the state of the graph it runs over), loads and write-backs as on
-    the card, and the graphed paths of `SlamSystem`, `vo_block`, the
-    flow VO's `run_sequence`, `posegraph.optimize`, `ba.bundle_adjust`
-    and the sharded solvers (`mesh.capturable`) taken for CPU tensors
-    (the kernels' plain twins still run and the collectives go to the
-    backend: only the choice of the graphed path is patched);
+    the card, and the one rule that picks graphs (`graphs.graphed`)
+    answers what the caller wants whatever the device and the backend,
+    so every graphed path (SlamSystem, vo_block, the flow VO's
+    `run_sequence` and the solvers of `graphs.iterate`) runs on CPU
+    tensors (the kernels' plain twins still run, picked by the device,
+    and the collectives go to the backend);
   - `emulate_graphs(monkeypatch)`, the fixture's patches as a plain
     function, for processes that take no fixture (the spawned ranks of
-    `torch_dist_ranks.py`, given a `pytest.MonkeyPatch()`).
+    `torch_dist_ranks.py`, given a `pytest.MonkeyPatch()`);
+  - the `fresh_graphs` fixture: the solvers' graph registry
+    (`graphs.GRAPHS`) empty for the test alone, returned; `by_base` and
+    `one_each` list a registry's graphs by base name.
 
 An emulated replay runs the step function again, so it counts the
 collectives it makes itself and ignores a call's `counters`.
@@ -25,18 +29,10 @@ A test file takes them by importing them:
     from torch_graph_helpers import emulated_graphs  # noqa: F401
 """
 
-import types
-
 import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from slam1_tpu_torch.models import ba as tba
-from slam1_tpu_torch.models import pipeline as tpipe
-from slam1_tpu_torch.models import posegraph as tposegraph
-from slam1_tpu_torch.models import vo, vo_flow
-from slam1_tpu_torch.ops import dispatch
-from slam1_tpu_torch.parallel import mesh as mesh_mod
 from slam1_tpu_torch.utils import graphs, tree
 
 HOST_OPS = ("_local_scalar_dense", "nonzero", "masked_select", "unique",
@@ -70,11 +66,16 @@ def same_bits(a, b) -> bool:
 @pytest.fixture
 def emulated_graphs(monkeypatch):
     """StepGraph with its capture and replay run eagerly on the CPU: the
-    same static state, loads and write-backs as on the card, and the
-    graphed paths of SlamSystem, vo_block, vo_flow.run_sequence,
-    posegraph.optimize, ba.bundle_adjust and the sharded solvers taken
-    for CPU tensors."""
+    same static state, loads and write-backs as on the card, and every
+    graphed path taken for CPU tensors."""
     emulate_graphs(monkeypatch)
+
+
+@pytest.fixture
+def fresh_graphs(monkeypatch):
+    """The solvers' graph registry, empty for the test alone."""
+    monkeypatch.setattr(graphs.GRAPHS, "_graphs", {})
+    return graphs.GRAPHS
 
 
 def emulate_graphs(monkeypatch):
@@ -95,23 +96,23 @@ def emulate_graphs(monkeypatch):
 
     monkeypatch.setattr(graphs.StepGraph, "_capture", capture)
     monkeypatch.setattr(graphs.StepGraph, "_launch", launch)
-    card = types.SimpleNamespace(use_cuda=lambda t: True)
-    monkeypatch.setattr(tpipe, "dispatch", card)
-    monkeypatch.setattr(vo, "dispatch", card)
-    monkeypatch.setattr(vo_flow, "dispatch", card)
-    # BA's CG-path kernels (the reduced-system halves and the observation
-    # pass) stay dispatched by their tensors' device (the plain twins
-    # here).
-    monkeypatch.setattr(tba, "dispatch", types.SimpleNamespace(
-        use_cuda=card.use_cuda, schur_order=dispatch.schur_order,
-        ba_schur_landmarks=dispatch.ba_schur_landmarks,
-        ba_schur_cameras=dispatch.ba_schur_cameras,
-        ba_obs_cameras=dispatch.ba_obs_cameras,
-        ba_obs_landmarks=dispatch.ba_obs_landmarks,
-        ba_obs_cost=dispatch.ba_obs_cost))
-    # The pose graph's chain kernels stay dispatched by their tensors'
-    # device (the plain twins here).
-    monkeypatch.setattr(tposegraph, "dispatch", types.SimpleNamespace(
-        use_cuda=card.use_cuda, chain_prepare=dispatch.chain_prepare,
-        chain_sweep=dispatch.chain_sweep))
-    monkeypatch.setattr(mesh_mod, "capturable", lambda mesh, x: True)
+    monkeypatch.setattr(graphs, "graphed",
+                        lambda x, mesh=None, wanted=True: wanted)
+
+
+def by_base(registry, *kinds) -> dict:
+    """{base name: [StepGraph, ...]} of the registry's graphs of `kinds`
+    (`graphs.GRAPHS` or a `fresh_graphs`), in the order they were made."""
+    out = {}
+    for kind in kinds:
+        for g in registry.of(kind).values():
+            out.setdefault(g.name.split("[", 1)[0], []).append(g)
+    return out
+
+
+def one_each(registry, *kinds) -> dict:
+    """{base name: StepGraph} of the registry's graphs of `kinds`, which
+    hold one graph of each base name."""
+    found = by_base(registry, *kinds)
+    assert all(len(g) == 1 for g in found.values()), found
+    return {name: g for name, (g,) in found.items()}

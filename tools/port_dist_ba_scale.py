@@ -75,6 +75,7 @@ def run(ckpt: str, device="cuda", tiny: bool = False, lm_iters: int = 6,
     from slam1_tpu_torch.parallel import mesh as mesh_mod
     from slam1_tpu_torch.parallel.dist_ba import (distributed_bundle_adjust,
                                                   partition_problem_device)
+    from slam1_tpu_torch.utils.graphs import graphed
 
     if not dist.is_initialized():
         mesh_mod.init_multihost(device=device)
@@ -114,8 +115,7 @@ def run(ckpt: str, device="cuda", tiny: bool = False, lm_iters: int = 6,
     # the graphs and the timed call only replays them; eager, one LM
     # iteration first keeps the first collectives and the first-call
     # set-up out of the timed run.
-    dist_mode = "graphed" if mesh_mod.capturable(mesh, sharded.uv) \
-        else "eager"
+    dist_mode = "graphed" if graphed(sharded.uv, mesh) else "eager"
     warm_cfg = (ba_cfg if dist_mode == "graphed"
                 else dataclasses.replace(ba_cfg, lm_iters=1))
     distributed_bundle_adjust(sharded, cam, warm_cfg, mesh,
