@@ -51,7 +51,11 @@ exits non-zero and never prints the final `ok` line:
                and cost launches) on a shuffled 24-camera problem with a
                bucket's padding and the final cut, against its plain
                twins on the CPU, repeated to the bit, the cost launch
-               equal to the cameras launch's costs to the bit.
+               equal to the cameras launch's costs to the bit; BA's PCG
+               vector update (ba_cg: the start and a step) on a CG state
+               at the ba-global-2048 cell's 2048 camera rows (1000
+               observed) and at 37 rows, against its plain twins on the
+               card, repeated to the bit, one launch each counted.
   4. slice   — renders the 24-frame arc clip (6000 points) at the
                default config, runs VO `run_sequence` on CUDA tensors
                with the launch counters reset just before, checks the
@@ -164,7 +168,14 @@ exits non-zero and never prints the final `ok` line:
                line's ba_obs row and its `by_launch`) on the phase's
                problem and on a synthetic drive at the cell's sizes;
                the observations a landmark has (mean, p99, max: the
-               landmarks launch's tail).
+               landmarks launch's tail). The replays launch the PCG
+               vector update (ba_cg) cg_iters + 1 times an LM iteration
+               (its start and one a CG iteration), none in ba_build or
+               ba_apply; one step against its twins on the phase's own
+               CG state (after one product), and one step timed against
+               its twin and its bound (`ba_cg_work`: p, Ap, x, r and
+               Minv read, x, r and p written; the `kernels` line's ba_cg
+               row) on the phase's system and at the cell's 2048 rows.
   traj-ba  — `slam-torch ba <traj.npy>` in process on float64 files of
                a noisy two-lap trajectory at 4661 poses (KITTI 02's
                length) and 12000 (past the 8533 rows whose chain offsets
@@ -283,7 +294,8 @@ exits non-zero and never prints the final `ok` line:
                device memory (against its twin; device time of the
                shared-memory path at 8533 poses beside it); ba_schur's
                times are phase global-ba's (one product of both halves),
-               and so are ba_obs's (one LM iteration's three launches);
+               and so are ba_obs's (one LM iteration's three launches)
+               and ba_cg's (one step of the PCG vector update);
                the VO frames/s of the per-frame loop, the SLAM frames/s
                of the process loop, and ms per place_query, per slate
                and per PGO (the last three: phase times-slam; the PGO's
@@ -343,8 +355,8 @@ from slam1_tpu_torch.ops.segment import seg_sum  # noqa: E402
 from slam1_tpu_torch.utils import kitti, metrics, native_loader, \
     synthetic  # noqa: E402
 from slam1_tpu_torch.utils.bounds import PEAK_F32_FLOPS, ba_obs_work, \
-    bound, bound_ba_matvec, bound_chain_prepare, bound_chain_sweep, \
-    bound_fast_score, bound_hamming  # noqa: E402
+    bound, bound_ba_cg, bound_ba_matvec, bound_chain_prepare, \
+    bound_chain_sweep, bound_fast_score, bound_hamming  # noqa: E402
 from slam1_tpu_torch.utils.evalmetrics import ate_rmse  # noqa: E402
 from slam1_tpu_torch.utils.timing import device_busy_ms, device_launches, \
     event_ms, graph_ms  # noqa: E402
@@ -381,6 +393,12 @@ SCHUR_CELL = (512000, 2048, 1000, 79000)
 # relative error (the twins sum them in float32).
 OBS_TOL = 1e-6
 OBS_COST_TOL = 1e-5
+# BA's PCG vector update (csrc/ba_cg.cu) against its plain twins on the
+# card: max |kernel - twin| over the terms' magnitude (float64 on
+# absolute values); tests/torch_ba_cg_visit.py's CG_TOL, with its reason.
+CG_TOL = 1e-5
+# The ba-global-2048 cell's camera rows and the rows observed.
+CG_CELL = (2048, 1000)
 SAME_ATE_TOL = 1e-6          # m, between two runs of the same clip
 CKPT_FRAME = 320             # a block boundary of the slam-ba pass
 RESUME_TOL = 1e-3            # m, resumed run against the straight run
@@ -456,6 +474,11 @@ KERNELS = {
                "slam1_tpu/models/ba.py:140",
                "one LM iteration's observation pass (cameras, landmarks, "
                "the cost after the step) on phase global-ba's problem"),
+    # not a TPU kernel: the reference's CG iteration body (a scan body)
+    "ba_cg": ("slam1_tpu_torch/csrc/ba_cg.cu",
+              "slam1_tpu/ops/cg.py:36",
+              "one PCG step's vector update on phase global-ba's reduced "
+              "system"),
 }
 class CheckFailed(RuntimeError):
     pass
@@ -724,7 +747,86 @@ def phase_kernels_backend(dev):
                    check_chain(ops, n_live, f"poses={CHAIN_F}"))
     keep_worst(errs, rel_errs, check_ba_schur(dev))
     keep_worst(errs, rel_errs, check_ba_obs(dev))
+    keep_worst(errs, rel_errs, check_ba_cg(dev))
     return errs, rel_errs
+
+
+def cg_state(c, live, dev, seed=13):
+    """A CG state over C camera rows of which the first `live` are
+    observed, as global BA's reduced system has them (seeded): blocks H
+    = A A^T + I (1e-6 I, the damping alone, on unobserved rows), Minv =
+    H^-1, r random (0 on unobserved rows), x random, p = Minv r, Ap = H p
+    -> (p, ap, x, r, minv, rz = r.p), float32 on `dev`."""
+    g = torch.Generator().manual_seed(seed)
+    a = torch.randn((c, 6, 6), generator=g, dtype=torch.float64)
+    h = a @ a.transpose(1, 2) + torch.eye(6, dtype=torch.float64)
+    h[live:] = 1e-6 * torch.eye(6, dtype=torch.float64)
+    r = torch.randn((c, 6), generator=g, dtype=torch.float64)
+    r[live:] = 0.0
+    minv = torch.linalg.inv(h)
+    p = torch.einsum("cij,cj->ci", minv, r)
+    x = torch.randn((c, 6), generator=g, dtype=torch.float64)
+    return tuple(t.float().contiguous().to(dev) for t in (
+        p, torch.einsum("cij,cj->ci", h, p), x, r, minv, torch.sum(r * p)))
+
+
+def cg_errors(case, state):
+    """BA's PCG vector update (csrc/ba_cg.cu), the start and one step,
+    against its plain twins on the card, each launch repeated to the bit
+    and counted once -> (max abs error, the same over the terms'
+    magnitude); the latter is what CG_TOL bounds."""
+    p, ap, x, r, minv, rz = state
+    cuda_kernels.reset_launch_counts()
+    start = cuda_kernels.ba_cg_start_cuda(r, minv)
+    step = cuda_kernels.ba_cg_step_cuda(p, ap, x, r, minv, rz)
+    counted = cuda_kernels.launch_counts()["ba_cg"]
+    again = (cuda_kernels.ba_cg_start_cuda(r, minv),
+             cuda_kernels.ba_cg_step_cuda(p, ap, x, r, minv, rz))
+    same = not tree_diff((start, step), again, "ba_cg")
+    twin_start = cuda_kernels.ba_cg_start_plain(r, minv)
+    twin = cuda_kernels.ba_cg_step_plain(p, ap, x, r, minv, rz)
+    am = minv.double().abs()
+    alpha = abs(float(rz / torch.sum(p * ap)))
+    beta = abs(float(twin[3] / rz))
+    m_r = r.double().abs() + alpha * ap.double().abs()
+    m_z = torch.einsum("cij,cj->ci", am, m_r)
+    m_z0 = torch.einsum("cij,cj->ci", am, r.double().abs())
+    mags = {"start p": m_z0, "start rz": torch.sum(r.double().abs() * m_z0),
+            "x": x.double().abs() + alpha * p.double().abs(), "r": m_r,
+            "p": m_z + beta * p.double().abs(), "rz": torch.sum(m_r * m_z)}
+    worst = (0.0, 0.0)
+    for name, k, t in zip(mags, (*start, *step), (*twin_start, *twin)):
+        diff = (k.double() - t.double()).abs()
+        err = float(diff.max())
+        rel = float((diff / (mags[name] + 1e-30)).max())
+        say("kernels", kernel="ba_cg", case=case, output=name,
+            shape=tuple(r.shape), max_abs_err=err, rel_err=rel)
+        check(bool(torch.isfinite(k).all()) and rel <= CG_TOL,
+              f"ba_cg {name} ({case}): error {rel} of the terms")
+        worst = (max(worst[0], err), max(worst[1], rel))
+    check(same, f"ba_cg ({case}): a second launch gave other bits")
+    check(counted == 2, f"ba_cg ({case}): {counted} launches counted, not 2")
+    return worst
+
+
+def check_ba_cg(dev):
+    """BA's PCG vector update at the ba-global-2048 cell's camera rows
+    (CG_CELL) and at 37 rows: {"ba_cg": worst cg_errors}."""
+    worst = (0.0, 0.0)
+    for case, (c, live) in (("cell", CG_CELL), ("37 rows", (37, 37))):
+        err = cg_errors(case, cg_state(c, live, dev))
+        worst = (max(worst[0], err[0]), max(worst[1], err[1]))
+    return {"ba_cg": worst}
+
+
+def time_ba_cg(state, sizes):
+    """time_kernel of one step of the PCG vector update against its twin,
+    bound by `ba_cg_work`."""
+    return time_kernel(
+        "ba_cg", lambda: cuda_kernels.ba_cg_step_plain(*state),
+        lambda: cuda_kernels.ba_cg_step_cuda(*state),
+        *bound_ba_cg(state[0].shape[0]),
+        per=f"one PCG step's vector update: {sizes}")
 
 
 def check_ba_obs(dev):
@@ -1156,7 +1258,7 @@ def slam_numbers(sys_, cfg, pre, post, gt):
             "hamming_top2_batched": sys_.n_slates,
             "chain_prepare": gn_iters,
             "chain_sweep": gn_iters * (cfg.ba.cg_iters + 1), "ba_schur": 0,
-            "ba_obs": 0}
+            "ba_obs": 0, "ba_cg": 0}
     return dict(ate_pre=ate_rmse(pre, gt, align=False),
                 ate_post=ate_rmse(post, gt, align=False),
                 ate_odo=ate_rmse(odometry_poses(sys_), gt, align=False),
@@ -1386,10 +1488,13 @@ def phase_global_ba(cfg, sys_, world, smi):
     against its bound, the reduced-system halves held to their twins
     and timed on the same system and at the offline cell's sizes, and
     the observation pass (csrc/ba_obs.cu) held to its twins and timed on
-    the same problem and on a synthetic drive at the cell's sizes.
+    the same problem and on a synthetic drive at the cell's sizes, and
+    the PCG vector update (csrc/ba_cg.cu) held to its twins on the same
+    system and timed there and at the cell's sizes.
     -> (launch counts of the replayed call, {"ba_schur": times,
-    "ba_schur_cell": times, "ba_obs": times, "ba_obs_cell": times},
-    {"ba_schur": errors, "ba_obs": errors}, numbers)."""
+    "ba_schur_cell": times, "ba_obs": times, "ba_obs_cell": times,
+    "ba_cg": times, "ba_cg_cell": times}, {"ba_schur": errors, "ba_obs":
+    errors, "ba_cg": errors}, numbers)."""
     st = sys_.state
     f = sys_.frame_count + 1
     gt = world.poses.cpu().numpy()
@@ -1445,11 +1550,13 @@ def phase_global_ba(cfg, sys_, world, smi):
     # for each product, twice for the right side and the landmark half
     # once for the back-substitution, in every LM iteration, and the
     # observation pass three times an iteration (cameras, landmarks, the
-    # cost after the step) and once for ba_apply's final cost.
+    # cost after the step) and once for ba_apply's final cost, and the
+    # PCG vector update once to start and once a CG iteration.
     cg_path = bucket > ba.DIRECT_MAX_CAMS
     per_iter = 2 * (cfg.ba.cg_iters + 1) + 3 if cg_path else 0
     want = {**{k: 0 for k in counts}, "ba_schur": iters * per_iter,
-            "ba_obs": 3 * iters + 1 if cg_path else 0}
+            "ba_obs": 3 * iters + 1 if cg_path else 0,
+            "ba_cg": iters * (cfg.ba.cg_iters + 1) if cg_path else 0}
     check(counts == want, f"the replayed global BA launched {counts}, "
           f"not {want}")
     graph_diff = tree_diff(eager, graphed, "global_ba")
@@ -1497,8 +1604,8 @@ def phase_global_ba(cfg, sys_, world, smi):
     r, Jc, Jl, w = ba._linearize(prob, sys_.cam, prob.w * hw)
     lam = torch.full((), cfg.ba.lm_lambda0, device=r.device)
     blocks = ba._normal_blocks(prob, r, Jc, Jl, w)
-    matvec, btil, _, _ = ba._reduced_system(prob, blocks, lam,
-                                            ba._obs_order(prob))
+    matvec, btil, Minv, _ = ba._reduced_system(prob, blocks, lam,
+                                               ba._obs_order(prob))
     Hcc, Hll, W, bc, bl, _ = blocks
     Hcc_d = ba._damped(Hcc, lam)
     Hll_inv = inv3x3(ba._damped(Hll, lam))
@@ -1526,6 +1633,18 @@ def phase_global_ba(cfg, sys_, world, smi):
         prob, sys_.cam, cut2, cap,
         f"{o} observations, {c} camera rows, {l} landmarks (phase "
         f"global-ba)", cfg.ba.huber_delta)
+    # The PCG vector update on the phase's own system: the start from
+    # r = btil (x = 0), then one step after one product.
+    Minv = Minv.contiguous()
+    p0, rz0 = cuda_kernels.ba_cg_start_cuda(btil, Minv)
+    cg_own = (p0, matvec(p0), torch.zeros_like(btil), btil, Minv, rz0)
+    cg_err = cg_errors("global-ba", cg_own)
+    schur_times["ba_cg"] = time_ba_cg(
+        cg_own, f"{c} camera rows (phase global-ba)")
+    schur_times["ba_cg_cell"] = time_ba_cg(
+        cg_state(*CG_CELL, r.device),
+        "{} camera rows of which {} observed (ba-global-2048's sizes, "
+        "synthetic operands)".format(*CG_CELL))
     cell, cell_cam = obs_cell_inputs(r.device)
     ba_obs_errors("cell", cell, cell_cam, cut2, cap, cfg.ba.huber_delta)
     schur_times["ba_obs_cell"] = time_ba_obs(
@@ -1588,7 +1707,7 @@ def phase_global_ba(cfg, sys_, world, smi):
     # The graphs' pools are not needed by the later phases.
     GRAPHS.clear()
     return counts, schur_times, {"ba_schur": schur_err,
-                                 "ba_obs": obs_err}, out
+                                 "ba_obs": obs_err, "ba_cg": cg_err}, out
 
 
 def traj_file(n, path):

@@ -17,7 +17,9 @@
     preconditioned CG otherwise (`_schur_solve`), whose product with
     the system is two hand-written kernels on the card
     (`csrc/ba_schur.cu`: a landmark half and a camera half, through
-    `ops/dispatch.py`) and their plain twins on the CPU;
+    `ops/dispatch.py`) and their plain twins on the CPU, and whose vector
+    update after each product is one launch of `csrc/ba_cg.cu` (its
+    plain twin on the CPU);
   - outer Levenberg-Marquardt with accept/reject damping, Huber IRLS
     weights and a graduated outlier cut, fixed iteration counts, no
     value read back to the host: `lm_step` is one iteration (the
@@ -50,7 +52,6 @@ from slam1_tpu_torch.config import BAConfig
 from slam1_tpu_torch.models import posegraph
 from slam1_tpu_torch.ops import ba_obs, cuda_kernels, dispatch, se3
 from slam1_tpu_torch.ops.camera import StereoCamera
-from slam1_tpu_torch.ops.cg import cg
 from slam1_tpu_torch.ops.lsq import huber_weights, inv3x3, inv_spd6
 from slam1_tpu_torch.ops.segment import seg_sum
 from slam1_tpu_torch.utils import graphs as graph_mod
@@ -237,10 +238,21 @@ def _reduced_system(problem, blocks, lam, order):
 def _cg_solve(problem, blocks, lam, cg_iters: int, order):
     """One damped GN step via landmark elimination + PCG on the reduced
     camera system of the normal blocks. Returns (delta_c (C,6),
-    delta_l (L,3))."""
+    delta_l (L,3)).
+
+    The PCG is `ops/cg.cg` from x = 0 with the block-Jacobi
+    preconditioner z = Minv r, written out: after each product with the
+    system the iteration's vector update (step length, x, r, z, r.z, the
+    new direction) is `dispatch.ba_cg_step`, one launch of
+    `csrc/ba_cg.cu` on the card and its plain twin (cg's own torch
+    operations, to the bit) on the CPU; its start `dispatch.ba_cg_start`
+    likewise."""
     matvec, btil, Minv, back = _reduced_system(problem, blocks, lam, order)
-    dc = cg(matvec, btil, iters=cg_iters,
-            precond=lambda v: torch.einsum("cij,cj->ci", Minv, v))
+    dc = torch.zeros_like(btil)
+    r = btil - matvec(dc)
+    p, rz = dispatch.ba_cg_start(r, Minv)
+    for _ in range(cg_iters):
+        dc, r, p, rz = dispatch.ba_cg_step(p, matvec(p), dc, r, Minv, rz)
     dc[0].zero_()
     return dc, back(dc)
 

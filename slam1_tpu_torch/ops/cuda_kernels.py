@@ -25,6 +25,12 @@ CUDA C++ kernels for sm_90a live in `slam1_tpu_torch/csrc/`:
     at another estimate; replaces no TPU kernel but the reference's
     gathers, Jacobians and einsums (`slam1_tpu/models/ba.py` `_cost`,
     `_linearize`, `_schur_solve`).
+  - `ba_cg.cu`        — the vector update of the same CG path's
+    preconditioned conjugate gradients (step length, x and r, the
+    block-Jacobi preconditioner, r.z, the new direction) as one launch
+    an iteration, one thread-block cluster, and its start; replaces no
+    TPU kernel but `ops/cg.py`'s iteration body (the scan body of
+    `slam1_tpu/ops/cg.py`).
 
 Each source is compiled with nvcc into its own shared library with a
 plain C interface at first use (all sources at once, from the repo's
@@ -75,7 +81,12 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 SOURCES = ("fast_score.cu", "hamming_top2.cu", "chain_sweep.cu",
-           "ba_schur.cu", "ba_obs.cu")
+           "ba_schur.cu", "ba_obs.cu", "ba_cg.cu")
+# Most threads a block of csrc/ba_cg.cu's launch takes (its MAX_THREADS;
+# build() checks that they agree).
+BA_CG_MAX_THREADS = 256
+# ops/cg.cg's default guard, which the CG path's vector update keeps.
+CG_EPS = 1e-12
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -145,7 +156,7 @@ class _ObsArgs(ctypes.Structure):
 
 
 class _Kernels:
-    """The C entry points of the five libraries, argtypes declared."""
+    """The C entry points of the six libraries, argtypes declared."""
 
     def __init__(self, libs):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -187,12 +198,17 @@ class _Kernels:
         self.slam_ba_obs_landmarks.argtypes = [args, p, p, p]
         self.slam_ba_obs_cost = obs.slam_ba_obs_cost
         self.slam_ba_obs_cost.argtypes = [args, p, p, p]
+        cg = libs["ba_cg.cu"]
+        self.slam_ba_cg_update = cg.slam_ba_cg_update
+        self.slam_ba_cg_update.argtypes = [p, p, p, p, p, p, i, f, i, i, p, p,
+                                           p, p, p]
         for fn in (self.slam_fast_score, self.slam_fast_score_levels,
                    self.slam_hamming_top2,
                    self.slam_hamming_top2_batched, self.slam_chain_prepare,
                    self.slam_chain_sweep, self.slam_ba_schur_landmarks,
                    self.slam_ba_schur_cameras, self.slam_ba_obs_cameras,
-                   self.slam_ba_obs_landmarks, self.slam_ba_obs_cost):
+                   self.slam_ba_obs_landmarks, self.slam_ba_obs_cost,
+                   self.slam_ba_cg_update):
             fn.restype = i
         obs.slam_ba_obs_args_size.argtypes = []
         obs.slam_ba_obs_args_size.restype = i
@@ -204,6 +220,16 @@ class _Kernels:
         # Most rows (F) whose offsets one chain_sweep launch holds in
         # shared memory; a larger F keeps them in a device scratch buffer.
         self.chain_max_live = chain.slam_chain_sweep_max_live()
+        cg.slam_ba_cg_max_threads.restype = i
+        if cg.slam_ba_cg_max_threads() != BA_CG_MAX_THREADS:
+            raise RuntimeError("csrc/ba_cg.cu and BA_CG_MAX_THREADS disagree")
+        # The largest cluster the CG update can launch on this card (the
+        # query also allows it clusters above the portable 8).
+        cg.slam_ba_cg_max_cluster.restype = i
+        self.cg_max_cluster = cg.slam_ba_cg_max_cluster()
+        if self.cg_max_cluster < 1:
+            raise RuntimeError(f"csrc/ba_cg.cu: cluster query failed "
+                               f"(CUDA error {-self.cg_max_cluster})")
 
 
 def build(verbose: bool = False) -> _Kernels:
@@ -987,12 +1013,117 @@ def ba_obs_cost_cuda(problem, cam, order, cap, huber_delta: float):
     return costs[0], costs[1]
 
 
+# ---------------------------------------------------------------------------
+# Bundle adjustment's PCG vector update
+# ---------------------------------------------------------------------------
+#
+# One iteration of `ops/cg.cg` after its product Ap = S p, with the
+# block-Jacobi preconditioner z = Minv r (Minv (C,6,6)), and its start
+# after r = b - S x0 (see csrc/ba_cg.cu). The plain twins are that
+# iteration's torch operations in their order, and the preconditioner's
+# einsum, so that a loop over them gives `cg`'s bits.
+
+
+def ba_cg_start_plain(r, minv):
+    """Plain twin of ba_cg_start_cuda: z = Minv r -> (p = z (C,6),
+    rz = r.z ())."""
+    z = torch.einsum("cij,cj->ci", minv, r)
+    return z, torch.sum(r * z)
+
+
+def ba_cg_step_plain(p, ap, x, r, minv, rz):
+    """Plain twin of ba_cg_step_cuda: `ops/cg.cg`'s iteration from its
+    product ap = S p -> (x, r, p, rz) one iteration on; the step length
+    guarded where |p.Ap| < CG_EPS and both lengths frozen to 0 once
+    rz <= CG_EPS."""
+    eps = CG_EPS
+    denom = torch.sum(p * ap)
+    alpha = rz / torch.where(torch.abs(denom) < eps,
+                             torch.full_like(denom, eps), denom)
+    alive = rz > eps
+    zero = torch.zeros_like(rz)
+    alpha = torch.where(alive, alpha, zero)
+    x = x + alpha * p
+    r = r - alpha * ap
+    z = torch.einsum("cij,cj->ci", minv, r)
+    rz_new = torch.sum(r * z)
+    beta = rz_new / torch.where(torch.abs(rz) < eps,
+                                torch.full_like(rz, eps), rz)
+    beta = torch.where(alive, beta, zero)
+    return x, r, z + beta * p, rz_new
+
+
+def ba_cg_launch(c: int, max_cluster: int):
+    """(blocks, threads) of csrc/ba_cg.cu's launch over C camera rows:
+    one cluster of as many 128-thread blocks as C asks for, up to
+    `max_cluster` (the card's, `build().cg_max_cluster`); the threads then
+    widened in steps of a warp, up to BA_CG_MAX_THREADS, until each holds
+    at most one camera where that is possible."""
+    blocks = max(1, min(max_cluster, -(-c // 128)))
+    per_block = -(-c // blocks)
+    return blocks, min(BA_CG_MAX_THREADS, -(-per_block // 32) * 32)
+
+
+def _cg_launch(what, r, minv, step=None):
+    """One launch of csrc/ba_cg.cu over r (C,6) and minv (C,6,6): the
+    start (step None) or a step from step = (p, ap, x, rz) -> (x, r, p,
+    rz) as it writes them (x and r None for the start)."""
+    c = r.shape[0]
+    _check(r, "r", torch.float32, (c, 6))
+    _check(minv, "minv", torch.float32, (c, 6, 6))
+    _check_aligned(8, r=r)
+    _check_aligned(16, minv=minv)
+    if c < 1 or c >= 1 << 31:
+        raise ValueError(f"{what}: unsupported C={c}")
+    p, ap, x, rz = step if step is not None else (None,) * 4
+    x_out = r_out = None
+    if step is not None:
+        for name, t in (("p", p), ("ap", ap), ("x", x)):
+            _check(t, name, torch.float32, (c, 6))
+            _check_aligned(8, **{name: t})
+        _check(rz, "rz", torch.float32, ())
+        x_out, r_out = torch.empty_like(x), torch.empty_like(r)
+    for t in (minv, *(step or ())):
+        if t.device != r.device:
+            raise ValueError(f"{what}: operands on {t.device} and "
+                             f"{r.device}")
+    p_out = torch.empty_like(r)
+    rz_out = torch.empty((), dtype=torch.float32, device=r.device)
+    lib = build()
+    blocks, threads = ba_cg_launch(c, lib.cg_max_cluster)
+    stream = torch.cuda.current_stream(r.device).cuda_stream
+    _raise_on(lib.slam_ba_cg_update(
+        _ptr(p), _ptr(ap), _ptr(x), r.data_ptr(), minv.data_ptr(), _ptr(rz),
+        c, CG_EPS, blocks, threads, _ptr(x_out), _ptr(r_out),
+        p_out.data_ptr(), rz_out.data_ptr(), stream), f"{what} launch")
+    ba_cg_step_cuda.launches += 1
+    return x_out, r_out, p_out, rz_out
+
+
+def ba_cg_start_cuda(r, minv):
+    """The CG start (z = Minv r, p = z, rz = r.z) in one launch of
+    csrc/ba_cg.cu. Same contract as ba_cg_start_plain."""
+    return _cg_launch("ba_cg start", r, minv)[2:]
+
+
+def ba_cg_step_cuda(p, ap, x, r, minv, rz):
+    """One CG iteration's vector update in one launch of csrc/ba_cg.cu.
+    Same contract as ba_cg_step_plain; the two dot products sum in
+    float64 in the kernel's fixed order, rounded once."""
+    return _cg_launch("ba_cg step", r, minv, (p, ap, x, rz))
+
+
+# Launches of the start and the step.
+ba_cg_step_cuda.launches = 0
+
+
 _COUNTED = {"fast_score": fast_score_cuda, "hamming_top2": hamming_top2_cuda,
             "hamming_top2_batched": hamming_top2_batched_cuda,
             "chain_prepare": chain_prepare_cuda,
             "chain_sweep": chain_sweep_cuda,
             "ba_schur": ba_schur_landmarks_cuda,
-            "ba_obs": ba_obs_cameras_cuda}
+            "ba_obs": ba_obs_cameras_cuda,
+            "ba_cg": ba_cg_step_cuda}
 
 
 def launch_counts() -> dict:

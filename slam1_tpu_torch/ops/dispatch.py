@@ -140,3 +140,21 @@ def ba_schur_cameras(W, v, order, hcc=None, x=None, b=None):
           else cuda_kernels.ba_schur_cameras_plain)
     return fn(W.contiguous(), v.contiguous(), order, hcc=_contiguous(hcc),
               x=_contiguous(x), b=_contiguous(b))
+
+
+def ba_cg_start(r, minv):
+    """The start of BA's block-Jacobi PCG after r = b - S x0 -> (p = Minv
+    r (C,6), rz = r.z ())."""
+    fn = (cuda_kernels.ba_cg_start_cuda if use_cuda(r)
+          else cuda_kernels.ba_cg_start_plain)
+    return fn(r.contiguous(), minv.contiguous())
+
+
+def ba_cg_step(p, ap, x, r, minv, rz):
+    """One iteration of BA's block-Jacobi PCG from its product ap = S p ->
+    (x, r, p, rz) one iteration on: `ops/cg.cg`'s iteration, in one
+    launch for CUDA tensors."""
+    fn = (cuda_kernels.ba_cg_step_cuda if use_cuda(r)
+          else cuda_kernels.ba_cg_step_plain)
+    return fn(p.contiguous(), ap.contiguous(), x.contiguous(),
+              r.contiguous(), minv.contiguous(), rz)

@@ -141,3 +141,21 @@ def ba_obs_work(o, c, l, launch: str):
 
 def bound_ba_obs(o, c, l, launch: str):
     return bound(*ba_obs_work(o, c, l, launch), PEAK_F32_FLOPS)
+
+
+def ba_cg_work(c, start: bool = False):
+    """(bytes, float32 operations) of one launch of BA's PCG vector
+    update (`csrc/ba_cg.cu`) over C camera rows, each input read once and
+    each output written once. A step reads p, Ap, x, r (C,6) and Minv
+    (C,6,6) and rz, and writes x, r, p (C,6) and rz: 312 bytes a camera;
+    12 operations a camera for p.Ap, 24 for the x and r updates, 66 for
+    z = Minv r, 12 for r.z and 12 for p. The start reads r and Minv and
+    writes p and rz (192 bytes a camera; z and r.z, 78 operations). The
+    float64 sums are counted with the float32 operations."""
+    if start:
+        return c * (24 + 144 + 24) + 4, 78 * c
+    return c * (4 * 24 + 144 + 3 * 24) + 8, (12 + 24 + 66 + 12 + 12) * c
+
+
+def bound_ba_cg(c, start: bool = False):
+    return bound(*ba_cg_work(c, start), PEAK_F32_FLOPS)

@@ -7,8 +7,9 @@ several live counts written into their device scalar, global BA's own
 graphs replayed without a sync, the sharded solvers' graphs under
 NCCL, collectives inside, the tracer's spans against the CUDA
 profiler's annotations, every stream synchronization of the SLAM
-driver counted as a wait, and BA's reduced-system halves counted per
-LM iteration).
+driver counted as a wait, BA's reduced-system halves counted per
+LM iteration, and BA's PCG vector update against its twins and its
+arithmetic, graphed equal to eager and counted per LM iteration).
 
 Every test here is marked `cuda` and skips where there is no card (the
 kernels have no CPU mode). The file imports torch and the port only,
@@ -36,7 +37,9 @@ from slam1_tpu_torch.utils.graphs import GRAPHS, StepGraph
 from slam1_tpu_torch.utils.tree import flatten, unflatten
 from test_torch_ba_obs import (COST_TOL, OBS_TOL, VISIT_CASES, _magnitudes,
                                _problem)
-from torch_graph_helpers import one_each
+from torch_ba_cg_visit import (cg_inputs, kernel_start, kernel_step,
+                               magnitudes, within_tol)
+from torch_graph_helpers import one_each, same_bits
 
 pytestmark = pytest.mark.cuda
 
@@ -233,7 +236,8 @@ def test_vo_slice_launches_both_kernels(cuda_device):
                                             "chain_prepare": 0,
                                             "chain_sweep": 0,
                                             "ba_schur": 0,
-                                            "ba_obs": 0}
+                                            "ba_obs": 0,
+                                            "ba_cg": 0}
     assert np.isfinite(poses).all()
     assert np.mean([bool(m.pnp_ok) for m in metrics]) > 0.5
 
@@ -1372,3 +1376,158 @@ def test_ba_obs_graphed_lm_with_priors_equals_eager(cuda_device):
         assert int(trace.n_obs[-1]) < int(trace.n_obs[0])
     finally:
         ba.BA_GRAPHS.clear()
+
+
+# ---------------------------------------------------------------------------
+# BA's PCG vector update (csrc/ba_cg.cu)
+# ---------------------------------------------------------------------------
+
+# (C, observed rows; None: all): the benchmark cell's 2048 rows of which
+# 1000 observed, C no multiple of a warp, a block or the cluster, and
+# C past the cluster's threads (several cameras a thread).
+CG_SHAPES = {"20": (20, None), "37": (37, None), "cell": (2048, 1000),
+             "2049": (2049, None), "8197": (8197, None)}
+
+
+def _cg_launch_as(t, blocks, threads, step):
+    """One launch of csrc/ba_cg.cu's C entry at a given cluster and block
+    size (the wrapper takes `ba_cg_launch`'s) -> (x, r, p, rz)."""
+    c = t["r"].shape[0]
+    x, r, p = [torch.empty_like(t["r"]) for _ in range(3)]
+    rz = torch.empty_like(t["rz"])
+    ptr = (lambda k: t[k].data_ptr()) if step else (lambda k: None)
+    err = cuda_kernels.build().slam_ba_cg_update(
+        ptr("p"), ptr("ap"), ptr("x"), t["r"].data_ptr(),
+        t["minv"].data_ptr(), ptr("rz"), c, cuda_kernels.CG_EPS, blocks,
+        threads, x.data_ptr() if step else None,
+        r.data_ptr() if step else None, p.data_ptr(), rz.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0, err
+    return (x, r, p, rz) if step else (p, rz)
+
+
+@pytest.mark.parametrize("shape", list(CG_SHAPES))
+def test_ba_cg_kernel_matches_its_arithmetic_and_the_twins(cuda_device,
+                                                           shape):
+    """The start and the step against the twins on the card within
+    CG_TOL of the terms' magnitude (`torch_ba_cg_visit.py` states it), and
+    against the launch's own arithmetic (float64 sums in its order) to
+    the bit, at the wrapper's launch and at one block of 256 threads and
+    at a cluster of 3 blocks of 64; a second launch gives the same bits;
+    unobserved rows get p = 0; once rz <= eps x and r keep their bits."""
+    c, live = CG_SHAPES[shape]
+    t = cg_inputs(c, 7, cuda_device, live)
+    lib = cuda_kernels.build()
+    blocks, threads = cuda_kernels.ba_cg_launch(c, lib.cg_max_cluster)
+    args = [t[k] for k in ("p", "ap", "x", "r", "minv", "rz")]
+    start = cuda_kernels.ba_cg_start_cuda(t["r"], t["minv"])
+    step = cuda_kernels.ba_cg_step_cuda(*args)
+    assert same_bits(start, cuda_kernels.ba_cg_start_cuda(t["r"], t["minv"]))
+    assert same_bits(step, cuda_kernels.ba_cg_step_cuda(*args))
+    assert same_bits(start, kernel_start(t["r"], t["minv"], blocks, threads))
+    assert same_bits(step, kernel_step(*args, blocks, threads))
+    for b, th in ((1, 256), (3, 64)):
+        assert same_bits(_cg_launch_as(t, b, th, False),
+                         kernel_start(t["r"], t["minv"], b, th))
+        assert same_bits(_cg_launch_as(t, b, th, True),
+                         kernel_step(*args, b, th))
+    twin_start = cuda_kernels.ba_cg_start_plain(t["r"], t["minv"])
+    twin = cuda_kernels.ba_cg_step_plain(*args)
+    m_z = torch.einsum("cij,cj->ci", t["minv"].double().abs(),
+                       t["r"].double().abs())
+    assert within_tol(start[0], twin_start[0], m_z)
+    assert within_tol(start[1], twin_start[1],
+                      torch.sum(t["r"].double().abs() * m_z))
+    mags = magnitudes(t, t["rz"] / torch.sum(t["p"] * t["ap"]),
+                      twin[3] / t["rz"])
+    for name, a, b, m in zip("x r p rz".split(), step, twin, mags):
+        rel = float(((a.double() - b.double()).abs() / (m + 1e-30)).max())
+        print(f"ba_cg {shape} {name}: {rel:.3g} of the terms")
+        assert within_tol(a, b, m), (name, rel)
+    if live is not None:
+        assert bool((step[2][live:] == 0).all())
+    frozen = dict(t, rz=torch.full_like(t["rz"], 0.5 * cuda_kernels.CG_EPS))
+    out = cuda_kernels.ba_cg_step_cuda(
+        *[frozen[k] for k in ("p", "ap", "x", "r", "minv", "rz")])
+    assert same_bits(out[:2], (t["x"], t["r"]))
+
+
+def test_ba_cg_rejects_bad_inputs(cuda_device):
+    t = cg_inputs(40, 3, cuda_device)
+    with pytest.raises(ValueError):
+        cuda_kernels.ba_cg_start_cuda(t["r"][:, :5].contiguous(), t["minv"])
+    with pytest.raises(TypeError):
+        cuda_kernels.ba_cg_start_cuda(t["r"].double(), t["minv"])
+    with pytest.raises(ValueError):
+        cuda_kernels.ba_cg_step_cuda(t["p"], t["ap"], t["x"], t["r"],
+                                     t["minv"], t["rz"].cpu())
+
+
+def test_ba_cg_counted_per_replay_graphed_equal_to_eager(cuda_device):
+    """bundle_adjust on the CG path with pose priors and the trace: a warm
+    graphed call makes no host sync and equals graphs=False to the bit;
+    `launch_counts()["ba_cg"]` is cg_iters + 1 a `ba_lm` replay (the start
+    and one update a CG iteration) and 0 a `ba_cost` replay, as the eager
+    calls count; the dense path (C <= 16) and a local-BA window of the
+    SLAM pipeline launch none; the product's halves stay 2 (cg_iters +
+    1) + 3 a replay."""
+    from slam1_tpu_torch.config import BAConfig
+    from slam1_tpu_torch.models import ba
+    from slam1_tpu_torch.ops import se3
+    cfg = BAConfig(lm_iters=4, cg_iters=20)
+    p, T_true, _, cam = synthetic.ba_problem(0, n_cams=24, px_noise=0.3,
+                                             n_outliers=40,
+                                             device=cuda_device)
+    c = p.poses.shape[0]
+    i = torch.arange(c - 1, device=cuda_device)
+    p = p._replace(pe_i=i, pe_j=i + 1,
+                   pe_z=se3.inverse(T_true[i]) @ T_true[i + 1],
+                   pe_w=torch.full((c - 1,), 1e4, device=cuda_device))
+
+    def launches(fn, name="ba_cg"):
+        fn()                                                  # warm
+        torch.cuda.synchronize()
+        before = cuda_kernels.launch_counts()[name]
+        fn()
+        torch.cuda.synchronize()
+        return cuda_kernels.launch_counts()[name] - before
+
+    def call(graphs=True):
+        return ba.bundle_adjust(p, cam, cfg, return_trace=True,
+                                graphs=graphs)
+    ba.BA_GRAPHS.clear()
+    try:
+        eager = call(False)
+        call()
+        graphed = _synced_call(call)
+        for a, b in zip(flatten(eager), flatten(graphed), strict=True):
+            assert torch.equal(_bits(a), _bits(b))
+        assert bool(eager[2].accept.any())
+        per_lm = cfg.cg_iters + 1
+        for graphs in (True, False):
+            assert launches(lambda g=graphs: call(g)) == cfg.lm_iters * per_lm
+        graphs = one_each(GRAPHS, "ba")
+        assert graphs["ba_lm"].launches["ba_cg"] == per_lm
+        assert graphs["ba_cost"].launches.get("ba_cg", 0) == 0
+        carry = ba._lm_carry(p, cam, cfg, True)
+        assert launches(lambda: graphs["ba_lm"](carry)) == per_lm
+        assert launches(lambda: graphs["ba_lm"](carry), "ba_schur") == (
+            2 * per_lm + 3)
+        assert launches(lambda: graphs["ba_cost"](carry)) == 0
+        p6, _, _, cam6 = synthetic.ba_problem(0, n_cams=6, px_noise=0.3,
+                                              device=cuda_device)
+        assert launches(lambda: ba.bundle_adjust(p6, cam6, cfg)) == 0
+    finally:
+        ba.BA_GRAPHS.clear()
+    tcfg = tiny_config()
+    h, w = tcfg.image.height, tcfg.image.width
+    world = synthetic.make_world(3, n_frames=12, n_points=1200,
+                                 trajectory="loop", image_hw=(h, w),
+                                 speed=0.9, device=cuda_device)
+    lefts, rights = synthetic.render_sequence(world, h, w)
+    draws = pipeline.DrawSource(0, cuda_device)
+    st = pipeline._init_state(lefts[0], rights[0], world.cam, tcfg, draws)
+    for k in range(1, 12):
+        st, _, _ = pipeline.slam_step(st, lefts[k], rights[k], world.cam,
+                                      tcfg, draws)
+    assert launches(lambda: pipeline.local_ba_step(st, world.cam, tcfg)) == 0
