@@ -17,7 +17,8 @@ leaves null in the last lines what it did not measure. `--phases pyramid,two-vie
 runs without the 600-frame clip; `--phases bench,tools` too.
 
 Run from the repo root on a machine with one CUDA card (sm_90a: H100).
-It imports torch, numpy and `slam1_tpu_torch` only — never jax. Phases,
+It imports torch, numpy, `slam1_tpu_torch` and the benchmark's BAL
+generator only — never jax. Phases,
 each printed as it finishes; any failed check raises, so the script
 exits non-zero and never prints the final `ok` line:
 
@@ -187,6 +188,25 @@ exits non-zero and never prints the final `ok` line:
                per Gauss-Newton iteration eager and graphed (host clock,
                turns eager, graph, graph, eager), pg_gn's capture s,
                nodes and pool bytes.
+  bal      — BAL's camera model on the CG path at Venice's sizes (1778
+               cameras, 993 923 points, 5 001 946 observations; the
+               problem of `benchmark/yardstick/bal_synth.py` from seed
+               BAL_SEED, made on the card), as `ba.BAL` runs them (no
+               outlier cut): csrc/bal_obs.cu's three launches, both
+               halves of csrc/ba_schur.cu at D = 9 (product and right
+               side) and csrc/ba_cg.cu's start and step at D = 9, each
+               against its plain twin on the card within BAL_OBS_TOL,
+               BAL_SCHUR_TOL and BAL_CG_TOL of the twin's largest value
+               (the costs within BAL_OBS_TOL, the kept rows equal, a
+               second launch and the cost launch the cameras launch's
+               bits); each timed (graph, eager, twin) with its
+               bound (`utils/bounds.bal_*_work`); then one
+               `ba.bundle_adjust` pass with the model `ba.BAL` captures
+               `bal_lm` and `bal_cost`, and with the counters zeroed
+               just before, one warm `bal_lm` replay launches bal_obs 3,
+               ba_schur 2 (cg_iters + 1) + 3 = 133 and ba_cg cg_iters +
+               1 = 65 times, one `bal_cost` replay bal_obs once and
+               nothing else, neither with a host sync.
   ref-backend — `ref_backend.optimize_segment` over the run's first loop
                (its odometry twists, padded to a multiple of 64, the loop
                edge's measurement): endpoint gap down >= 10x, twists
@@ -399,6 +419,17 @@ OBS_COST_TOL = 1e-5
 CG_TOL = 1e-5
 # The ba-global-2048 cell's camera rows and the rows observed.
 CG_CELL = (2048, 1000)
+# Phase bal: the seed of its Venice-sized problem, and each launch
+# against its plain twin on the card, max |kernel - twin| over the twin's
+# largest |value|, at 4x the largest gap measured there (H100, two runs:
+# the observation pass 1.0e-4, on W; the halves 5.0e-6; the PCG update
+# 3.2e-5). The pass's gap exceeds the card tests' BAL_TOL (1e-5, on 12
+# cameras): W's gap is the largest over 5 M rows (not ~1 200) of a
+# per-row difference that the card's sines and cosines make.
+BAL_SEED = 2147926301
+BAL_OBS_TOL = 4e-4
+BAL_SCHUR_TOL = 2e-5
+BAL_CG_TOL = 1.3e-4
 SAME_ATE_TOL = 1e-6          # m, between two runs of the same clip
 CKPT_FRAME = 320             # a block boundary of the slam-ba pass
 RESUME_TOL = 1e-3            # m, resumed run against the straight run
@@ -438,7 +469,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # Phases a run may select (--phases), in the order a full run takes
 # them, and what each needs run before it.
 PHASES = ("kernels", "slice", "pyramid", "two-view", "flow", "slam",
-          "graphs", "slam-ba", "checkpoint", "global-ba", "traj-ba",
+          "graphs", "slam-ba", "checkpoint", "global-ba", "traj-ba", "bal",
           "ref-backend",
           "dist", "async", "cpu-vs-gpu", "cli", "bench", "tools", "times",
           "times-slam")
@@ -479,6 +510,11 @@ KERNELS = {
               "slam1_tpu/ops/cg.py:36",
               "one PCG step's vector update on phase global-ba's reduced "
               "system"),
+    # not a TPU kernel: the reference's jacfwd and einsums of BAL's pass
+    "bal_obs": ("slam1_tpu_torch/csrc/bal_obs.cu",
+                "slam1_tpu/models/bal.py:93",
+                "one LM iteration's BAL observation pass (cameras, "
+                "landmarks, the cost after the step) at Venice's sizes"),
 }
 class CheckFailed(RuntimeError):
     pass
@@ -1708,6 +1744,199 @@ def phase_global_ba(cfg, sys_, world, smi):
     GRAPHS.clear()
     return counts, schur_times, {"ba_schur": schur_err,
                                  "ba_obs": obs_err, "ba_cg": cg_err}, out
+
+
+def bal_errors(tag, tol, got, want):
+    """{name: (max abs error, the same over the twin's largest |value|)}
+    of kernel outputs against their twins, each checked within `tol`."""
+    out = {}
+    for name, k, t in zip(want, got, want.values()):
+        diff = (k.double() - t.double()).abs()
+        err = float(diff.max())
+        rel = err / max(float(t.abs().max()), 1e-30)
+        say("bal", kernel=tag, block=name, max_abs_err=err, rel_err=rel)
+        check(bool(torch.isfinite(k).all()) and rel <= tol,
+              f"{tag} {name}: error {rel} of its largest value (> {tol})")
+        out[name] = (err, rel)
+    return out
+
+
+def phase_bal(dev):
+    """BAL at Venice's sizes (see the module docstring) -> (times {name +
+    "_bal": time_kernel rows}, errors {kernel: (max abs, max rel)},
+    numbers)."""
+    from benchmark.yardstick import bal_synth
+    from slam1_tpu_torch.config import BAConfig
+    from slam1_tpu_torch.models import bal
+    from slam1_tpu_torch.ops import bal_obs
+    from slam1_tpu_torch.utils import bounds
+    with open(os.path.join(REPO, "benchmark", "configs",
+                           "bal-venice.json")) as f:
+        conf = json.load(f)
+    p = bal.BalProblem(*bal_synth.make(BAL_SEED, conf, dev)[:6])
+    o, c, n_l = p.uv.shape[0], p.cams.shape[0], p.points.shape[0]
+    sizes = f"{c} cameras, {n_l} points, {o} observations"
+    cfg = BAConfig()
+    delta = cfg.huber_delta
+    cut2 = cap = None                    # BAL's model cuts no observation
+    order = ba._obs_order(p, ba.BAL)
+    plain = cuda_kernels.SchurOrder(order.cam_idx, order.lm_idx)
+
+    def launches():
+        obs = cuda_kernels.bal_obs_cameras_cuda(p, (), order, cut2, cap,
+                                                delta)
+        return obs, cuda_kernels.bal_obs_landmarks_cuda(
+            p, (), order, cut2, delta)
+    obs, (hll, bl) = launches()
+    again = launches()
+    cost = cuda_kernels.bal_obs_cost_cuda(p, (), order, cap, delta)
+    twin = bal_obs.cameras_plain(p, (), plain, cut2, cap, delta)
+    twin_l = bal_obs.landmarks_plain(p, (), plain, cut2, delta)
+    errs = {"bal_obs": bal_errors(
+        "bal_obs", BAL_OBS_TOL, (obs.W, obs.hcc, obs.bc, hll, bl),
+        dict(W=twin.W, Hcc=twin.hcc, bc=twin.bc, Hll=twin_l[0],
+             bl=twin_l[1]))}
+    same = all(torch.equal(bits(a), bits(b)) for a, b in
+               zip(flatten((obs, hll, bl)), flatten(again)))
+    cost_same = bool(torch.equal(bits(cost[0]), bits(obs.full))
+                     and torch.equal(bits(cost[1]), bits(obs.trunc)))
+    cost_rel = [abs(float(k) - float(t)) / abs(float(t))
+                for k, t in ((obs.full, twin.full), (obs.trunc, twin.trunc))]
+    say("bal", kernel="bal_obs", sizes=sizes, cost_rel_err=cost_rel,
+        kept=int(obs.n_kept), twin_kept=int(twin.n_kept),
+        repeat_same_bits=same, cost_launch_same_bits=cost_same)
+    check(max(cost_rel) <= BAL_OBS_TOL
+          and int(obs.n_kept) == int(twin.n_kept),
+          f"bal_obs costs: {cost_rel}, kept {int(obs.n_kept)} against "
+          f"{int(twin.n_kept)}")
+    check(same and cost_same, f"bal_obs: a second launch or the cost "
+          f"launch gave other bits ({same}, {cost_same})")
+    del twin, twin_l, again
+
+    # The reduced system of this pass at lm_lambda0, both halves at D = 9.
+    lam = torch.tensor(cfg.lm_lambda0, device=dev)
+    hinv = inv3x3(ba._damped(hll, lam))
+    hcc = ba._damped(obs.hcc, lam)
+    minv = ba._inv_lu(hcc)
+    W = obs.W
+    va = cuda_kernels.ba_schur_landmarks_cuda(W, hinv, order, a=bl)
+    btil = cuda_kernels.ba_schur_cameras_cuda(W, va, order, b=obs.bc)
+    x = torch.einsum("cij,cj->ci", minv, btil).contiguous()
+    v = cuda_kernels.ba_schur_landmarks_cuda(W, hinv, order, x=x)
+    ax = cuda_kernels.ba_schur_cameras_cuda(W, v, order, hcc=hcc, x=x)
+    errs["ba_schur"] = bal_errors(
+        "ba_schur D=9", BAL_SCHUR_TOL,
+        (va, btil, v, ax,
+         cuda_kernels.ba_schur_landmarks_cuda(W, hinv, order, x=x, a=bl)),
+        {"landmarks a": cuda_kernels.ba_schur_landmarks_plain(
+            W, hinv, plain, a=bl),
+         "cameras b": cuda_kernels.ba_schur_cameras_plain(
+             W, va, plain, b=obs.bc),
+         "landmarks x": cuda_kernels.ba_schur_landmarks_plain(
+             W, hinv, plain, x=x),
+         "cameras hcc x": cuda_kernels.ba_schur_cameras_plain(
+             W, v, plain, hcc=hcc, x=x),
+         "landmarks x a": cuda_kernels.ba_schur_landmarks_plain(
+             W, hinv, plain, x=x, a=bl)})
+    pz, rz = cuda_kernels.ba_cg_start_cuda(btil, minv)
+    step = cuda_kernels.ba_cg_step_cuda(pz, ax, x, btil, minv, rz)
+    twin_start = cuda_kernels.ba_cg_start_plain(btil, minv)
+    errs["ba_cg"] = bal_errors(
+        "ba_cg D=9", BAL_CG_TOL, (pz, rz) + tuple(step),
+        dict(zip(("start p", "start rz", "x", "r", "p", "rz"),
+                 twin_start + tuple(cuda_kernels.ba_cg_step_plain(
+                     pz, ax, x, btil, minv, rz)))))
+
+    times = {"bal_obs_bal": time_kernel(
+        "bal_obs",
+        lambda: (bal_obs.cameras_plain(p, (), plain, cut2, cap, delta),
+                 bal_obs.cost_plain(p, (), plain, cap, delta)),
+        lambda: (launches(), cuda_kernels.bal_obs_cost_cuda(
+            p, (), order, cap, delta)),
+        *bound(*[sum(bounds.bal_obs_work(o, c, n_l, k)[i] for k in (
+            "cameras", "landmarks", "cost")) for i in (0, 1)],
+            PEAK_F32_FLOPS), plain_reps=2,
+        per=f"one LM iteration's BAL observation pass: {sizes}")}
+    times["bal_obs_bal"]["by_launch"] = {
+        "cameras": time_kernel(
+            "bal_obs",
+            lambda: bal_obs.cameras_plain(p, (), plain, cut2, cap, delta),
+            lambda: cuda_kernels.bal_obs_cameras_cuda(p, (), order, cut2,
+                                                      cap, delta),
+            *bounds.bound_bal_obs(o, c, n_l, "cameras"), plain_reps=2,
+            per=f"the cameras launch: {sizes}"),
+        "landmarks": time_kernel(
+            "bal_obs",
+            lambda: bal_obs.landmarks_plain(p, (), plain, cut2, delta),
+            lambda: cuda_kernels.bal_obs_landmarks_cuda(p, (), order, cut2,
+                                                        delta),
+            *bounds.bound_bal_obs(o, c, n_l, "landmarks"), plain_reps=2,
+            per=f"the landmarks launch: {sizes}"),
+        "cost": time_kernel(
+            "bal_obs",
+            lambda: bal_obs.cost_plain(p, (), plain, cap, delta),
+            lambda: cuda_kernels.bal_obs_cost_cuda(p, (), order, cap, delta),
+            *bounds.bound_bal_obs(o, c, n_l, "cost"), plain_reps=2,
+            per=f"the cost launch: {sizes}")}
+    times["ba_schur_bal"] = {
+        "landmarks": time_kernel(
+            "ba_schur",
+            lambda: cuda_kernels.ba_schur_landmarks_plain(W, hinv, plain,
+                                                          x=x),
+            lambda: cuda_kernels.ba_schur_landmarks_cuda(W, hinv, order, x=x),
+            *bounds.bound_bal_schur(o, c, n_l, "landmarks"), plain_reps=3,
+            per=f"the landmark half at D = 9: {sizes}"),
+        "cameras": time_kernel(
+            "ba_schur",
+            lambda: cuda_kernels.ba_schur_cameras_plain(W, v, plain, hcc=hcc,
+                                                        x=x),
+            lambda: cuda_kernels.ba_schur_cameras_cuda(W, v, order, hcc=hcc,
+                                                       x=x),
+            *bounds.bound_bal_schur(o, c, n_l, "cameras"), plain_reps=3,
+            per=f"the camera half at D = 9: {sizes}")}
+    times["ba_cg_bal"] = time_kernel(
+        "ba_cg",
+        lambda: cuda_kernels.ba_cg_step_plain(pz, ax, x, btil, minv, rz),
+        lambda: cuda_kernels.ba_cg_step_cuda(pz, ax, x, btil, minv, rz),
+        *bound(*bounds.bal_cg_work(c), PEAK_F32_FLOPS),
+        per=f"one PCG step's vector update at D = 9: {c} cameras")
+    del obs, hll, bl, W, hinv, hcc, minv, va, btil, x, v, ax, pz, rz, step
+
+    # One pass captures bal_lm and bal_cost; then each replay's launches.
+    ba.BA_GRAPHS.clear()
+    t0 = time.perf_counter()
+    ba.bundle_adjust(p, (), cfg, model=ba.BAL)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    graphs = solver_graphs("bal", ("bal_lm", "bal_cost"), "ba")
+    carry = ba._lm_carry(p, (), cfg, False, ba.BAL)
+    counts, syncs = {}, {}
+    for name in ("bal_lm", "bal_cost"):
+        graphs[name](carry)                               # warm
+        torch.cuda.synchronize()
+        cuda_kernels.reset_launch_counts()
+        graphs[name](carry)
+        torch.cuda.synchronize()
+        counts[name] = {k: n for k, n in cuda_kernels.launch_counts().items()
+                        if n}
+        syncs[name] = count_syncs(lambda g=graphs[name]: g(carry))[0]
+    per_lm = cfg.cg_iters + 1
+    say("bal", first_pass_s=first_s, replay_launches=counts,
+        replay_host_syncs=syncs)
+    check(counts["bal_lm"] == {"bal_obs": 3, "ba_schur": 2 * per_lm + 3,
+                               "ba_cg": per_lm}
+          and counts["bal_cost"] == {"bal_obs": 1},
+          f"bal: a replay's launches {counts}")
+    check(syncs == {"bal_lm": 0, "bal_cost": 0},
+          f"bal: host syncs in a warm replay {syncs}")
+    ba.BA_GRAPHS.clear()
+    torch.cuda.empty_cache()
+    return times, {k: (max(e[0] for e in v.values()),
+                       max(e[1] for e in v.values()))
+                   for k, v in errs.items()}, {
+        "bal_replay_launches": counts,
+        "bal_rel_err": {k: max(e[1] for e in v.values())
+                        for k, v in errs.items()}}
 
 
 def traj_file(n, path):
@@ -3677,6 +3906,13 @@ def main(argv=None):
         by_path.update(traj_paths)
         numbers.update(traj_numbers)
         phase_s["traj-ba"] = time.perf_counter() - t0
+    if "bal" in phases:
+        t0 = time.perf_counter()
+        bal_times, bal_errs, bal_numbers = phase_bal(dev)
+        times.update(bal_times)
+        keep_worst(errs, rel_errs, bal_errs)
+        numbers.update(bal_numbers)
+        phase_s["bal"] = time.perf_counter() - t0
     if "ref-backend" in phases:
         t0 = time.perf_counter()
         numbers.update(phase_ref_backend(sys_, dev))
@@ -3743,6 +3979,8 @@ def main(argv=None):
                    else {}),
                 **({"at_offline_cell_sizes": times[f"{name}_cell"]}
                    if f"{name}_cell" in times else {}),
+                **({"at_bal_venice": times[f"{name}_bal"]}
+                   if f"{name}_bal" in times else {}),
                 "library_ms": None}
                for name, (src, rep, per) in KERNELS.items()]
     print(json.dumps({"phases": [p for p in PHASES if p in phases],

@@ -1,5 +1,5 @@
 """Command-line interface of the PyTorch/CUDA port: `slam-torch
-run|ba|eval|bench` (counterpart of `slam1_tpu/cli.py`).
+run|ba|bal|eval|bench` (counterpart of `slam1_tpu/cli.py`).
 
   run    — VO or full SLAM over a KITTI sequence dir or --synthetic;
            `--multihost [--coordinator H:P --num-processes N
@@ -15,6 +15,11 @@ run|ba|eval|bench` (counterpart of `slam1_tpu/cli.py`).
            landmark-sharded BA of `parallel/dist_ba.py` over the ranks
            of the process group: N ranks under torchrun, or a world of
            one when run plainly; S must divide N
+  bal    — bundle adjustment of a BAL problem file (Agarwal et al.,
+           "Bundle Adjustment in the Large"): 9-parameter cameras and
+           points refined by `models/bal.bal_adjust` (the shared CG
+           path, CUDA graphs on the card), the refined problem written
+           in BAL's format
   eval   — ATE/RPE of an estimated trajectory vs ground truth
   bench  — the port's benchmark (`slam1_tpu_torch/bench.py`): SLAM and
            VO frames/s, ATE and loop closures on the synthetic clips;
@@ -266,6 +271,43 @@ def _cmd_ba(args):
     return 0
 
 
+def _cmd_bal(args):
+    """A BAL problem file refined by `bal.bal_adjust` at BAConfig()'s
+    settings (`--iters`: its LM iterations) on `--device`; the refined
+    cameras and points written to `--out` with the file's observations,
+    one JSON line of sizes and costs (the full Huber cost before and
+    after) on stdout. `--trace DIR` profiles the read and the solve
+    (`utils/metrics.profiler_trace`: the spans `host:bal.load` and
+    `host:bal.pass`, the counters)."""
+    import dataclasses
+
+    from slam1_tpu_torch import runtime
+    from slam1_tpu_torch.config import BAConfig
+    from slam1_tpu_torch.models import bal
+    from slam1_tpu_torch.utils import export
+    from slam1_tpu_torch.utils.metrics import profiler_trace
+
+    dev = runtime.device(args.device)
+    cfg = BAConfig()
+    if args.iters is not None:
+        cfg = dataclasses.replace(cfg, lm_iters=args.iters)
+    with profiler_trace(args.trace):
+        d = export.load_bal(args.problem)
+        prob = bal.from_bal_dict(d, device=dev)
+        before = bal._cost(prob, cfg.huber_delta)[0]
+        out, cost = bal.bal_adjust(prob, cfg)
+    export.write_bal(args.out, out.cams.cpu().numpy(),
+                     out.points.cpu().numpy(), d["cam_idx"], d["lm_idx"],
+                     d["uv"])
+    _launch_line(dev)
+    print(json.dumps({"cameras": int(prob.cams.shape[0]),
+                      "points": int(prob.points.shape[0]),
+                      "observations": int(prob.uv.shape[0]),
+                      "initial_cost": float(before),
+                      "final_cost": float(cost)}))
+    return 0
+
+
 def trajectory_graph(poses: np.ndarray, dev):
     """The pose graph of `ba <traj.npy>`: the (F,4,4) poses of the file
     and an odometry edge between neighbours, weight 1, on `dev`. The
@@ -412,6 +454,19 @@ def main(argv=None):
                          "the world size (default: 4, 2 or 1, the "
                          "largest that divides it)")
     pb.set_defaults(fn=_cmd_ba)
+
+    pl = sub.add_parser("bal", help="bundle adjustment of a BAL problem "
+                                    "file (9-parameter cameras)")
+    pl.add_argument("problem", help="BAL problem file (problem-*.txt)")
+    pl.add_argument("--out", default="refined.txt",
+                    help="the refined problem, in BAL's format")
+    pl.add_argument("--iters", type=int, default=None,
+                    help="LM iterations (default: BAConfig().lm_iters)")
+    pl.add_argument("--trace", metavar="DIR",
+                    help="profile the read and the solve into DIR: "
+                         "trace.json and spans.json, as `run --trace`")
+    _device_arg(pl)
+    pl.set_defaults(fn=_cmd_bal)
 
     pn = sub.add_parser("bench", help="SLAM and VO frames/s, ATE and loop "
                                       "closures on the synthetic clips")

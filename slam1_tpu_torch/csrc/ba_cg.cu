@@ -23,6 +23,11 @@
 // That is `ops/cg.cg`'s iteration, guards and all, and its start after
 // r = b - S x0 (`cuda_kernels.ba_cg_step_plain`, `ba_cg_start_plain`).
 //
+// The kernel is a template on the camera block's width D: 6 for the
+// stereo rig's SE(3) twists, 9 for BAL's cameras (9x9 preconditioner
+// blocks; a camera's vectors and block read as floats, 36 and 324 bytes,
+// 4-byte aligned). The D = 6 instantiation is the code written for it.
+//
 // Design: the vectors are tiny, so the launch is bound by latency, not by
 // bytes (`utils/bounds.ba_cg_work`: p, Ap, x, r and Minv read, x, r and p
 // written, 312 bytes a camera, 0.19 us at 2048 cameras and 3.35 TB/s). It
@@ -76,69 +81,92 @@ constexpr int MAX_THREADS = 256;
 constexpr int MAX_WARPS = MAX_THREADS / 32;
 constexpr int MAX_CLUSTER = 16;
 
-__device__ __forceinline__ void load6(const float* __restrict__ v, int c,
-                                      float out[6]) {
-  const float2* q = reinterpret_cast<const float2*>(v) +
-                    static_cast<size_t>(c) * 3;
+// A camera's D-vector: at D = 6 as 3 float2 (8-byte aligned rows), at
+// D = 9 as 9 floats.
+template <int D>
+__device__ __forceinline__ void load_v(const float* __restrict__ v, int c,
+                                       float out[D]) {
+  if (D == 6) {
+    const float2* q = reinterpret_cast<const float2*>(v) +
+                      static_cast<size_t>(c) * 3;
 #pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    const float2 t = __ldg(q + i);
-    out[2 * i] = t.x;
-    out[2 * i + 1] = t.y;
+    for (int i = 0; i < 3; ++i) {
+      const float2 t = __ldg(q + i);
+      out[2 * i] = t.x;
+      out[2 * i + 1] = t.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < D; ++i) out[i] = __ldg(v + static_cast<size_t>(c) * D + i);
   }
 }
 
-__device__ __forceinline__ void store6(float* v, int c, const float in[6]) {
-  float2* q = reinterpret_cast<float2*>(v) + static_cast<size_t>(c) * 3;
+template <int D>
+__device__ __forceinline__ void store_v(float* v, int c, const float in[D]) {
+  if (D == 6) {
+    float2* q = reinterpret_cast<float2*>(v) + static_cast<size_t>(c) * 3;
 #pragma unroll
-  for (int i = 0; i < 3; ++i) q[i] = make_float2(in[2 * i], in[2 * i + 1]);
-}
-
-// Minv_c (6x6, row-major) as 9 float4 loads: 144 bytes a camera keep
-// every block 16-byte aligned.
-__device__ __forceinline__ void load36(const float* __restrict__ m, int c,
-                                       float out[36]) {
-  const float4* q = reinterpret_cast<const float4*>(m) +
-                    static_cast<size_t>(c) * 9;
+    for (int i = 0; i < 3; ++i) q[i] = make_float2(in[2 * i], in[2 * i + 1]);
+  } else {
 #pragma unroll
-  for (int i = 0; i < 9; ++i) {
-    const float4 t = __ldg(q + i);
-    out[4 * i] = t.x;
-    out[4 * i + 1] = t.y;
-    out[4 * i + 2] = t.z;
-    out[4 * i + 3] = t.w;
+    for (int i = 0; i < D; ++i) v[static_cast<size_t>(c) * D + i] = in[i];
   }
 }
 
-__device__ __forceinline__ void dot6(const float a[6], const float b[6],
-                                     double& sum) {
+// Minv_c (DxD, row-major). At D = 6 as 9 float4 loads: 144 bytes a camera
+// keep every block 16-byte aligned. At D = 9 as 81 floats.
+template <int D>
+__device__ __forceinline__ void load_m(const float* __restrict__ m, int c,
+                                       float out[D * D]) {
+  if (D == 6) {
+    const float4* q = reinterpret_cast<const float4*>(m) +
+                      static_cast<size_t>(c) * 9;
 #pragma unroll
-  for (int i = 0; i < 6; ++i)
+    for (int i = 0; i < 9; ++i) {
+      const float4 t = __ldg(q + i);
+      out[4 * i] = t.x;
+      out[4 * i + 1] = t.y;
+      out[4 * i + 2] = t.z;
+      out[4 * i + 3] = t.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < D * D; ++i)
+      out[i] = __ldg(m + static_cast<size_t>(c) * (D * D) + i);
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void dot(const float a[D], const float b[D],
+                                    double& sum) {
+#pragma unroll
+  for (int i = 0; i < D; ++i)
     sum += static_cast<double>(a[i]) * static_cast<double>(b[i]);
 }
 
 // x' = x + alpha p and r' = r - alpha Ap (step), then z = Minv r' and
 // r'.z added to `sum`; r holds r' on return.
+template <int D>
 __device__ __forceinline__ void update(bool step, float alpha,
-                                       const float p[6], const float ap[6],
-                                       float x[6], float r[6],
-                                       const float m[36], float z[6],
+                                       const float p[D], const float ap[D],
+                                       float x[D], float r[D],
+                                       const float m[D * D], float z[D],
                                        double& sum) {
   if (step) {
 #pragma unroll
-    for (int i = 0; i < 6; ++i) {
+    for (int i = 0; i < D; ++i) {
       x[i] = x[i] + alpha * p[i];
       r[i] = r[i] - alpha * ap[i];
     }
   }
 #pragma unroll
-  for (int i = 0; i < 6; ++i) {
-    float acc = m[6 * i] * r[0];
+  for (int i = 0; i < D; ++i) {
+    float acc = m[D * i] * r[0];
 #pragma unroll
-    for (int j = 1; j < 6; ++j) acc = acc + m[6 * i + j] * r[j];
+    for (int j = 1; j < D; ++j) acc = acc + m[D * i + j] * r[j];
     z[i] = acc;
   }
-  dot6(r, z, sum);
+  dot<D>(r, z, sum);
 }
 
 // The cluster's sum of every thread's v, the same bits in every thread of
@@ -184,6 +212,7 @@ __device__ double cluster_sum(double v, Slot& slot) {
   return t;
 }
 
+template <int D>
 __global__ void __launch_bounds__(MAX_THREADS)
 cg_update_kernel(const float* __restrict__ p, const float* __restrict__ ap,
                  const float* __restrict__ x, const float* __restrict__ r,
@@ -200,14 +229,14 @@ cg_update_kernel(const float* __restrict__ p, const float* __restrict__ ap,
   const int c0 = blockIdx.x * blockDim.x + threadIdx.x;
   const bool has0 = c0 < C;
   // The first camera's operands, in flight during the first reduction.
-  float p0[6], ap0[6], x0[6], r0[6], m0[36], z0[6];
+  float p0[D], ap0[D], x0[D], r0[D], m0[D * D], z0[D];
   if (has0) {
-    load6(r, c0, r0);
-    load36(minv, c0, m0);
+    load_v<D>(r, c0, r0);
+    load_m<D>(minv, c0, m0);
     if (step) {
-      load6(p, c0, p0);
-      load6(ap, c0, ap0);
-      load6(x, c0, x0);
+      load_v<D>(p, c0, p0);
+      load_v<D>(ap, c0, ap0);
+      load_v<D>(x, c0, x0);
     }
   }
   float alpha = 0.0f, rz_old = 0.0f;
@@ -215,12 +244,12 @@ cg_update_kernel(const float* __restrict__ p, const float* __restrict__ ap,
   cluster_wait();
   if (step) {
     double part = 0.0;
-    if (has0) dot6(p0, ap0, part);
+    if (has0) dot<D>(p0, ap0, part);
     for (int c = c0 + stride; c < C; c += stride) {
-      float pv[6], av[6];
-      load6(p, c, pv);
-      load6(ap, c, av);
-      dot6(pv, av, part);
+      float pv[D], av[D];
+      load_v<D>(p, c, pv);
+      load_v<D>(ap, c, av);
+      dot<D>(pv, av, part);
     }
     const float denom = static_cast<float>(cluster_sum(part, slots[0]));
     rz_old = __ldg(rz);
@@ -230,56 +259,77 @@ cg_update_kernel(const float* __restrict__ p, const float* __restrict__ ap,
   }
   double part = 0.0;
   if (has0) {
-    update(step, alpha, p0, ap0, x0, r0, m0, z0, part);
+    update<D>(step, alpha, p0, ap0, x0, r0, m0, z0, part);
     if (step) {
-      store6(x_out, c0, x0);
-      store6(r_out, c0, r0);
+      store_v<D>(x_out, c0, x0);
+      store_v<D>(r_out, c0, r0);
     } else {
-      store6(p_out, c0, z0);
+      store_v<D>(p_out, c0, z0);
     }
   }
   for (int c = c0 + stride; c < C; c += stride) {
-    float pv[6], av[6], xv[6], rv[6], m[36], z[6];
-    load6(r, c, rv);
-    load36(minv, c, m);
+    float pv[D], av[D], xv[D], rv[D], m[D * D], z[D];
+    load_v<D>(r, c, rv);
+    load_m<D>(minv, c, m);
     if (step) {
-      load6(p, c, pv);
-      load6(ap, c, av);
-      load6(x, c, xv);
+      load_v<D>(p, c, pv);
+      load_v<D>(ap, c, av);
+      load_v<D>(x, c, xv);
     }
-    update(step, alpha, pv, av, xv, rv, m, z, part);
+    update<D>(step, alpha, pv, av, xv, rv, m, z, part);
     if (step) {
-      store6(x_out, c, xv);
-      store6(r_out, c, rv);
+      store_v<D>(x_out, c, xv);
+      store_v<D>(r_out, c, rv);
     }
-    store6(p_out, c, z);            // z, until beta is known (step)
+    store_v<D>(p_out, c, z);            // z, until beta is known (step)
   }
   const float rz_new = static_cast<float>(cluster_sum(part, slots[1]));
   if (step) {
     float beta = rz_new / (fabsf(rz_old) < eps ? eps : rz_old);
     if (!alive) beta = 0.0f;
     if (has0) {
-      float pn[6];
+      float pn[D];
 #pragma unroll
-      for (int i = 0; i < 6; ++i) pn[i] = z0[i] + beta * p0[i];
-      store6(p_out, c0, pn);
+      for (int i = 0; i < D; ++i) pn[i] = z0[i] + beta * p0[i];
+      store_v<D>(p_out, c0, pn);
     }
     for (int c = c0 + stride; c < C; c += stride) {
-      float pv[6], pn[6];
-      load6(p, c, pv);
+      float pv[D], pn[D];
+      load_v<D>(p, c, pv);
       // This thread's own z, written above: a plain load, not __ldg.
-      const float2* q = reinterpret_cast<const float2*>(p_out) +
-                        static_cast<size_t>(c) * 3;
+      if (D == 6) {
+        const float2* q = reinterpret_cast<const float2*>(p_out) +
+                          static_cast<size_t>(c) * 3;
 #pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        const float2 t = q[i];
-        pn[2 * i] = t.x + beta * pv[2 * i];
-        pn[2 * i + 1] = t.y + beta * pv[2 * i + 1];
+        for (int i = 0; i < 3; ++i) {
+          const float2 t = q[i];
+          pn[2 * i] = t.x + beta * pv[2 * i];
+          pn[2 * i + 1] = t.y + beta * pv[2 * i + 1];
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < D; ++i)
+          pn[i] = p_out[static_cast<size_t>(c) * D + i] + beta * pv[i];
       }
-      store6(p_out, c, pn);
+      store_v<D>(p_out, c, pn);
     }
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) *rz_out = rz_new;
+}
+
+template <int D>
+int max_cluster() {
+  cudaError_t err = cudaFuncSetAttribute(
+      cg_update_kernel<D>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(MAX_CLUSTER);
+  cfg.blockDim = dim3(MAX_THREADS);
+  int size = 0;
+  err = cudaOccupancyMaxPotentialClusterSize(&size, cg_update_kernel<D>,
+                                             &cfg);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  return size < MAX_CLUSTER ? size : MAX_CLUSTER;
 }
 
 }  // namespace
@@ -289,35 +339,30 @@ extern "C" {
 // The most threads a block of the launch takes.
 int slam_ba_cg_max_threads() { return MAX_THREADS; }
 
-// The largest cluster of MAX_THREADS-thread blocks the kernel can launch
-// on the current device, non-portable sizes allowed, at most MAX_CLUSTER;
-// -(CUDA error) where a query fails. Called once, before any launch: it
-// also allows the kernel clusters above the portable 8.
-int slam_ba_cg_max_cluster() {
-  cudaError_t err = cudaFuncSetAttribute(
-      cg_update_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(MAX_CLUSTER);
-  cfg.blockDim = dim3(MAX_THREADS);
-  int size = 0;
-  err = cudaOccupancyMaxPotentialClusterSize(&size, cg_update_kernel, &cfg);
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  return size < MAX_CLUSTER ? size : MAX_CLUSTER;
+// The largest cluster of MAX_THREADS-thread blocks the kernel at width D
+// (6 or 9) can launch on the current device, non-portable sizes allowed,
+// at most MAX_CLUSTER; -(CUDA error) where a query fails. Called once a
+// width, before any launch: it also allows the kernel clusters above the
+// portable 8.
+int slam_ba_cg_max_cluster(int D) {
+  if (D == 6) return max_cluster<6>();
+  if (D == 9) return max_cluster<9>();
+  return -static_cast<int>(cudaErrorInvalidValue);
 }
 
-// One launch over C >= 1 camera rows as a cluster of `blocks` blocks of
-// `threads` threads (a multiple of 32). Step: p, ap, x, r (C,6), minv
-// (C,6,6), rz () -> x_out, r_out, p_out (C,6), rz_out (); start (p, ap, x,
-// rz, x_out and r_out null): r, minv -> p_out, rz_out. Outputs may not
-// alias inputs. Vectors 8-byte aligned, minv 16-byte aligned.
+// One launch over C >= 1 camera rows of width D (6 or 9) as a cluster of
+// `blocks` blocks of `threads` threads (a multiple of 32). Step: p, ap,
+// x, r (C,D), minv (C,D,D), rz () -> x_out, r_out, p_out (C,D), rz_out
+// (); start (p, ap, x, rz, x_out and r_out null): r, minv -> p_out,
+// rz_out. Outputs may not alias inputs. At D = 6 vectors 8-byte aligned,
+// minv 16-byte aligned.
 int slam_ba_cg_update(const float* p, const float* ap, const float* x,
                       const float* r, const float* minv, const float* rz,
-                      int C, float eps, int blocks, int threads, float* x_out,
-                      float* r_out, float* p_out, float* rz_out,
+                      int C, int D, float eps, int blocks, int threads,
+                      float* x_out, float* r_out, float* p_out, float* rz_out,
                       cudaStream_t stream) {
   if (C < 1 || blocks < 1 || blocks > MAX_CLUSTER || threads < 32 ||
-      threads > MAX_THREADS || threads % 32 != 0)
+      threads > MAX_THREADS || threads % 32 != 0 || (D != 6 && D != 9))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(blocks);
@@ -331,9 +376,13 @@ int slam_ba_cg_update(const float* p, const float* ap, const float* x,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, cg_update_kernel, p, ap, x, r, minv, rz, C, eps, x_out, r_out,
-      p_out, rz_out);
+  const cudaError_t err =
+      D == 6 ? cudaLaunchKernelEx(&cfg, cg_update_kernel<6>, p, ap, x, r,
+                                  minv, rz, C, eps, x_out, r_out, p_out,
+                                  rz_out)
+             : cudaLaunchKernelEx(&cfg, cg_update_kernel<9>, p, ap, x, r,
+                                  minv, rz, C, eps, x_out, r_out, p_out,
+                                  rz_out);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,6 +2,13 @@
 // (sm_90a): the product S x = Hcc_d x - sum_o W_o Hll_inv_{l_o} s_{l_o},
 // s_l = sum_{o in l} W_o^T x_{c_o}, as two launches, one per half.
 //
+// Both halves are templates on the camera block's width D: 6 for the
+// stereo rig (an SE(3) twist; W_o 6x3, 72 bytes; row 0 held as the
+// gauge) and 9 for BAL's cameras (rvec, t, f, k1, k2; W_o 9x3, 108 bytes;
+// no row held: LM damping holds BAL's 7-dof gauge). The D = 6
+// instantiation is the code written for it, with its float2 loads; at
+// D = 9 a row is only 4-byte aligned and is read as 27 floats.
+//
 // Replaces no TPU kernel. The reference writes the product as einsums
 // and segment sums (slam1_tpu/models/ba.py:256-265, `matvec` and `btil`
 // in `_schur_solve`) that XLA fuses; in the port the same einsums became
@@ -83,32 +90,48 @@ constexpr int LM_THREADS = 128;
 constexpr int CAM_THREADS = 128;
 constexpr int CAM_WARPS = CAM_THREADS / 32;
 
-// W_o (6x3, row-major) as 9 float2 loads: 72 bytes an observation keep
-// every row 8-byte aligned.
+// W_o (Dx3, row-major). At D = 6 as 9 float2 loads: 72 bytes an
+// observation keep every row 8-byte aligned. At D = 9 (108 bytes) as 27
+// float loads.
+template <int D>
 __device__ __forceinline__ void load_w(const float* __restrict__ W, int row,
-                                       float w[18]) {
-  const float2* p = reinterpret_cast<const float2*>(W) +
-                    static_cast<size_t>(row) * 9;
+                                       float w[3 * D]) {
+  if (D == 6) {
+    const float2* p = reinterpret_cast<const float2*>(W) +
+                      static_cast<size_t>(row) * 9;
 #pragma unroll
-  for (int i = 0; i < 9; ++i) {
-    const float2 q = __ldg(p + i);
-    w[2 * i] = q.x;
-    w[2 * i + 1] = q.y;
+    for (int i = 0; i < 9; ++i) {
+      const float2 q = __ldg(p + i);
+      w[2 * i] = q.x;
+      w[2 * i + 1] = q.y;
+    }
+  } else {
+    const float* p = W + static_cast<size_t>(row) * (3 * D);
+#pragma unroll
+    for (int i = 0; i < 3 * D; ++i) w[i] = __ldg(p + i);
   }
 }
 
+template <int D>
 __device__ __forceinline__ void load_x(const float* __restrict__ x, int c,
-                                       float xv[6]) {
-  const float2* p = reinterpret_cast<const float2*>(x) +
-                    static_cast<size_t>(c) * 3;
+                                       float xv[D]) {
+  if (D == 6) {
+    const float2* p = reinterpret_cast<const float2*>(x) +
+                      static_cast<size_t>(c) * 3;
 #pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    const float2 q = __ldg(p + i);
-    xv[2 * i] = q.x;
-    xv[2 * i + 1] = q.y;
+    for (int i = 0; i < 3; ++i) {
+      const float2 q = __ldg(p + i);
+      xv[2 * i] = q.x;
+      xv[2 * i + 1] = q.y;
+    }
+  } else {
+    const float* p = x + static_cast<size_t>(c) * D;
+#pragma unroll
+    for (int i = 0; i < D; ++i) xv[i] = __ldg(p + i);
   }
 }
 
+template <int D>
 __global__ void __launch_bounds__(LM_THREADS)
 schur_landmarks_kernel(const float* __restrict__ W,
                        const int* __restrict__ rows,
@@ -125,31 +148,31 @@ schur_landmarks_kernel(const float* __restrict__ W,
     double s[3] = {0.0, 0.0, 0.0};
     const int beg = __ldg(off + l);
     const int end = __ldg(off + l + 1);
-    float w[18], xv[6];
+    float w[3 * D], xv[D];
     if (beg < end) {
-      load_w(W, __ldg(rows + beg), w);
-      load_x(x, __ldg(cams + beg), xv);
+      load_w<D>(W, __ldg(rows + beg), w);
+      load_x<D>(x, __ldg(cams + beg), xv);
     }
     for (int k = beg; k < end; ++k) {
       // The next row's operands are in flight while this one's product
       // is formed.
-      float wn[18], xn[6];
+      float wn[3 * D], xn[D];
       if (k + 1 < end) {
-        load_w(W, __ldg(rows + k + 1), wn);
-        load_x(x, __ldg(cams + k + 1), xn);
+        load_w<D>(W, __ldg(rows + k + 1), wn);
+        load_x<D>(x, __ldg(cams + k + 1), xn);
       }
 #pragma unroll
       for (int j = 0; j < 3; ++j) {
         float u = w[j] * xv[0];
 #pragma unroll
-        for (int i = 1; i < 6; ++i) u = u + w[3 * i + j] * xv[i];
+        for (int i = 1; i < D; ++i) u = u + w[3 * i + j] * xv[i];
         s[j] += static_cast<double>(u);
       }
       if (k + 1 < end) {
 #pragma unroll
-        for (int i = 0; i < 18; ++i) w[i] = wn[i];
+        for (int i = 0; i < 3 * D; ++i) w[i] = wn[i];
 #pragma unroll
-        for (int i = 0; i < 6; ++i) xv[i] = xn[i];
+        for (int i = 0; i < D; ++i) xv[i] = xn[i];
       }
     }
 #pragma unroll
@@ -173,6 +196,8 @@ schur_landmarks_kernel(const float* __restrict__ W,
   }
 }
 
+// At D = 6 (the stereo rig) row 0 is the gauge: x_0, or 0 without x.
+template <int D>
 __global__ void __launch_bounds__(CAM_THREADS)
 schur_cameras_kernel(const float* __restrict__ W,
                      const int* __restrict__ rows,
@@ -183,18 +208,20 @@ schur_cameras_kernel(const float* __restrict__ W,
                      const float* __restrict__ x,
                      const float* __restrict__ b,
                      float* __restrict__ out) {
-  __shared__ double part[CAM_WARPS][6];
+  __shared__ double part[CAM_WARPS][D];
   const int c = blockIdx.x;
   const int beg = __ldg(off + c);
   const int end = __ldg(off + c + 1);
-  double y[6] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
+  double y[D];
+#pragma unroll
+  for (int i = 0; i < D; ++i) y[i] = 0.0;
   for (int k = beg + threadIdx.x; k < end; k += CAM_THREADS) {
-    float w[18];
-    load_w(W, __ldg(rows + k), w);
+    float w[3 * D];
+    load_w<D>(W, __ldg(rows + k), w);
     const float* vp = v + static_cast<size_t>(__ldg(lms + k)) * 3;
     const float v0 = __ldg(vp), v1 = __ldg(vp + 1), v2 = __ldg(vp + 2);
 #pragma unroll
-    for (int i = 0; i < 6; ++i) {
+    for (int i = 0; i < D; ++i) {
       float acc = w[3 * i] * v0;
       acc = acc + w[3 * i + 1] * v1;
       acc = acc + w[3 * i + 2] * v2;
@@ -205,32 +232,32 @@ schur_cameras_kernel(const float* __restrict__ W,
 #pragma unroll
   for (int d = 16; d > 0; d >>= 1) {
 #pragma unroll
-    for (int i = 0; i < 6; ++i) y[i] += __shfl_xor_sync(0xffffffffu, y[i], d);
+    for (int i = 0; i < D; ++i) y[i] += __shfl_xor_sync(0xffffffffu, y[i], d);
   }
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   if (lane == 0) {
 #pragma unroll
-    for (int i = 0; i < 6; ++i) part[warp][i] = y[i];
+    for (int i = 0; i < D; ++i) part[warp][i] = y[i];
   }
   __syncthreads();
   const int i = threadIdx.x;
-  if (i >= 6) return;
+  if (i >= D) return;
   double sum = part[0][i];
 #pragma unroll
   for (int q = 1; q < CAM_WARPS; ++q) sum += part[q][i];
-  const size_t at = static_cast<size_t>(c) * 6 + i;
-  if (c == 0) {                       // the gauge: camera 0 is held fixed
+  const size_t at = static_cast<size_t>(c) * D + i;
+  if (D == 6 && c == 0) {             // the gauge: camera 0 is held fixed
     out[at] = x != nullptr ? __ldg(x + i) : 0.0f;
     return;
   }
   float h;
   if (hcc != nullptr) {
-    const float* hr = hcc + static_cast<size_t>(c) * 36 + 6 * i;
-    const float* xc = x + static_cast<size_t>(c) * 6;
+    const float* hr = hcc + static_cast<size_t>(c) * (D * D) + D * i;
+    const float* xc = x + static_cast<size_t>(c) * D;
     h = __ldg(hr) * __ldg(xc);
 #pragma unroll
-    for (int j = 1; j < 6; ++j) h = h + __ldg(hr + j) * __ldg(xc + j);
+    for (int j = 1; j < D; ++j) h = h + __ldg(hr + j) * __ldg(xc + j);
   } else {
     h = __ldg(b + at);
   }
@@ -241,28 +268,41 @@ schur_cameras_kernel(const float* __restrict__ W,
 
 extern "C" {
 
-// v (L,3) = Hll_inv (a - s) / Hll_inv s / Hll_inv a, s from x (C,6) over
-// the landmark ordering (rows, cams: (O,) int32; off: (L+1,) int32).
-// x or a may be null, not both. L >= 1.
+// v (L,3) = Hll_inv (a - s) / Hll_inv s / Hll_inv a, s from x (C,D) over
+// the landmark ordering (rows, cams: (O,) int32; off: (L+1,) int32), W
+// (O,D,3), D 6 or 9. x or a may be null, not both. L >= 1.
 int slam_ba_schur_landmarks(const float* W, const int* rows, const int* cams,
                             const int* off, const float* x, const float* a,
-                            const float* hinv, int L, float* v,
+                            const float* hinv, int L, int D, float* v,
                             cudaStream_t stream) {
   const int blocks = (L + LM_THREADS - 1) / LM_THREADS;
-  schur_landmarks_kernel<<<blocks, LM_THREADS, 0, stream>>>(
-      W, rows, cams, off, x, a, hinv, L, v);
+  if (D == 6)
+    schur_landmarks_kernel<6><<<blocks, LM_THREADS, 0, stream>>>(
+        W, rows, cams, off, x, a, hinv, L, v);
+  else if (D == 9)
+    schur_landmarks_kernel<9><<<blocks, LM_THREADS, 0, stream>>>(
+        W, rows, cams, off, x, a, hinv, L, v);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
-// out (C,6) = Hcc_d x - y (hcc and x given) or b - y (b given, hcc and x
+// out (C,D) = Hcc_d x - y (hcc and x given) or b - y (b given, hcc and x
 // null), y_c = sum of W_o v_{l_o} over the camera ordering (rows, lms:
-// (O,) int32; off: (C+1,) int32); row 0 is x_0, or 0 without x. C >= 1.
+// (O,) int32; off: (C+1,) int32), D 6 or 9; at D = 6 row 0 is x_0, or 0
+// without x. C >= 1.
 int slam_ba_schur_cameras(const float* W, const int* rows, const int* lms,
                           const int* off, const float* v, const float* hcc,
-                          const float* x, const float* b, int C, float* out,
-                          cudaStream_t stream) {
-  schur_cameras_kernel<<<C, CAM_THREADS, 0, stream>>>(
-      W, rows, lms, off, v, hcc, x, b, out);
+                          const float* x, const float* b, int C, int D,
+                          float* out, cudaStream_t stream) {
+  if (D == 6)
+    schur_cameras_kernel<6><<<C, CAM_THREADS, 0, stream>>>(
+        W, rows, lms, off, v, hcc, x, b, out);
+  else if (D == 9)
+    schur_cameras_kernel<9><<<C, CAM_THREADS, 0, stream>>>(
+        W, rows, lms, off, v, hcc, x, b, out);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -38,13 +38,27 @@ its atomics land, and a float32 sum that depends on that order flips
 strict LM accept decisions between two runs of the same clip. The
 CG path's kernels sum in float64 too, in a fixed order.
 
-Camera 0 is gauge-fixed. Intrinsics are fixed (`models/bal.py` is the
-variant with 9-parameter cameras).
+The LM and its CG path take a camera model (`CameraModel`): `STEREO`,
+the stereo rig above (6-dof SE(3) poses moved on the right by
+`exp_se3`, fixed intrinsics, camera 0 held as the gauge, pose priors),
+and `BAL`, the public BAL problems' cameras (`models/bal.py`: 9
+parameters [w, t, f, k1, k2] moved additively, each camera's own
+intrinsics refined, monocular observations, no camera held, no priors
+and no outlier cut: LM damping holds BAL's 7-dof similarity gauge, and
+Huber weights every observation, as the reference's `bal_adjust` does).
+The model supplies its observation pass (three dispatch calls:
+`csrc/ba_obs.cu` or `csrc/bal_obs.cu`), whose blocks set the camera
+width D (6 or 9) of everything after it, its retraction, whether row 0
+is held, whether the graduated outlier cut applies, its prior terms and
+its preconditioner's block inverse; the reduced system's
+product, its right side and the PCG's vector update are the same
+kernels at either width (`csrc/ba_schur.cu`, `csrc/ba_cg.cu`). BAL
+takes the CG path at every size; the dense path is the stereo rig's.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -55,7 +69,7 @@ from slam1_tpu_torch.ops.camera import StereoCamera
 from slam1_tpu_torch.ops.lsq import huber_weights, inv3x3, inv_spd6
 from slam1_tpu_torch.ops.segment import seg_sum
 from slam1_tpu_torch.utils import graphs as graph_mod
-from slam1_tpu_torch.utils.metrics import traced
+from slam1_tpu_torch.utils import metrics
 
 DIRECT_MAX_CAMS = 16       # dense reduced system up to this many cameras
 
@@ -103,6 +117,67 @@ def make_problem(poses, points, cam_idx, lm_idx, uv, w, ur=None, wr=None,
     return BAProblem(poses=poses, points=points, cam_idx=cam_idx,
                      lm_idx=lm_idx, uv=uv, w=w, ur=ur, wr=wr,
                      pe_i=pe_i, pe_j=pe_j, pe_z=pe_z, pe_w=pe_w)
+
+
+class CameraModel(NamedTuple):
+    """What the LM and its CG path read of a camera model (see the module
+    docstring): `name` (its graphs `<name>_lm[...]` and `<name>_cost[...]`
+    and its span `host:<name>.pass`), `held` (camera row 0 held as the
+    gauge), `cut` (the graduated outlier cut of `cfg.outlier_px` applies;
+    without it every observation keeps its Huber weight and the LM
+    accepts on the full Huber cost), `field` (the problem's field
+    of camera parameters), `retract(cams, dc)`, the observation pass
+    `obs_cameras`, `obs_landmarks`, `obs_cost` (the signatures of
+    `dispatch.ba_obs_cameras`, ...), `block_inverse` (the preconditioner's
+    inverse of a damped DxD block), `priors` (the problem carries pose
+    priors) and `dense_max` (most cameras solved densely; 0: never)."""
+    name: str
+    held: bool
+    cut: bool
+    field: str
+    retract: Callable
+    obs_cameras: Callable
+    obs_landmarks: Callable
+    obs_cost: Callable
+    block_inverse: Callable
+    priors: bool
+    dense_max: int
+
+    def cams(self, problem):
+        return getattr(problem, self.field)
+
+    def with_cams(self, problem, cams, points):
+        return problem._replace(**{self.field: cams, "points": points})
+
+    def dense(self, problem) -> bool:
+        return self.cams(problem).shape[0] <= self.dense_max
+
+
+def _right_exp(poses, dc):
+    return poses @ se3.exp_se3(dc)
+
+
+def _add(cams, dc):
+    return cams + dc
+
+
+def _inv_lu(H):
+    """The inverse of each damped 9x9 block by LU, as the reference's
+    `jnp.linalg.inv` (`slam1_tpu/models/bal.py` `_schur_solve9`); no error
+    check, so no read-back. In float32 its product with the block is the
+    identity to ~1e-5 in eigenvalue on a BAL camera whose block's diagonal
+    spans ~10^8 (a rotation against a focal length of 10^3 pixels).
+    Made contiguous once here: the PCG's launches read it 65 times."""
+    return torch.linalg.inv_ex(H)[0].contiguous()
+
+
+STEREO = CameraModel(
+    "ba", True, True, "poses", _right_exp, dispatch.ba_obs_cameras,
+    dispatch.ba_obs_landmarks, dispatch.ba_obs_cost, inv_spd6, True,
+    DIRECT_MAX_CAMS)
+BAL = CameraModel(
+    "bal", False, False, "cams", _add, dispatch.bal_obs_cameras,
+    dispatch.bal_obs_landmarks, dispatch.bal_obs_cost, _inv_lu, False, 0)
 
 
 def _prior_terms(problem: BAProblem, poses):
@@ -185,27 +260,28 @@ def _damped(H, lam):
         n, dtype=H.dtype, device=H.device)
 
 
-def _obs_order(problem):
+def _obs_order(problem, model: CameraModel = STEREO):
     """The observations' ordering every kernel of the CG path reads
     (`dispatch.schur_order`, keyed on the observations' weights: the
     kernels' orderings leave out the rows of weight zero)."""
     return dispatch.schur_order(problem.cam_idx, problem.lm_idx,
-                                problem.poses.shape[0],
+                                model.cams(problem).shape[0],
                                 problem.points.shape[0], w=problem.w)
 
 
-def _reduced_system(problem, blocks, lam, order):
+def _reduced_system(problem, blocks, lam, order,
+                    model: CameraModel = STEREO):
     """The damped reduced camera system after landmark elimination,
     matrix-free, from the normal blocks (Hcc, Hll, W, bc, bl, prior) of
-    `_normal_blocks`: (matvec, btil (C,6), Minv (C,6,6), back), where
-    matvec(x) is the landmark half then the camera half of the product
-    (`dispatch.ba_schur_landmarks`, `ba_schur_cameras`: gather -> block
-    products -> segment sums over the observations; nothing bigger than
-    (C,6,6) is materialised), Minv the block-Jacobi preconditioner and
-    back(dc) the landmark step (L,3) that goes with a camera step.
-    Camera 0's block is the identity. Every product reads the
+    `_normal_blocks` (or of a model's observation pass): (matvec, btil
+    (C,D), Minv (C,D,D), back), where matvec(x) is the landmark half then
+    the camera half of the product (`dispatch.ba_schur_landmarks`,
+    `ba_schur_cameras`: gather -> block products -> segment sums over the
+    observations; nothing bigger than (C,D,D) is materialised), Minv the
+    block-Jacobi preconditioner (`model.block_inverse`) and back(dc) the
+    landmark step (L,3) that goes with a camera step. Where the model
+    holds camera 0, its block is the identity. Every product reads the
     observations' ordering `order` (`_obs_order`)."""
-    C = problem.poses.shape[0]
     Hcc, Hll, W, bc, bl, prior = blocks
     Hcc_d = _damped(Hcc, lam)
     Hll_inv = inv3x3(_damped(Hll, lam))                          # (L,3,3)
@@ -218,6 +294,7 @@ def _reduced_system(problem, blocks, lam, order):
         v = dispatch.ba_schur_landmarks(W, Hll_inv, order, x=x)
         out = dispatch.ba_schur_cameras(W, v, order, hcc=Hcc_d, x=x)
         if prior is not None:
+            C = Hcc.shape[0]
             # Cross blocks only: the diagonal blocks are inside Hcc_d.
             pi, pj, Jpi, Jpj, wp = prior
             wp2 = wp[:, None]
@@ -232,13 +309,14 @@ def _reduced_system(problem, blocks, lam, order):
     def back(dc):
         return dispatch.ba_schur_landmarks(W, Hll_inv, order, x=dc, a=bl)
 
-    return matvec, btil, inv_spd6(Hcc_d), back
+    return matvec, btil, model.block_inverse(Hcc_d), back
 
 
-def _cg_solve(problem, blocks, lam, cg_iters: int, order):
+def _cg_solve(problem, blocks, lam, cg_iters: int, order,
+              model: CameraModel = STEREO):
     """One damped GN step via landmark elimination + PCG on the reduced
-    camera system of the normal blocks. Returns (delta_c (C,6),
-    delta_l (L,3)).
+    camera system of the normal blocks. Returns (delta_c (C,D),
+    delta_l (L,3)); camera 0's step is zero where the model holds it.
 
     The PCG is `ops/cg.cg` from x = 0 with the block-Jacobi
     preconditioner z = Minv r, written out: after each product with the
@@ -247,13 +325,15 @@ def _cg_solve(problem, blocks, lam, cg_iters: int, order):
     `csrc/ba_cg.cu` on the card and its plain twin (cg's own torch
     operations, to the bit) on the CPU; its start `dispatch.ba_cg_start`
     likewise."""
-    matvec, btil, Minv, back = _reduced_system(problem, blocks, lam, order)
+    matvec, btil, Minv, back = _reduced_system(problem, blocks, lam, order,
+                                               model)
     dc = torch.zeros_like(btil)
     r = btil - matvec(dc)
     p, rz = dispatch.ba_cg_start(r, Minv)
     for _ in range(cg_iters):
         dc, r, p, rz = dispatch.ba_cg_step(p, matvec(p), dc, r, Minv, rz)
-    dc[0].zero_()
+    if model.held:
+        dc[0].zero_()
     return dc, back(dc)
 
 
@@ -335,32 +415,37 @@ def graduated_cut(outlier_px: float, t, dtype):
 
 
 def lm_step(problem: BAProblem, cam: StereoCamera, cfg: BAConfig, poses,
-            points, lam, t, trace: bool = True):
+            points, lam, t, trace: bool = True,
+            model: CameraModel = STEREO):
     """One Levenberg-Marquardt iteration, the reference's scan body:
-    ((poses, points, lam), trace row). `t` is the iteration, a 0-d
-    integer tensor on the device, from which the graduated cut is made
-    there. The row is (accepted full cost, surviving observations, the
-    damping used, accept, the largest camera-step norm), 0-d tensors;
-    None with `trace=False`. Nothing is read back to the host.
+    ((poses, points, lam), trace row). `poses` are the model's camera
+    parameters (the rig's (C,4,4) poses, BAL's (C,9) cameras; `cam` the
+    rig's camera, () for BAL). `t` is the iteration, a 0-d integer tensor
+    on the device, from which the graduated cut is made there. The row is
+    (accepted full cost, surviving observations, the damping used,
+    accept, the largest camera-step norm), 0-d tensors; None with
+    `trace=False`. Nothing is read back to the host.
 
-    Past DIRECT_MAX_CAMS cameras (the CG path) the observation pass runs
-    through `dispatch.ba_obs_cameras`, `ba_obs_landmarks` and
-    `ba_obs_cost` (on the card the kernels of `csrc/ba_obs.cu`, which
-    visit each observation once a launch, on the CPU their plain twins),
-    over one ordering of the observations made at the top of the
-    iteration and read by every kernel of it (`_obs_order`)."""
+    On the CG path (past DIRECT_MAX_CAMS cameras for the rig, always for
+    BAL) the observation pass runs through the model's three dispatch
+    calls (`dispatch.ba_obs_cameras`, `ba_obs_landmarks`, `ba_obs_cost`,
+    or the `bal_obs_*` ones: on the card the kernels of `csrc/ba_obs.cu`
+    or `csrc/bal_obs.cu`, which visit each observation once a launch, on
+    the CPU their plain twins), over one ordering of the observations
+    made at the top of the iteration and read by every kernel of it
+    (`_obs_order`)."""
     dt = problem.uv.dtype
     delta = cfg.huber_delta
-    p = problem._replace(poses=poses, points=points)
+    p = model.with_cams(problem, poses, points)
     cut2 = cap = None
-    if cfg.outlier_px:
+    if cfg.outlier_px and model.cut:
         # Graduated rejection: the cut starts 8x loose and tightens to
         # outlier_px. The step zero-weights observations beyond the cut;
         # the objective saturates them at the cap.
         cut = graduated_cut(cfg.outlier_px, t, dt)
         cut2 = cut * cut
         cap = huber_weights(cut2, delta) * cut2
-    if problem.poses.shape[0] <= DIRECT_MAX_CAMS:
+    if model.dense(problem):
         full_cur, _, hw, r2, w = ba_obs.step_weights(p, cam, cut2, delta)
         trunc_cur = ba_obs.trunc_cost(problem, hw, r2, cap)
         n_kept = torch.sum(w > 0).to(torch.int32)
@@ -369,28 +454,34 @@ def lm_step(problem: BAProblem, cam: StereoCamera, cfg: BAConfig, poses,
         def costs_at(q):
             return ba_obs.cost_plain(q, cam, None, cap, delta)
     else:
-        order = _obs_order(problem)
-        obs = dispatch.ba_obs_cameras(p, cam, order, cut2, cap, delta)
-        Hll, bl = dispatch.ba_obs_landmarks(p, cam, order, cut2, delta)
+        order = _obs_order(problem, model)
+        obs = model.obs_cameras(p, cam, order, cut2, cap, delta)
+        Hll, bl = model.obs_landmarks(p, cam, order, cut2, delta)
         full_cur, trunc_cur, n_kept = obs.full, obs.trunc, obs.n_kept
-        Hcc, bc, prior = _with_priors(p, obs.hcc, obs.bc)
+        Hcc, bc, prior = obs.hcc, obs.bc, None
+        if model.priors:
+            Hcc, bc, prior = _with_priors(p, Hcc, bc)
         dc, dl = _cg_solve(p, (Hcc, Hll, obs.W, bc, bl, prior), lam,
-                           cfg.cg_iters, order)
+                           cfg.cg_iters, order, model)
 
         def costs_at(q):
-            return dispatch.ba_obs_cost(q, cam, order, cap, delta)
-    pc_cur = _prior_cost(problem, poses)
-    cost_cur = trunc_cur + pc_cur
-    full_cur = full_cur + pc_cur
+            return model.obs_cost(q, cam, order, cap, delta)
+    cost_cur = trunc_cur
+    if model.priors:
+        pc_cur = _prior_cost(problem, poses)
+        cost_cur = trunc_cur + pc_cur
+        full_cur = full_cur + pc_cur
     dc = torch.where(torch.isfinite(dc), dc, torch.zeros_like(dc))
     dl = torch.where(torch.isfinite(dl), dl, torch.zeros_like(dl))
-    new_poses = poses @ se3.exp_se3(dc)
+    new_poses = model.retract(poses, dc)
     new_points = points + dl
     full_new, trunc_new = costs_at(
-        problem._replace(poses=new_poses, points=new_points))
-    pc_new = _prior_cost(problem, new_poses)
-    cost_new = trunc_new + pc_new
-    full_new = full_new + pc_new
+        model.with_cams(problem, new_poses, new_points))
+    cost_new = trunc_new
+    if model.priors:
+        pc_new = _prior_cost(problem, new_poses)
+        cost_new = trunc_new + pc_new
+        full_new = full_new + pc_new
     accept = cost_new < cost_cur
     poses = torch.where(accept, new_poses, poses)
     points = torch.where(accept, new_points, points)
@@ -408,23 +499,27 @@ def lm_step(problem: BAProblem, cam: StereoCamera, cfg: BAConfig, poses,
 
 
 def final_cost(problem: BAProblem, cam: StereoCamera, cfg: BAConfig, poses,
-               points):
-    """() full Huber cost plus the pose priors' at (poses, points); on the
-    CG path through `dispatch.ba_obs_cost`."""
-    out = problem._replace(poses=poses, points=points)
-    if problem.poses.shape[0] <= DIRECT_MAX_CAMS:
+               points, model: CameraModel = STEREO):
+    """() full Huber cost plus the pose priors' (the rig's) at (poses,
+    points); on the CG path through the model's cost pass
+    (`dispatch.ba_obs_cost`, `bal_obs_cost`)."""
+    out = model.with_cams(problem, poses, points)
+    if model.dense(problem):
         cost = _cost(out, cam, cfg.huber_delta)[0]
     else:
-        cost = dispatch.ba_obs_cost(out, cam, _obs_order(problem), None,
-                                    cfg.huber_delta)[0]
-    return cost + _prior_cost(problem, poses)
+        cost = model.obs_cost(out, cam, _obs_order(problem, model), None,
+                              cfg.huber_delta)[0]
+    if model.priors:
+        cost = cost + _prior_cost(problem, poses)
+    return cost
 
 
 class _LMCarry(NamedTuple):
-    """The state of the `ba_lm` graph: the problem and camera it reads,
-    the (poses, points, lam) carry, the iteration `t` (a 0-d int64
-    tensor) and the trace rows written so far (a BATrace of (lm_iters,)
-    tensors, or () without the trace)."""
+    """The state of the `ba_lm` (`bal_lm`) graph: the problem and camera
+    it reads (BAL's: ()), the (poses, points, lam) carry (`poses` the
+    model's camera parameters), the iteration `t` (a 0-d int64 tensor)
+    and the trace rows written so far (a BATrace of (lm_iters,) tensors,
+    or () without the trace)."""
     problem: BAProblem
     cam: StereoCamera
     poses: torch.Tensor
@@ -435,8 +530,8 @@ class _LMCarry(NamedTuple):
 
 
 def _lm_carry(prob: BAProblem, cam: StereoCamera, cfg: BAConfig,
-              return_trace: bool) -> _LMCarry:
-    """The carry of LM iteration 0: the problem's poses and points,
+              return_trace: bool, model: CameraModel = STEREO) -> _LMCarry:
+    """The carry of LM iteration 0: the problem's cameras and points,
     lam = lm_lambda0, t = 0 and, with the trace, zeroed rows."""
     dt, dev = prob.uv.dtype, prob.uv.device
     trace = ()
@@ -444,19 +539,19 @@ def _lm_carry(prob: BAProblem, cam: StereoCamera, cfg: BAConfig,
         n = cfg.lm_iters
         trace = BATrace(*[torch.zeros(n, dtype=d, device=dev) for d in (
             dt, torch.int32, dt, torch.bool, dt)])
-    return _LMCarry(prob, cam, prob.poses, prob.points,
+    return _LMCarry(prob, cam, model.cams(prob), prob.points,
                     torch.full((), cfg.lm_lambda0, dtype=dt, device=dev),
                     torch.zeros((), dtype=torch.int64, device=dev), trace)
 
 
-def _graphed_ba_lm(cfg: BAConfig):
+def _graphed_ba_lm(cfg: BAConfig, model: CameraModel = STEREO):
     """One `lm_step` as a graph's function: (_LMCarry) -> (the carry one
     iteration on, with `t` advanced and the iteration's trace row
     written at `t`, ())."""
     def step(carry):
         (poses, points, lam), row = lm_step(
             carry.problem, carry.cam, cfg, carry.poses, carry.points,
-            carry.lam, carry.t, trace=bool(carry.trace))
+            carry.lam, carry.t, trace=bool(carry.trace), model=model)
         trace = carry.trace
         if row is not None:
             at = carry.t.reshape(1)
@@ -467,25 +562,28 @@ def _graphed_ba_lm(cfg: BAConfig):
     return step
 
 
-def _graphed_ba_cost(cfg: BAConfig):
+def _graphed_ba_cost(cfg: BAConfig, model: CameraModel = STEREO):
     """`final_cost` as a graph's function: (_LMCarry) -> (the same
     carry, the cost ())."""
     def step(carry):
         return carry, final_cost(carry.problem, carry.cam, cfg, carry.poses,
-                                 carry.points)
+                                 carry.points, model)
     return step
 
 
-def _size(problem: BAProblem) -> str:
-    return (f"[{problem.poses.shape[0]},{problem.points.shape[0]},"
+def _size(problem: BAProblem, model: CameraModel = STEREO) -> str:
+    return (f"[{model.cams(problem).shape[0]},{problem.points.shape[0]},"
             f"{problem.uv.shape[0]}]")
 
 
-def lm_stage(cfg: BAConfig, problem: BAProblem) -> graph_mod.Stage:
-    """`ba_lm`, one `lm_step` on an _LMCarry of `problem`'s shapes: the
-    graph `bundle_adjust` and `pipeline.global_ba_step` share."""
-    return graph_mod.Stage("ba", (cfg,), "ba_lm" + _size(problem),
-                           _graphed_ba_lm(cfg))
+def lm_stage(cfg: BAConfig, problem: BAProblem,
+             model: CameraModel = STEREO) -> graph_mod.Stage:
+    """`ba_lm` (BAL's: `bal_lm`), one `lm_step` on an _LMCarry of
+    `problem`'s shapes: the graph `bundle_adjust` and
+    `pipeline.global_ba_step` share."""
+    return graph_mod.Stage("ba", (cfg, model.name),
+                           f"{model.name}_lm" + _size(problem, model),
+                           _graphed_ba_lm(cfg, model))
 
 
 # BA's graphs in the registry (`utils/graphs.py`): `BA_GRAPHS.clear()`
@@ -493,11 +591,13 @@ def lm_stage(cfg: BAConfig, problem: BAProblem) -> graph_mod.Stage:
 BA_GRAPHS = graph_mod.GRAPHS.of("ba")
 
 
-@traced("host:ba.pass")
 def bundle_adjust(problem: BAProblem, cam: StereoCamera, cfg: BAConfig,
-                  return_trace: bool = False, graphs: bool = True):
-    """Full LM bundle adjustment: `cfg.lm_iters` calls of `lm_step`.
-    Camera 0 is gauge-fixed.
+                  return_trace: bool = False, graphs: bool = True,
+                  model: CameraModel = STEREO):
+    """Full LM bundle adjustment: `cfg.lm_iters` calls of `lm_step` with
+    the camera model `model` (`STEREO`: the rig's BAProblem and
+    StereoCamera, camera 0 gauge-fixed; `BAL`: a `bal.BalProblem`, `cam`
+    ()).
 
     Returns (optimised problem, final cost ()), plus a BATrace when
     `return_trace`. Nothing is read back to the host: decisions are
@@ -507,27 +607,31 @@ def bundle_adjust(problem: BAProblem, cam: StereoCamera, cfg: BAConfig,
     the truncated robust cost at the iteration's graduated cut, sum_i
     w_i min(huber(r_i), huber(cut)): excluded observations contribute
     the constant cap. The reported cost and trace stay the full Huber
-    cost, comparable across iterations and runs.
+    cost, comparable across iterations and runs. A model without the cut
+    (`BAL`) computes and accepts its steps on the full Huber cost.
 
     It runs through `utils/graphs.iterate`: `ba_lm` (one `lm_step`,
     `cfg.lm_iters` times) then `ba_cost` (the final cost) on an
-    _LMCarry. On CUDA tensors each is a replay of a captured CUDA graph,
+    _LMCarry; BAL's are `bal_lm` and `bal_cost`. On CUDA tensors each is a replay of a captured CUDA graph,
     as the reference runs one compiled program, kept in the graph
     registry under the kind "ba" (`BA_GRAPHS`) by the device, `cfg` and
     the carry's shapes and dtypes (which say whether there is a trace
     and which path, dense or CG, runs); the camera is a graph input. On
     the CPU, and with `graphs=False`, the same functions run eagerly (a
     caller that is itself being captured passes `graphs=False`). Each
-    call is the span `host:ba.pass` (`utils/metrics.py`).
+    call is the span `host:ba.pass` (BAL's `host:bal.pass`;
+    `utils/metrics.py`).
     """
-    poses, points, cost, trace = graph_mod.iterate(
-        lm_stage(cfg, problem),
-        graph_mod.Stage("ba", (cfg,), "ba_cost" + _size(problem),
-                        _graphed_ba_cost(cfg)),
-        _lm_carry(problem, cam, cfg, return_trace), cfg.lm_iters,
-        keep=lambda c, cost: (c.poses, c.points, cost, c.trace),
-        graphed=graph_mod.graphed(problem.uv, wanted=graphs))
-    out = problem._replace(poses=poses, points=points)
+    with metrics.span(f"host:{model.name}.pass"):
+        poses, points, cost, trace = graph_mod.iterate(
+            lm_stage(cfg, problem, model),
+            graph_mod.Stage("ba", (cfg, model.name),
+                            f"{model.name}_cost" + _size(problem, model),
+                            _graphed_ba_cost(cfg, model)),
+            _lm_carry(problem, cam, cfg, return_trace, model), cfg.lm_iters,
+            keep=lambda c, cost: (c.poses, c.points, cost, c.trace),
+            graphed=graph_mod.graphed(problem.uv, wanted=graphs))
+    out = model.with_cams(problem, poses, points)
     return (out, cost, trace) if return_trace else (out, cost)
 
 

@@ -31,6 +31,14 @@ CUDA C++ kernels for sm_90a live in `slam1_tpu_torch/csrc/`:
     an iteration, one thread-block cluster, and its start; replaces no
     TPU kernel but `ops/cg.py`'s iteration body (the scan body of
     `slam1_tpu/ops/cg.py`).
+  - `bal_obs.cu`      — the observation pass of the same CG path for
+    BAL's 9-parameter cameras (`ops/bal_obs.py`): three launches with
+    `ba_obs.cu`'s contract; replaces no TPU kernel but the reference's
+    `jax.jacfwd` and einsums (`slam1_tpu/models/bal.py`).
+
+`ba_schur.cu` and `ba_cg.cu` take the camera block's width D: 6 (the
+stereo rig's twists, camera 0 held as the gauge) or 9 (BAL's cameras,
+no camera held); their wrappers read D from the operands' shapes.
 
 Each source is compiled with nvcc into its own shared library with a
 plain C interface at first use (all sources at once, from the repo's
@@ -81,7 +89,10 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 SOURCES = ("fast_score.cu", "hamming_top2.cu", "chain_sweep.cu",
-           "ba_schur.cu", "ba_obs.cu", "ba_cg.cu")
+           "ba_schur.cu", "ba_obs.cu", "ba_cg.cu", "bal_obs.cu")
+# Camera block widths of the CG path's kernels: the stereo rig's SE(3)
+# twist and BAL's [w, t, f, k1, k2].
+WIDTHS = (6, 9)
 # Most threads a block of csrc/ba_cg.cu's launch takes (its MAX_THREADS;
 # build() checks that they agree).
 BA_CG_MAX_THREADS = 256
@@ -155,8 +166,19 @@ class _ObsArgs(ctypes.Structure):
         ("n_lms", ctypes.c_int), ("n_obs", ctypes.c_int)]
 
 
+class _BalArgs(ctypes.Structure):
+    """What every entry of csrc/bal_obs.cu reads (`BalArgs`): the
+    problem's device pointers, the ordering, the squared Huber delta and
+    the sizes."""
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "cams", "points", "uv", "w", "cam_rows", "cam_lms", "cam_off",
+        "lm_rows", "lm_cams", "lm_off")] + [
+        ("delta2", ctypes.c_float), ("n_cams", ctypes.c_int),
+        ("n_lms", ctypes.c_int), ("n_obs", ctypes.c_int)]
+
+
 class _Kernels:
-    """The C entry points of the six libraries, argtypes declared."""
+    """The C entry points of the seven libraries, argtypes declared."""
 
     def __init__(self, libs):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -186,10 +208,11 @@ class _Kernels:
         self.slam_chain_sweep.argtypes = [p, p, p, p, i, p, p, p, p]
         schur = libs["ba_schur.cu"]
         self.slam_ba_schur_landmarks = schur.slam_ba_schur_landmarks
-        self.slam_ba_schur_landmarks.argtypes = [p, p, p, p, p, p, p, i, p, p]
+        self.slam_ba_schur_landmarks.argtypes = [p, p, p, p, p, p, p, i, i,
+                                                 p, p]
         self.slam_ba_schur_cameras = schur.slam_ba_schur_cameras
-        self.slam_ba_schur_cameras.argtypes = [p, p, p, p, p, p, p, p, i, p,
-                                               p]
+        self.slam_ba_schur_cameras.argtypes = [p, p, p, p, p, p, p, p, i, i,
+                                               p, p]
         obs = libs["ba_obs.cu"]
         args = ctypes.POINTER(_ObsArgs)
         self.slam_ba_obs_cameras = obs.slam_ba_obs_cameras
@@ -200,20 +223,34 @@ class _Kernels:
         self.slam_ba_obs_cost.argtypes = [args, p, p, p]
         cg = libs["ba_cg.cu"]
         self.slam_ba_cg_update = cg.slam_ba_cg_update
-        self.slam_ba_cg_update.argtypes = [p, p, p, p, p, p, i, f, i, i, p, p,
-                                           p, p, p]
+        self.slam_ba_cg_update.argtypes = [p, p, p, p, p, p, i, i, f, i, i, p,
+                                           p, p, p, p]
+        bal = libs["bal_obs.cu"]
+        bargs = ctypes.POINTER(_BalArgs)
+        self.slam_bal_obs_cameras = bal.slam_bal_obs_cameras
+        self.slam_bal_obs_cameras.argtypes = [bargs, p, p, p, p, p, p, p]
+        self.slam_bal_obs_landmarks = bal.slam_bal_obs_landmarks
+        self.slam_bal_obs_landmarks.argtypes = [bargs, p, p, p]
+        self.slam_bal_obs_cost = bal.slam_bal_obs_cost
+        self.slam_bal_obs_cost.argtypes = [bargs, p, p, p]
         for fn in (self.slam_fast_score, self.slam_fast_score_levels,
                    self.slam_hamming_top2,
                    self.slam_hamming_top2_batched, self.slam_chain_prepare,
                    self.slam_chain_sweep, self.slam_ba_schur_landmarks,
                    self.slam_ba_schur_cameras, self.slam_ba_obs_cameras,
                    self.slam_ba_obs_landmarks, self.slam_ba_obs_cost,
-                   self.slam_ba_cg_update):
+                   self.slam_ba_cg_update, self.slam_bal_obs_cameras,
+                   self.slam_bal_obs_landmarks, self.slam_bal_obs_cost):
             fn.restype = i
         obs.slam_ba_obs_args_size.argtypes = []
         obs.slam_ba_obs_args_size.restype = i
         if obs.slam_ba_obs_args_size() != ctypes.sizeof(_ObsArgs):
             raise RuntimeError("csrc/ba_obs.cu's ObsArgs and _ObsArgs "
+                               "disagree")
+        bal.slam_bal_obs_args_size.argtypes = []
+        bal.slam_bal_obs_args_size.restype = i
+        if bal.slam_bal_obs_args_size() != ctypes.sizeof(_BalArgs):
+            raise RuntimeError("csrc/bal_obs.cu's BalArgs and _BalArgs "
                                "disagree")
         if chain.slam_chain_levels() != CHAIN_LEVELS:
             raise RuntimeError("csrc/chain_sweep.cu and CHAIN_LEVELS disagree")
@@ -223,13 +260,17 @@ class _Kernels:
         cg.slam_ba_cg_max_threads.restype = i
         if cg.slam_ba_cg_max_threads() != BA_CG_MAX_THREADS:
             raise RuntimeError("csrc/ba_cg.cu and BA_CG_MAX_THREADS disagree")
-        # The largest cluster the CG update can launch on this card (the
-        # query also allows it clusters above the portable 8).
+        # The largest cluster the CG update can launch on this card, by
+        # camera width (the query also allows it clusters above the
+        # portable 8).
+        cg.slam_ba_cg_max_cluster.argtypes = [i]
         cg.slam_ba_cg_max_cluster.restype = i
-        self.cg_max_cluster = cg.slam_ba_cg_max_cluster()
-        if self.cg_max_cluster < 1:
-            raise RuntimeError(f"csrc/ba_cg.cu: cluster query failed "
-                               f"(CUDA error {-self.cg_max_cluster})")
+        self.cg_max_cluster = {d: cg.slam_ba_cg_max_cluster(d)
+                               for d in WIDTHS}
+        for d, n in self.cg_max_cluster.items():
+            if n < 1:
+                raise RuntimeError(f"csrc/ba_cg.cu: cluster query failed at "
+                                   f"D={d} (CUDA error {-n})")
 
 
 def build(verbose: bool = False) -> _Kernels:
@@ -721,9 +762,11 @@ chain_sweep_cuda.launches = 0
 #
 # S x = Hcc_d x - sum_o W_o Hll_inv_{l_o} sum_{o' in l_o} W_o'^T x_{c_o'}
 # in two halves: the landmark half v = Hll_inv (a - s) and the camera
-# half out = h - sum_o W_o v_{l_o} (see csrc/ba_schur.cu). The plain
-# twins are the einsums and float64 segment sums `models/ba.py` wrote
-# before the kernels, operation for operation.
+# half out = h - sum_o W_o v_{l_o} (see csrc/ba_schur.cu), at the camera
+# width D of W (O,D,3), 6 or 9; at D = 6 (the stereo rig) camera row 0 is
+# held as the gauge, at D = 9 (BAL) no row is.
+# The plain twins are the einsums and float64 segment sums `models/ba.py`
+# wrote before the kernels, operation for operation.
 
 
 class SchurOrder(NamedTuple):
@@ -798,17 +841,21 @@ def ba_schur_landmarks_plain(W, hll_inv, order, x=None, a=None):
 
 
 def ba_schur_cameras_plain(W, v, order, hcc=None, x=None, b=None):
-    """Plain twin of ba_schur_cameras_cuda: out (C,6) = Hcc_d x - y
-    (hcc and x given: the product; row 0, the gauge, x_0) or b - y (b
-    given: the right side; row 0 zero), y = seg_sum_c(W v[l])."""
-    y = torch.einsum("oij,oj->oi", W, v[order.lm_idx])             # (O,6)
+    """Plain twin of ba_schur_cameras_cuda: out (C,D) = Hcc_d x - y
+    (hcc and x given: the product; at D = 6 row 0, the gauge, x_0) or
+    b - y (b given: the right side; at D = 6 row 0 zero),
+    y = seg_sum_c(W v[l])."""
+    held = W.shape[1] == 6
+    y = torch.einsum("oij,oj->oi", W, v[order.lm_idx])             # (O,D)
     if hcc is not None:
         out = torch.einsum("cij,cj->ci", hcc, x) - seg_sum(
             hcc.shape[0], order.cam_idx, y)
-        out[0] = x[0]
+        if held:
+            out[0] = x[0]
     else:
         out = b - seg_sum(b.shape[0], order.cam_idx, y)
-        out[0].zero_()
+        if held:
+            out[0].zero_()
     return out
 
 
@@ -829,22 +876,38 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _width(W) -> int:
+    """The camera width D of coupling blocks W (O,D,3), 6 or 9."""
+    d = W.shape[1] if W.dim() == 3 else None
+    if d not in WIDTHS:
+        raise ValueError(f"W: expected (O,D,3) with D in {WIDTHS}, got "
+                         f"{tuple(W.shape)}")
+    return d
+
+
+def _check_rows(d: int, align: int = 8, **tensors):
+    """The alignment a kernel's vector loads need at D = 6 (`align`
+    bytes); at D = 9 every row is read as floats."""
+    if d == 6:
+        _check_aligned(align, **tensors)
+
+
 def ba_schur_landmarks_cuda(W, hll_inv, order, x=None, a=None):
     """The landmark half in one launch of csrc/ba_schur.cu. Same
     contract as ba_schur_landmarks_plain; `order` holds the kernels'
     orderings (schur_order with kernels=True)."""
-    o = W.shape[0]
-    _check(W, "W", torch.float32, (o, 6, 3))
+    o, d = W.shape[0], _width(W)
+    _check(W, "W", torch.float32, (o, d, 3))
     n_cams, n_lms = _check_order(order, o)
     _check(hll_inv, "hll_inv", torch.float32, (n_lms, 3, 3))
     if x is None and a is None:
         raise ValueError("ba_schur_landmarks_cuda: give x, a or both")
     if x is not None:
-        _check(x, "x", torch.float32, (n_cams, 6))
-        _check_aligned(8, x=x)
+        _check(x, "x", torch.float32, (n_cams, d))
+        _check_rows(d, x=x)
     if a is not None:
         _check(a, "a", torch.float32, (n_lms, 3))
-    _check_aligned(8, W=W)
+    _check_rows(d, W=W)
     v = torch.empty((n_lms, 3), dtype=torch.float32, device=W.device)
     if n_lms == 0:
         return v
@@ -853,7 +916,7 @@ def ba_schur_landmarks_cuda(W, hll_inv, order, x=None, a=None):
     _raise_on(lib.slam_ba_schur_landmarks(
         W.data_ptr(), order.lm_rows.data_ptr(), order.lm_cams.data_ptr(),
         order.lm_off.data_ptr(), _ptr(x), _ptr(a), hll_inv.data_ptr(), n_lms,
-        v.data_ptr(), stream), "ba_schur landmarks launch")
+        d, v.data_ptr(), stream), "ba_schur landmarks launch")
     ba_schur_landmarks_cuda.launches += 1
     return v
 
@@ -865,19 +928,19 @@ ba_schur_landmarks_cuda.launches = 0
 def ba_schur_cameras_cuda(W, v, order, hcc=None, x=None, b=None):
     """The camera half in one launch of csrc/ba_schur.cu. Same contract
     as ba_schur_cameras_plain; `order` as for ba_schur_landmarks_cuda."""
-    o = W.shape[0]
-    _check(W, "W", torch.float32, (o, 6, 3))
+    o, d = W.shape[0], _width(W)
+    _check(W, "W", torch.float32, (o, d, 3))
     n_cams, n_lms = _check_order(order, o)
     _check(v, "v", torch.float32, (n_lms, 3))
     if (hcc is None) != (x is None) or (hcc is None) == (b is None):
         raise ValueError("ba_schur_cameras_cuda: give hcc and x, or b")
     if hcc is not None:
-        _check(hcc, "hcc", torch.float32, (n_cams, 6, 6))
-        _check(x, "x", torch.float32, (n_cams, 6))
+        _check(hcc, "hcc", torch.float32, (n_cams, d, d))
+        _check(x, "x", torch.float32, (n_cams, d))
     else:
-        _check(b, "b", torch.float32, (n_cams, 6))
-    _check_aligned(8, W=W)
-    out = torch.empty((n_cams, 6), dtype=torch.float32, device=W.device)
+        _check(b, "b", torch.float32, (n_cams, d))
+    _check_rows(d, W=W)
+    out = torch.empty((n_cams, d), dtype=torch.float32, device=W.device)
     if n_cams == 0:
         return out
     lib = build()
@@ -885,7 +948,8 @@ def ba_schur_cameras_cuda(W, v, order, hcc=None, x=None, b=None):
     _raise_on(lib.slam_ba_schur_cameras(
         W.data_ptr(), order.cam_rows.data_ptr(), order.cam_lms.data_ptr(),
         order.cam_off.data_ptr(), v.data_ptr(), _ptr(hcc), _ptr(x), _ptr(b),
-        n_cams, out.data_ptr(), stream), "ba_schur cameras launch")
+        n_cams, d, out.data_ptr(), stream),
+        "ba_schur cameras launch")
     ba_schur_landmarks_cuda.launches += 1
     return out
 
@@ -1014,18 +1078,129 @@ def ba_obs_cost_cuda(problem, cam, order, cap, huber_delta: float):
 
 
 # ---------------------------------------------------------------------------
+# BAL's observation pass
+# ---------------------------------------------------------------------------
+#
+# The same contract as the stereo pass's at BAL's 9-parameter cameras and
+# 2 residuals (see csrc/bal_obs.cu), without its outlier cut: cut2 and cap
+# must be None, and the truncated cost is the full one. The plain twins
+# are `ops/bal_obs.py`'s `cameras_plain`, `landmarks_plain` and
+# `cost_plain`.
+
+
+def _bal_args(problem, order, huber_delta: float, *uncut):
+    """(_BalArgs, the tensors it points into) of one launch of
+    csrc/bal_obs.cu: the problem's cams, points, uv and w and the kernels'
+    orderings of `order`, all float32 or int32 on one card. `uncut`, the
+    launch's cut2 and cap, must be None."""
+    if any(x is not None for x in uncut):
+        raise ValueError("bal_obs: BAL's pass takes no outlier cut")
+    cams, points, uv, w = [x.contiguous() for x in (
+        problem.cams, problem.points, problem.uv, problem.w)]
+    c, n_l, o = cams.shape[0], points.shape[0], uv.shape[0]
+    _check(cams, "cams", torch.float32, (c, 9))
+    _check(points, "points", torch.float32, (n_l, 3))
+    _check(uv, "uv", torch.float32, (o, 2))
+    _check(w, "w", torch.float32, (o,))
+    _check_aligned(8, uv=uv)
+    made_for = _check_order(order, o)
+    if made_for != (c, n_l):
+        raise ValueError(f"order: made for {made_for} cameras and "
+                         f"landmarks, the problem has {(c, n_l)}")
+    dev = cams.device
+    for t in (points, uv, w, order.cam_rows, order.lm_rows):
+        if t.device != dev:
+            raise ValueError(f"the problem's tensors are on {t.device} and "
+                             f"{dev}")
+    if max(c, n_l, 27 * o) >= 1 << 31:
+        raise ValueError(f"bal_obs: {(c, n_l, o)} do not fit int32")
+    args = _BalArgs(
+        cams.data_ptr(), points.data_ptr(), uv.data_ptr(), w.data_ptr(),
+        order.cam_rows.data_ptr(), order.cam_lms.data_ptr(),
+        order.cam_off.data_ptr(), order.lm_rows.data_ptr(),
+        order.lm_cams.data_ptr(), order.lm_off.data_ptr(),
+        float(huber_delta) * float(huber_delta), c, n_l, o)
+    return args, (cams, points, uv, w)
+
+
+def bal_obs_cameras_cuda(problem, cam, order, cut2, cap, huber_delta: float):
+    """BAL's observation pass by camera in one launch of csrc/bal_obs.cu
+    (and the costs' one-block sum). Same contract as
+    bal_obs.cameras_plain (`cam` is not read); `order` holds the kernels'
+    orderings (schur_order with kernels=True, made with the problem's
+    weights)."""
+    args, keep = _bal_args(problem, order, huber_delta, cut2, cap)
+    dev = keep[0].device
+    W = torch.empty((args.n_obs, 9, 3), dtype=torch.float32, device=dev)
+    hcc = torch.empty((args.n_cams, 9, 9), dtype=torch.float32, device=dev)
+    bc = torch.empty((args.n_cams, 9), dtype=torch.float32, device=dev)
+    part = torch.empty((args.n_cams, 2), dtype=torch.float64, device=dev)
+    cost = torch.empty((), dtype=torch.float32, device=dev)
+    n_kept = torch.empty((), dtype=torch.int32, device=dev)
+    lib = build()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _raise_on(lib.slam_bal_obs_cameras(
+        ctypes.byref(args), W.data_ptr(), hcc.data_ptr(), bc.data_ptr(),
+        part.data_ptr(), cost.data_ptr(), n_kept.data_ptr(), stream),
+        "bal_obs cameras launch")
+    bal_obs_cameras_cuda.launches += 1
+    return ObsTerms(W, hcc, bc, cost, cost, n_kept)
+
+
+# Launches of the three entries.
+bal_obs_cameras_cuda.launches = 0
+
+
+def bal_obs_landmarks_cuda(problem, cam, order, cut2, huber_delta: float):
+    """BAL's observation pass by landmark in one launch of
+    csrc/bal_obs.cu. Same contract as bal_obs.landmarks_plain; `order` as
+    for bal_obs_cameras_cuda."""
+    args, keep = _bal_args(problem, order, huber_delta, cut2)
+    dev = keep[0].device
+    hll = torch.empty((args.n_lms, 3, 3), dtype=torch.float32, device=dev)
+    bl = torch.empty((args.n_lms, 3), dtype=torch.float32, device=dev)
+    if args.n_lms == 0:
+        return hll, bl
+    lib = build()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _raise_on(lib.slam_bal_obs_landmarks(
+        ctypes.byref(args), hll.data_ptr(), bl.data_ptr(), stream),
+        "bal_obs landmarks launch")
+    bal_obs_cameras_cuda.launches += 1
+    return hll, bl
+
+
+def bal_obs_cost_cuda(problem, cam, order, cap, huber_delta: float):
+    """The cost in one launch of csrc/bal_obs.cu (and its one-block sum),
+    the bits bal_obs_cameras_cuda gives at the same estimate, as (full,
+    truncated), the same tensor. Same contract as bal_obs.cost_plain;
+    `order` as for bal_obs_cameras_cuda."""
+    args, keep = _bal_args(problem, order, huber_delta, cap)
+    dev = keep[0].device
+    part = torch.empty((args.n_cams, 2), dtype=torch.float64, device=dev)
+    cost = torch.empty((), dtype=torch.float32, device=dev)
+    lib = build()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _raise_on(lib.slam_bal_obs_cost(ctypes.byref(args), part.data_ptr(),
+                                    cost.data_ptr(), stream),
+              "bal_obs cost launch")
+    bal_obs_cameras_cuda.launches += 1
+    return cost, cost
+
+
+# ---------------------------------------------------------------------------
 # Bundle adjustment's PCG vector update
 # ---------------------------------------------------------------------------
 #
 # One iteration of `ops/cg.cg` after its product Ap = S p, with the
-# block-Jacobi preconditioner z = Minv r (Minv (C,6,6)), and its start
-# after r = b - S x0 (see csrc/ba_cg.cu). The plain twins are that
+# block-Jacobi preconditioner z = Minv r (Minv (C,D,D), D 6 or 9), and its
+# start after r = b - S x0 (see csrc/ba_cg.cu). The plain twins are that
 # iteration's torch operations in their order, and the preconditioner's
 # einsum, so that a loop over them gives `cg`'s bits.
 
 
 def ba_cg_start_plain(r, minv):
-    """Plain twin of ba_cg_start_cuda: z = Minv r -> (p = z (C,6),
+    """Plain twin of ba_cg_start_cuda: z = Minv r -> (p = z (C,D),
     rz = r.z ())."""
     z = torch.einsum("cij,cj->ci", minv, r)
     return z, torch.sum(r * z)
@@ -1065,22 +1240,25 @@ def ba_cg_launch(c: int, max_cluster: int):
 
 
 def _cg_launch(what, r, minv, step=None):
-    """One launch of csrc/ba_cg.cu over r (C,6) and minv (C,6,6): the
-    start (step None) or a step from step = (p, ap, x, rz) -> (x, r, p,
-    rz) as it writes them (x and r None for the start)."""
-    c = r.shape[0]
-    _check(r, "r", torch.float32, (c, 6))
-    _check(minv, "minv", torch.float32, (c, 6, 6))
-    _check_aligned(8, r=r)
-    _check_aligned(16, minv=minv)
+    """One launch of csrc/ba_cg.cu over r (C,D) and minv (C,D,D), D 6 or
+    9: the start (step None) or a step from step = (p, ap, x, rz) -> (x,
+    r, p, rz) as it writes them (x and r None for the start)."""
+    c, d = r.shape[0], r.shape[-1]
+    if r.dim() != 2 or d not in WIDTHS:
+        raise ValueError(f"{what}: r: expected (C,D) with D in {WIDTHS}, "
+                         f"got {tuple(r.shape)}")
+    _check(r, "r", torch.float32, (c, d))
+    _check(minv, "minv", torch.float32, (c, d, d))
+    _check_rows(d, r=r)
+    _check_rows(d, 16, minv=minv)
     if c < 1 or c >= 1 << 31:
         raise ValueError(f"{what}: unsupported C={c}")
     p, ap, x, rz = step if step is not None else (None,) * 4
     x_out = r_out = None
     if step is not None:
         for name, t in (("p", p), ("ap", ap), ("x", x)):
-            _check(t, name, torch.float32, (c, 6))
-            _check_aligned(8, **{name: t})
+            _check(t, name, torch.float32, (c, d))
+            _check_rows(d, **{name: t})
         _check(rz, "rz", torch.float32, ())
         x_out, r_out = torch.empty_like(x), torch.empty_like(r)
     for t in (minv, *(step or ())):
@@ -1090,11 +1268,11 @@ def _cg_launch(what, r, minv, step=None):
     p_out = torch.empty_like(r)
     rz_out = torch.empty((), dtype=torch.float32, device=r.device)
     lib = build()
-    blocks, threads = ba_cg_launch(c, lib.cg_max_cluster)
+    blocks, threads = ba_cg_launch(c, lib.cg_max_cluster[d])
     stream = torch.cuda.current_stream(r.device).cuda_stream
     _raise_on(lib.slam_ba_cg_update(
         _ptr(p), _ptr(ap), _ptr(x), r.data_ptr(), minv.data_ptr(), _ptr(rz),
-        c, CG_EPS, blocks, threads, _ptr(x_out), _ptr(r_out),
+        c, d, CG_EPS, blocks, threads, _ptr(x_out), _ptr(r_out),
         p_out.data_ptr(), rz_out.data_ptr(), stream), f"{what} launch")
     ba_cg_step_cuda.launches += 1
     return x_out, r_out, p_out, rz_out
@@ -1123,7 +1301,8 @@ _COUNTED = {"fast_score": fast_score_cuda, "hamming_top2": hamming_top2_cuda,
             "chain_sweep": chain_sweep_cuda,
             "ba_schur": ba_schur_landmarks_cuda,
             "ba_obs": ba_obs_cameras_cuda,
-            "ba_cg": ba_cg_step_cuda}
+            "ba_cg": ba_cg_step_cuda,
+            "bal_obs": bal_obs_cameras_cuda}
 
 
 def launch_counts() -> dict:

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from slam1_tpu_torch.ops import ba_obs, cuda_kernels, fast
+from slam1_tpu_torch.ops import ba_obs, bal_obs, cuda_kernels, fast
 
 
 def use_cuda(t: torch.Tensor) -> bool:
@@ -118,6 +118,33 @@ def ba_obs_cost(problem, cam, order, cap, huber_delta: float):
     return ba_obs.cost_plain(problem, cam, order, cap, huber_delta)
 
 
+def bal_obs_cameras(problem, cam, order, cut2, cap, huber_delta: float):
+    """BAL's observation pass by camera at the problem's cameras and points
+    -> ba_obs.ObsTerms (W (O,9,3), Hcc (C,9,9), bc (C,9), the costs, the
+    rows kept), as ba_obs_cameras; `cam` is not read (BAL's intrinsics are
+    its cameras')."""
+    if use_cuda(problem.uv):
+        return cuda_kernels.bal_obs_cameras_cuda(problem, cam, order, cut2,
+                                                 cap, huber_delta)
+    return bal_obs.cameras_plain(problem, cam, order, cut2, cap, huber_delta)
+
+
+def bal_obs_landmarks(problem, cam, order, cut2, huber_delta: float):
+    """BAL's observation pass by landmark -> (Hll (L,3,3), bl (L,3))."""
+    if use_cuda(problem.uv):
+        return cuda_kernels.bal_obs_landmarks_cuda(problem, cam, order, cut2,
+                                                   huber_delta)
+    return bal_obs.landmarks_plain(problem, cam, order, cut2, huber_delta)
+
+
+def bal_obs_cost(problem, cam, order, cap, huber_delta: float):
+    """BAL's full and truncated costs -> (full (), truncated ())."""
+    if use_cuda(problem.uv):
+        return cuda_kernels.bal_obs_cost_cuda(problem, cam, order, cap,
+                                              huber_delta)
+    return bal_obs.cost_plain(problem, cam, order, cap, huber_delta)
+
+
 def _contiguous(t):
     return None if t is None else t.contiguous()
 
@@ -133,9 +160,9 @@ def ba_schur_landmarks(W, hll_inv, order, x=None, a=None):
 
 
 def ba_schur_cameras(W, v, order, hcc=None, x=None, b=None):
-    """The camera half of BA's reduced-system product -> (C,6): Hcc x -
-    y with row 0 x_0, or b - y with row 0 zero, y the sums of W v by
-    camera."""
+    """The camera half of BA's reduced-system product -> (C,D): Hcc x -
+    y, or b - y, y the sums of W v by camera; at D = 6 (the stereo rig)
+    row 0, the gauge, is x_0, or zero."""
     fn = (cuda_kernels.ba_schur_cameras_cuda if use_cuda(W)
           else cuda_kernels.ba_schur_cameras_plain)
     return fn(W.contiguous(), v.contiguous(), order, hcc=_contiguous(hcc),
@@ -144,7 +171,7 @@ def ba_schur_cameras(W, v, order, hcc=None, x=None, b=None):
 
 def ba_cg_start(r, minv):
     """The start of BA's block-Jacobi PCG after r = b - S x0 -> (p = Minv
-    r (C,6), rz = r.z ())."""
+    r (C,D), rz = r.z ())."""
     fn = (cuda_kernels.ba_cg_start_cuda if use_cuda(r)
           else cuda_kernels.ba_cg_start_plain)
     return fn(r.contiguous(), minv.contiguous())

@@ -159,3 +159,103 @@ def ba_cg_work(c, start: bool = False):
 
 def bound_ba_cg(c, start: bool = False):
     return bound(*ba_cg_work(c, start), PEAK_F32_FLOPS)
+
+
+# BAL's camera model on the CG path (`ba.BAL`, D = 9): the same kernels'
+# work at 9-parameter cameras and the three launches of csrc/bal_obs.cu.
+# `benchmark/yardstick/bal_bounds.py` keeps a frozen copy.
+
+def bal_schur_work(o, c, l, half: str, x: bool = True, a: bool = False):
+    """(bytes, float32 operations) of one launch of a half of the reduced
+    system's product at D = 9 (`csrc/ba_schur.cu`) over O observations, C
+    cameras and L landmarks:
+      - "landmarks": with x, W (108 bytes) and the ordering's row and
+        camera (8 bytes) an observation, the offsets, x (C,9) and Hll^-1
+        (L,3,3) read, v (L,3) written, 27 multiply-adds an observation
+        and 9 a landmark; without x (a alone) Hll^-1 and a read, v
+        written; a (L,3) read where given;
+      - "cameras": W and the ordering (116 bytes) an observation, the
+        offsets, v (L,3) read once, Hcc (C,9,9) and x or b (C,9) read,
+        the result (C,9) written, 27 multiply-adds an observation and 81 a
+        camera."""
+    if half == "landmarks":
+        n = l * (36 + 12) + (l * 12 if a else 0)
+        ops = 18 * l
+        if x:
+            n += o * (108 + 8) + (l + 1) * 4 + c * 36
+            ops += 54 * o
+        return n, ops
+    if half == "cameras":
+        return (o * (108 + 8) + (c + 1) * 4 + l * 12 + c * (324 + 36 + 36),
+                54 * o + 162 * c)
+    raise ValueError(f"bal_schur_work: no half {half!r}")
+
+
+def bal_obs_work(o, c, l, launch: str):
+    """(bytes, float32 operations) of one launch of BAL's observation pass
+    (`csrc/bal_obs.cu`): every launch reads the cameras (C,9), the points,
+    each observation's uv and w (12 bytes) and its ordering's row and
+    other index (8 bytes), and works out the projection, the residual,
+    its square, the Huber weight and the cut (60 operations: the point
+    into the camera 18, the projection and distortion 20, r and r2 6, the
+    weight and the cut 8, the costs 8). Besides:
+      - "cameras": the Jacobians (A 12, Jl 30, Jc's rotation block 63 and
+        the rest 10), W (81), Hcc's upper triangle (135) and bc (27) an
+        observation; W (108 bytes) an observation, Hcc (324 bytes) and bc
+        (36) a camera written;
+      - "landmarks": A, Jl, Hll's upper triangle (18) and bl (9); Hll
+        (36 bytes) and bl (12) a landmark written;
+      - "cost": two floats written."""
+    reads = c * 36 + l * 12 + o * (12 + 8)
+    if launch == "cameras":
+        return (reads + (c + 1) * 4 + o * 108 + c * (324 + 36),
+                o * (60 + 12 + 30 + 63 + 10 + 81 + 135 + 27))
+    if launch == "landmarks":
+        return (reads + (l + 1) * 4 + l * (36 + 12),
+                o * (60 + 12 + 30 + 18 + 9))
+    if launch == "cost":
+        return reads + (c + 1) * 4 + 8, o * 60
+    raise ValueError(f"bal_obs_work: no launch {launch!r}")
+
+
+def bal_cg_work(c, start: bool = False):
+    """(bytes, float32 operations) of one launch of the PCG's vector
+    update at D = 9 (`csrc/ba_cg.cu`): a step reads p, Ap, x, r (C,9),
+    Minv (C,9,9) and rz and writes x, r, p (C,9) and rz; the start reads
+    r and Minv and writes p and rz."""
+    if start:
+        return c * (36 + 324 + 36) + 4, (162 + 18) * c
+    return (c * (4 * 36 + 324 + 3 * 36) + 8,
+            (18 + 36 + 162 + 18 + 18) * c)
+
+
+def bal_lm_iteration_work(o, c, l, cg_iters):
+    """(bytes, float32 operations) of one LM iteration (a `bal_lm`
+    replay) as the sum of its launches' work: the observation pass's
+    cameras, landmarks and cost launches; the right side (the landmark
+    half on a alone, the camera half on b); the product from x = 0 and
+    cg_iters products (both halves); the back-substitution (the landmark
+    half on x and a); the PCG's start and cg_iters steps."""
+    def add(*works):
+        return (sum(w[0] for w in works), sum(w[1] for w in works))
+    product = add(bal_schur_work(o, c, l, "landmarks"),
+                  bal_schur_work(o, c, l, "cameras"))
+    parts = [bal_obs_work(o, c, l, k) for k in ("cameras", "landmarks", "cost")]
+    parts += [bal_schur_work(o, c, l, "landmarks", x=False, a=True),
+              bal_schur_work(o, c, l, "cameras"),
+              bal_schur_work(o, c, l, "landmarks", x=True, a=True),
+              bal_cg_work(c, start=True)]
+    parts += [product] * (cg_iters + 1) + [bal_cg_work(c)] * cg_iters
+    return add(*parts)
+
+
+def bound_bal_lm_iteration(o, c, l, cg_iters):
+    return bound(*bal_lm_iteration_work(o, c, l, cg_iters), PEAK_F32_FLOPS)
+
+
+def bound_bal_schur(o, c, l, half, x=True, a=False):
+    return bound(*bal_schur_work(o, c, l, half, x, a), PEAK_F32_FLOPS)
+
+
+def bound_bal_obs(o, c, l, launch):
+    return bound(*bal_obs_work(o, c, l, launch), PEAK_F32_FLOPS)

@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from slam1_tpu_torch.ops import se3
+from slam1_tpu_torch.utils.metrics import traced
 
 
 def save_kitti_poses(path: str, poses: np.ndarray) -> str:
@@ -59,21 +60,42 @@ def save_bal(path: str, poses, points, cam_idx, lm_idx, uv, w,
     return path
 
 
+def write_bal(path: str, cams, points, cam_idx, lm_idx, uv) -> str:
+    """Write a BAL problem in BAL's own cameras (C,9) [rvec, t, f, k1, k2],
+    points (L,3) and principal-point-centred observations (O,2) of
+    cameras cam_idx and points lm_idx, as `load_bal` reads it."""
+    obs = np.column_stack([np.asarray(cam_idx), np.asarray(lm_idx),
+                           np.asarray(uv, np.float64)])
+    with open(path, "w") as f:
+        f.write(f"{len(cams)} {len(points)} {len(obs)}\n")
+        np.savetxt(f, obs, fmt=["%d", "%d", "%.17g", "%.17g"])
+        np.savetxt(f, np.asarray(cams, np.float64).reshape(-1, 1),
+                   fmt="%.17g")
+        np.savetxt(f, np.asarray(points, np.float64).reshape(-1, 1),
+                   fmt="%.17g")
+    return path
+
+
+@traced("host:bal.load")
 def load_bal(path: str):
-    """Read a BAL file -> dict of arrays."""
+    """Read a BAL file -> dict of arrays (cam_idx, lm_idx int32; uv,
+    cameras (C,9), points (L,3) float64), numpy in bulk: the header, the
+    observation lines, then one value a line (any whitespace). Each call
+    is the span `host:bal.load` (`utils/metrics.py`)."""
     with open(path) as f:
         n_cams, n_pts, n_obs = map(int, f.readline().split())
-        cam_idx = np.empty(n_obs, np.int32)
-        lm_idx = np.empty(n_obs, np.int32)
-        uv = np.empty((n_obs, 2), np.float64)
-        for i in range(n_obs):
-            c, l, u, v = f.readline().split()
-            cam_idx[i], lm_idx[i] = int(c), int(l)
-            uv[i] = (float(u), float(v))
-        cams = np.array([float(f.readline()) for _ in range(9 * n_cams)])
-        pts = np.array([float(f.readline()) for _ in range(3 * n_pts)])
+        vals = np.fromstring(f.read(), dtype=np.float64, sep=" ")
+    need = 4 * n_obs + 9 * n_cams + 3 * n_pts
+    if vals.size < need:
+        raise ValueError(f"{path}: {vals.size} values after the header, "
+                         f"{need} expected")
+    obs = vals[:4 * n_obs].reshape(n_obs, 4)
+    cams = vals[4 * n_obs:4 * n_obs + 9 * n_cams]
+    pts = vals[4 * n_obs + 9 * n_cams:need]
     return {
-        "cam_idx": cam_idx, "lm_idx": lm_idx, "uv": uv,
+        "cam_idx": obs[:, 0].astype(np.int32),
+        "lm_idx": obs[:, 1].astype(np.int32),
+        "uv": np.ascontiguousarray(obs[:, 2:]),
         "cameras": cams.reshape(n_cams, 9),
         "points": pts.reshape(n_pts, 3),
     }

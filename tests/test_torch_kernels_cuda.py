@@ -9,7 +9,10 @@ NCCL, collectives inside, the tracer's spans against the CUDA
 profiler's annotations, every stream synchronization of the SLAM
 driver counted as a wait, BA's reduced-system halves counted per
 LM iteration, and BA's PCG vector update against its twins and its
-arithmetic, graphed equal to eager and counted per LM iteration).
+arithmetic, graphed equal to eager and counted per LM iteration; BAL's
+camera model on the same path: the D = 9 halves and update and the
+three launches of csrc/bal_obs.cu against their twins, `bal_lm` graphed
+equal to eager and counted per replay).
 
 Every test here is marked `cuda` and skips where there is no card (the
 kernels have no CPU mode). The file imports torch and the port only,
@@ -237,7 +240,7 @@ def test_vo_slice_launches_both_kernels(cuda_device):
                                             "chain_sweep": 0,
                                             "ba_schur": 0,
                                             "ba_obs": 0,
-                                            "ba_cg": 0}
+                                            "ba_cg": 0, "bal_obs": 0}
     assert np.isfinite(poses).all()
     assert np.mean([bool(m.pnp_ok) for m in metrics]) > 0.5
 
@@ -1398,7 +1401,7 @@ def _cg_launch_as(t, blocks, threads, step):
     ptr = (lambda k: t[k].data_ptr()) if step else (lambda k: None)
     err = cuda_kernels.build().slam_ba_cg_update(
         ptr("p"), ptr("ap"), ptr("x"), t["r"].data_ptr(),
-        t["minv"].data_ptr(), ptr("rz"), c, cuda_kernels.CG_EPS, blocks,
+        t["minv"].data_ptr(), ptr("rz"), c, 6, cuda_kernels.CG_EPS, blocks,
         threads, x.data_ptr() if step else None,
         r.data_ptr() if step else None, p.data_ptr(), rz.data_ptr(),
         torch.cuda.current_stream().cuda_stream)
@@ -1418,7 +1421,7 @@ def test_ba_cg_kernel_matches_its_arithmetic_and_the_twins(cuda_device,
     c, live = CG_SHAPES[shape]
     t = cg_inputs(c, 7, cuda_device, live)
     lib = cuda_kernels.build()
-    blocks, threads = cuda_kernels.ba_cg_launch(c, lib.cg_max_cluster)
+    blocks, threads = cuda_kernels.ba_cg_launch(c, lib.cg_max_cluster[6])
     args = [t[k] for k in ("p", "ap", "x", "r", "minv", "rz")]
     start = cuda_kernels.ba_cg_start_cuda(t["r"], t["minv"])
     step = cuda_kernels.ba_cg_step_cuda(*args)
@@ -1531,3 +1534,161 @@ def test_ba_cg_counted_per_replay_graphed_equal_to_eager(cuda_device):
         st, _, _ = pipeline.slam_step(st, lefts[k], rights[k], world.cam,
                                       tcfg, draws)
     assert launches(lambda: pipeline.local_ba_step(st, world.cam, tcfg)) == 0
+
+
+# ---------------------------------------------------------------------------
+# BAL's camera model on the CG path (D = 9)
+# ---------------------------------------------------------------------------
+
+# The kernels against the twins on the CPU: float32 terms in the twins'
+# order but the card's sines and cosines and other float64 sum orders,
+# within 1e-5 of each block's largest entry (measured: see PERF.md).
+BAL_TOL = 1e-5
+
+
+def _bal_rel(got, want):
+    want = want.double()
+    return float((got.cpu().double() - want).abs().max()
+                 / want.abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("padded", [True, False],
+                         ids=["padded", "unpadded"])
+def test_bal_obs_kernels_match_plain(cuda_device, padded):
+    """csrc/bal_obs.cu's three launches against ops/bal_obs.py's twins on
+    a 12-camera problem with or without padding rows of weight zero: W,
+    Hcc, bc, Hll, bl and the cost within BAL_TOL, the kept rows equal,
+    the padding's W rows zero; a second launch gives the same bits, and
+    the cost launch the cameras launch's cost; a cut is refused (BAL's
+    model cuts no observation)."""
+    from slam1_tpu_torch.ops import bal_obs
+    from test_torch_bal_shared import bal_problem
+    p, _, _ = bal_problem(5)
+    if padded:
+        w = p.w.clone()
+        w[::17] = 0.0
+        p = p._replace(w=w)
+    plain = cuda_kernels.SchurOrder(p.cam_idx.long(), p.lm_idx.long())
+    twin = bal_obs.cameras_plain(p, (), plain, None, None, 2.0)
+    twin_l = bal_obs.landmarks_plain(p, (), plain, None, 2.0)
+    pg = type(p)(*[x.to(cuda_device) for x in p])
+    order = cuda_kernels.schur_order(pg.cam_idx, pg.lm_idx,
+                                     pg.cams.shape[0], pg.points.shape[0],
+                                     kernels=True, w=pg.w)
+
+    def launch():
+        return (cuda_kernels.bal_obs_cameras_cuda(pg, (), order, None, None,
+                                                  2.0),
+                cuda_kernels.bal_obs_landmarks_cuda(pg, (), order, None,
+                                                    2.0),
+                cuda_kernels.bal_obs_cost_cuda(pg, (), order, None, 2.0))
+    first, again = launch(), launch()
+    for a, b in zip(flatten(first), flatten(again), strict=True):
+        assert torch.equal(_bits(a), _bits(b))
+    obs, (hll, bl), cost = first
+    assert torch.equal(_bits(cost[0]), _bits(obs.full))
+    assert torch.equal(_bits(obs.trunc), _bits(obs.full))
+    for name, got, want in zip(("W", "Hcc", "bc", "Hll", "bl", "cost"),
+                               (obs.W, obs.hcc, obs.bc, hll, bl, obs.full),
+                               (twin.W, twin.hcc, twin.bc, *twin_l,
+                                twin.full)):
+        rel = _bal_rel(got, want)
+        print(f"bal_obs padded={padded} {name}: {rel:.3g} of its largest "
+              f"entry")
+        assert rel <= BAL_TOL, (name, rel)
+    assert int(obs.n_kept) == int(twin.n_kept)
+    assert bool((obs.W.cpu()[p.w == 0] == 0).all())
+    with pytest.raises(ValueError, match="no outlier cut"):
+        cuda_kernels.bal_obs_cameras_cuda(
+            pg, (), order, torch.tensor(256.0, device=cuda_device), None,
+            2.0)
+
+
+def test_ba_schur_and_cg_at_d9_match_plain(cuda_device):
+    """Both halves of the product at D = 9 (no row held) and the PCG's
+    start and step at D = 9, against their twins on the CPU within
+    BAL_TOL; a second launch gives the same bits."""
+    from test_torch_bal_shared import bal_problem
+    p, _, _ = bal_problem(3)
+    C, L = p.cams.shape[0], p.points.shape[0]
+    g = torch.Generator().manual_seed(3)
+    W = torch.randn(p.uv.shape[0], 9, 3, generator=g)
+    hinv = torch.randn(L, 3, 3, generator=g)
+    hcc = torch.randn(C, 9, 9, generator=g)
+    x, b = torch.randn(C, 9, generator=g), torch.randn(C, 9, generator=g)
+    a = torch.randn(L, 3, generator=g)
+    plain = cuda_kernels.SchurOrder(p.cam_idx.long(), p.lm_idx.long())
+    dev = cuda_device
+    order = cuda_kernels.schur_order(p.cam_idx.to(dev), p.lm_idx.to(dev), C,
+                                     L, kernels=True)
+    Wg, hg = W.to(dev), hinv.to(dev)
+    v = cuda_kernels.ba_schur_landmarks_plain(W, hinv, plain, x=x, a=a)
+    vg = cuda_kernels.ba_schur_landmarks_cuda(Wg, hg, order, x=x.to(dev),
+                                              a=a.to(dev))
+    assert torch.equal(_bits(vg), _bits(cuda_kernels.ba_schur_landmarks_cuda(
+        Wg, hg, order, x=x.to(dev), a=a.to(dev))))
+    assert _bal_rel(vg, v) <= BAL_TOL
+    for kw in (dict(hcc=hcc, x=x), dict(b=b)):
+        want = cuda_kernels.ba_schur_cameras_plain(W, v, plain, **kw)
+        got = cuda_kernels.ba_schur_cameras_cuda(
+            Wg, v.to(dev), order, **{k: t.to(dev) for k, t in kw.items()})
+        assert _bal_rel(got, want) <= BAL_TOL, list(kw)
+    minv = torch.randn(C, 9, 9, generator=g)
+    minv = minv @ minv.transpose(1, 2)
+    start = cuda_kernels.ba_cg_start_cuda(b.to(dev), minv.to(dev))
+    twin_start = cuda_kernels.ba_cg_start_plain(b, minv)
+    for got, want in zip(start, twin_start):
+        assert _bal_rel(got, want) <= BAL_TOL
+    ap = torch.randn(C, 9, generator=g)
+    args = (twin_start[0], ap, x, b, minv, twin_start[1])
+    step = cuda_kernels.ba_cg_step_cuda(*[t.to(dev) for t in args])
+    for got, want in zip(step, cuda_kernels.ba_cg_step_plain(*args)):
+        assert _bal_rel(got, want) <= 10 * BAL_TOL
+
+
+def test_bal_lm_graphed_equal_to_eager_and_counted(cuda_device):
+    """bal_adjust on the card: a warm graphed call makes no host sync and
+    equals graphs=False to the bit; a `bal_lm` replay launches bal_obs 3
+    times, ba_schur 2 (cg_iters + 1) + 3 and ba_cg cg_iters + 1 times
+    (133 and 65 at BAConfig()), a `bal_cost` replay bal_obs once; the
+    stereo path launches no bal_obs; the result is close to the CPU's."""
+    from slam1_tpu_torch.config import BAConfig
+    from slam1_tpu_torch.models import ba, bal
+    from test_torch_bal_shared import bal_problem
+    cfg = BAConfig()
+    p, _, _ = bal_problem(11, n_cams=16)
+    pg = type(p)(*[x.to(cuda_device) for x in p])
+
+    def launches(fn, name):
+        fn()                                                  # warm
+        torch.cuda.synchronize()
+        before = cuda_kernels.launch_counts()[name]
+        fn()
+        torch.cuda.synchronize()
+        return cuda_kernels.launch_counts()[name] - before
+
+    ba.BA_GRAPHS.clear()
+    try:
+        eager = bal.bal_adjust(pg, cfg, graphs=False)
+        bal.bal_adjust(pg, cfg)
+        graphed = _synced_call(lambda: bal.bal_adjust(pg, cfg))
+        for x, y in zip(flatten(eager), flatten(graphed), strict=True):
+            assert torch.equal(_bits(x), _bits(y))
+        graphs = one_each(GRAPHS, "ba")
+        assert set(graphs) == {"bal_lm", "bal_cost"}
+        per_lm = cfg.cg_iters + 1
+        assert graphs["bal_lm"].launches == {
+            "bal_obs": 3, "ba_schur": 2 * per_lm + 3, "ba_cg": per_lm}
+        assert graphs["bal_cost"].launches == {"bal_obs": 1}
+        assert per_lm == 65 and 2 * per_lm + 3 == 133
+        carry = ba._lm_carry(pg, (), cfg, False, ba.BAL)
+        assert launches(lambda: graphs["bal_lm"](carry), "bal_obs") == 3
+        assert launches(lambda: graphs["bal_cost"](carry), "bal_obs") == 1
+        s, _, _, cam = synthetic.ba_problem(0, n_cams=24, px_noise=0.3,
+                                            device=cuda_device)
+        assert launches(lambda: ba.bundle_adjust(
+            s, cam, BAConfig(lm_iters=2, cg_iters=8)), "bal_obs") == 0
+    finally:
+        ba.BA_GRAPHS.clear()
+    cpu, cost_cpu = bal.bal_adjust(p, cfg)
+    assert abs(float(graphed[1]) - float(cost_cpu)) <= 1e-4 * float(cost_cpu)
